@@ -1,0 +1,106 @@
+"""Builds the CUDA kernels in `csrc/` with nvcc and binds them with ctypes.
+
+Each `csrc/<name>.cu` becomes `lib<name>.so`, a plain C interface, in
+`_kbuild/<digest>/` beside this file (listed in .gitignore). The digest
+covers every source, header and flag, so an edit rebuilds. All missing
+libraries are compiled at once, one nvcc process per source. Nothing is
+built when the package is imported: the first launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_ROOT = os.path.join(_HERE, "_kbuild")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC")
+
+# C entry points per source: "p" = pointer or stream, "i" = int.
+# Every entry returns its cudaGetLastError() as an int.
+SIGNATURES = {
+    "ntt": {"ntt_fwd": "ppppiiiip", "ntt_inv": "ppppiiip"},
+    "tensor3": {"fwd_tensor3": "ppppiiip"},
+    "inv_ks": {"inv_ks": "ppppppiiiip"},
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
+                           "PATH to build sunscreen_tpu_torch/csrc")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source not yet built for the current digest,
+    concurrently; returns {name: path of the shared library}."""
+    out_dir = os.path.join(BUILD_ROOT, _digest())
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {s: os.path.join(out_dir, f"lib{s}.so") for s in SIGNATURES}
+    todo = [s for s in SIGNATURES if not os.path.exists(paths[s])]
+    if todo:
+        nvcc = _nvcc()
+        procs = {
+            s: subprocess.Popen(
+                [nvcc, *FLAGS, "-o", paths[s] + ".tmp",
+                 os.path.join(CSRC, s + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s in todo}
+        errors = []
+        for s, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode:
+                errors.append(f"--- {s}.cu (rc {proc.returncode}) ---\n{log}")
+            else:
+                os.replace(paths[s] + ".tmp", paths[s])
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return paths
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, building it first if needed."""
+    if name not in _LIBS:
+        so = ctypes.CDLL(build_all()[name])
+        for fn, sig in SIGNATURES[name].items():
+            f = getattr(so, fn)
+            f.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                          for c in sig]
+            f.restype = ctypes.c_int
+        _LIBS[name] = so
+    return _LIBS[name]
+
+
+def launch(name: str, fn: str, *args) -> None:
+    """Call a C entry with tensors as pointers and ints as ints, on the
+    current CUDA stream; raises on a non-zero CUDA error code."""
+    import torch
+
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    conv.append(torch.cuda.current_stream().cuda_stream)
+    rc = getattr(lib(name), fn)(*conv)
+    if rc != 0:
+        raise RuntimeError(f"{name}.{fn}: CUDA error {rc}")

@@ -1,0 +1,94 @@
+"""BfvContext: the bases, NTT plans, converters, scalers and Δ tables
+of one parameter set on one device (port of
+`sunscreen_tpu/bfv/context.py`; the Galois tables are not ported yet).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import torch
+
+from sunscreen_tpu_torch import resolve_device
+from sunscreen_tpu_torch.bfv.params import BfvParams
+from sunscreen_tpu_torch.math import ntt, primes, rns
+from sunscreen_tpu_torch.math.modular import U32_MAX_MODULUS_BITS, s64
+
+AUX_PRIME_BITS_U32 = 30
+
+
+def _aux_base_size(params: BfvParams, aux_bits: int) -> int:
+    """#aux primes B so that B holds round(t*x/Q) for tensor coefficients:
+    need prod(B)/2 > t*N*Q/4 (centered operands)."""
+    bound_bits = (params.plain_modulus.bit_length()
+                  + params.poly_degree.bit_length()
+                  + params.q_product.bit_length() + 2)
+    return max(len(params.coeff_modulus) + 1,
+               math.ceil(bound_bits / aux_bits))
+
+
+class BfvContext:
+    def __init__(self, params: BfvParams, device):
+        self.params = params
+        n, t, q_mods = (params.poly_degree, params.plain_modulus,
+                        params.coeff_modulus)
+        self.n, self.t, self.k = n, t, len(q_mods)
+        mods = q_mods + (params.special_modulus,)
+        if max(q.bit_length() for q in mods) > U32_MAX_MODULUS_BITS:
+            raise ValueError("only the u32 engine (every modulus < 2^30) "
+                             "is ported")
+
+        # --- bases ---------------------------------------------------------
+        self.q_base = rns.RnsBase(q_mods, device)
+        self.device = self.q_base.device
+        aux = tuple(primes.gen_ntt_primes(
+            AUX_PRIME_BITS_U32, _aux_base_size(params, AUX_PRIME_BITS_U32),
+            n, skip=mods))
+        self.aux_base = rns.RnsBase(aux, device)
+        self.mul_base = rns.RnsBase(q_mods + aux, device)    # Q ∪ B
+        self.key_mods = mods                                 # Q ∪ {p}
+        self.key_base = rns.RnsBase(mods, device)
+
+        # --- NTT plans -------------------------------------------------------
+        self.plan_q = ntt.get_plan(n, q_mods, self.device)
+        self.plan_mul = ntt.get_plan(n, self.mul_base.moduli, self.device)
+        self.plan_key = ntt.get_plan(n, self.key_mods, self.device)
+
+        # --- converters / scalers -------------------------------------------
+        self.conv_q_to_aux = rns.BaseConverter(self.q_base, self.aux_base)
+        self.conv_aux_to_q = rns.BaseConverter(self.aux_base, self.q_base)
+        self.scale_mul_to_aux = rns.ScaleAndRound(
+            self.mul_base, self.q_base, self.aux_base, t)
+        self.decrypt_scaler = rns.DecryptScaler(self.q_base, t)
+        self.mod_down = rns.ModDown(self.q_base, params.special_modulus)
+
+        # --- Δ = round(Q*m/t) tables (see ops.scale_plain) ------------------
+        Q = params.q_product
+        w = Q // t
+
+        def col(vals):
+            return torch.tensor(vals, dtype=torch.int64,
+                                device=self.device).reshape(-1, 1)
+
+        self.delta_mod_q = col([w % q for q in q_mods])
+        fr = (((Q % t) << 128) + t - 1) // t  # ceil; error positive
+        self.delta_frac_hi = col([s64(fr >> 64)])
+        self.delta_frac_lo = col([s64(fr)])
+
+        # p_sp * D_i mod each key modulus (D_i: CRT idempotent of q_i in Q)
+        P = params.special_modulus
+        self.ksk_factor = torch.tensor(
+            [[P * self.q_base.punctured[i] * self.q_base.inv_punctured[i]
+              % qj for qj in self.key_mods] for i in range(self.k)],
+            dtype=torch.int64, device=self.device)           # [k, k+1]
+
+
+@lru_cache(maxsize=16)
+def _context_cached(params: BfvParams, device: torch.device) -> BfvContext:
+    return BfvContext(params, device)
+
+
+def get_context(params: BfvParams, device=None) -> BfvContext:
+    """Cached context; `device` None means CUDA."""
+    return _context_cached(params, resolve_device(device))

@@ -1,0 +1,109 @@
+"""BFV key generation (port of `sunscreen_tpu/bfv/keys.py`): secret,
+public and relinearization keys, stored in the NTT domain, plus
+`from_reference` to carry the JAX package's key material over.
+
+Keys are sampled from an explicit `torch.Generator`. The NTT domain is
+the reference's, so `from_reference` is only a dtype and device move.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from sunscreen_tpu_torch.bfv.context import BfvContext
+from sunscreen_tpu_torch.math import modular as m
+from sunscreen_tpu_torch.math import sampling
+
+
+@dataclass(frozen=True)
+class SecretKey:
+    s: torch.Tensor            # int8 [N] ternary
+    s_ntt_q: torch.Tensor      # [k, N] NTT over Q
+    s_ntt_key: torch.Tensor    # [k+1, N] NTT over Q ∪ {p_sp}
+
+
+@dataclass(frozen=True)
+class PublicKey:
+    p0: torch.Tensor           # [k, N] NTT domain
+    p1: torch.Tensor           # [k, N] NTT domain
+
+
+@dataclass(frozen=True)
+class KswKey:
+    """One key-switching key: digit-major [k, k+1, N], NTT domain."""
+    k0: torch.Tensor
+    k1: torch.Tensor
+
+
+def _noise_ntt(ctx: BfvContext, gen, base, plan):
+    e = sampling.cbd(gen, (ctx.n,), ctx.device)
+    return plan.fwd(sampling.signed_to_rns(e, base.q))
+
+
+def gen_secret_key(ctx: BfvContext, gen: torch.Generator) -> SecretKey:
+    s = sampling.ternary(gen, (ctx.n,), ctx.device)
+    return SecretKey(
+        s, ctx.plan_q.fwd(sampling.signed_to_rns(s, ctx.q_base.q)),
+        ctx.plan_key.fwd(sampling.signed_to_rns(s, ctx.key_base.q)))
+
+
+def gen_public_key(ctx: BfvContext, sk: SecretKey,
+                   gen: torch.Generator) -> PublicKey:
+    a = sampling.uniform_mod_q(gen, (ctx.n,), ctx.q_base)  # NTT-invariant
+    e = _noise_ntt(ctx, gen, ctx.q_base, ctx.plan_q)
+    q = ctx.q_base.q
+    p0 = m.neg_mod(m.add_mod(ctx.plan_q.pointwise_mul(a, sk.s_ntt_q), e, q),
+                   q)
+    return PublicKey(p0, a)
+
+
+def gen_ksw_key(ctx: BfvContext, sk: SecretKey, w_ntt_key,
+                gen: torch.Generator) -> KswKey:
+    """For each digit i: k0[i] = -(a_i s + e_i) + p_sp D_i w, k1[i] = a_i,
+    with w given in NTT form over the key base."""
+    kb = ctx.key_base
+    q = kb.q
+    k0s, k1s = [], []
+    for i in range(ctx.k):
+        a = sampling.uniform_mod_q(gen, (ctx.n,), kb)
+        e = _noise_ntt(ctx, gen, kb, ctx.plan_key)
+        body = w_ntt_key * ctx.ksk_factor[i].reshape(-1, 1) % q
+        mask = m.add_mod(ctx.plan_key.pointwise_mul(a, sk.s_ntt_key), e, q)
+        k0s.append(m.sub_mod(body, mask, q))
+        k1s.append(a)
+    return KswKey(torch.stack(k0s), torch.stack(k1s))
+
+
+def gen_relin_key(ctx: BfvContext, sk: SecretKey,
+                  gen: torch.Generator) -> KswKey:
+    s2 = ctx.plan_key.pointwise_mul(sk.s_ntt_key, sk.s_ntt_key)
+    return gen_ksw_key(ctx, sk, s2, gen)
+
+
+def from_reference(ctx: BfvContext, *, s=None, s_ntt_q=None, s_ntt_key=None,
+                   p0=None, p1=None, k0=None, k1=None):
+    """Key material of the JAX package, as numpy arrays, moved into the
+    port's dataclasses on `ctx.device`. Returns (SecretKey or None,
+    PublicKey or None, KswKey or None) for whichever groups were given;
+    a secret key given only as `s` gets its NTT images computed here."""
+
+    def dev(a, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(a).astype(np.int64),
+                               device=ctx.device).to(dtype)
+
+    sk = pk = rlk = None
+    if s is not None:
+        s_t = dev(s, torch.int8)
+        sq = (ctx.plan_q.fwd(sampling.signed_to_rns(s_t, ctx.q_base.q))
+              if s_ntt_q is None else dev(s_ntt_q))
+        skey = (ctx.plan_key.fwd(sampling.signed_to_rns(s_t, ctx.key_base.q))
+                if s_ntt_key is None else dev(s_ntt_key))
+        sk = SecretKey(s_t, sq, skey)
+    if p0 is not None:
+        pk = PublicKey(dev(p0), dev(p1))
+    if k0 is not None:
+        rlk = KswKey(dev(k0), dev(k1))
+    return sk, pk, rlk

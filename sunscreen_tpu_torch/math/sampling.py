@@ -1,0 +1,61 @@
+"""Randomness for the lattice schemes: uniform mod q, ternary and CBD
+noise, drawn from an explicit `torch.Generator`.
+
+Same distributions as `sunscreen_tpu/math/sampling.py`; the bits differ
+(threefry there, the generator's own stream here), so tests that need
+identical keys or ciphertexts inject the reference's values instead.
+Samples are drawn on the generator's device and moved to `device`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+CBD_WEIGHT = 21  # CBD(21): variance 21/2, sigma ~ 3.24 (SEAL sigma = 3.2)
+_R62 = 1 << 62
+
+
+def _draw(gen: torch.Generator, high: int, shape, device):
+    x = torch.randint(0, high, tuple(shape), generator=gen,
+                      device=gen.device, dtype=torch.int64)
+    return x.to(device)
+
+
+def uniform_mod_q(gen: torch.Generator, shape, base) -> torch.Tensor:
+    """Uniform residues [..., k, N] in [0, q_i) per limb of `base` (an
+    `rns.RnsBase`); `shape` excludes the limb axis. Two exact 62-bit
+    draws make a 124-bit value, reduced mod q: statistical distance
+    below 2^-94 from uniform."""
+    full = tuple(shape[:-1]) + (base.k, shape[-1])
+    q = base.q
+    hi = _draw(gen, _R62, full, base.device) % q
+    lo = _draw(gen, _R62, full, base.device) % q
+    return (hi * (_R62 % q) + lo) % q
+
+
+def ternary(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniform in {-1, 0, 1}, as int8."""
+    return (_draw(gen, 3, shape, device) - 1).to(torch.int8)
+
+
+def _popcount(x):
+    """Population count of nonnegative int64 values below 2^32."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x * 0x01010101 & 0xFFFFFFFF) >> 24
+
+
+def cbd(gen: torch.Generator, shape, device,
+        weight: int = CBD_WEIGHT) -> torch.Tensor:
+    """Centered binomial popcount(a) - popcount(b) over `weight` bits
+    each: int32 in [-weight, weight], sigma = sqrt(weight / 2)."""
+    a = _draw(gen, 1 << weight, shape, device)
+    b = _draw(gen, 1 << weight, shape, device)
+    return (_popcount(a) - _popcount(b)).to(torch.int32)
+
+
+def signed_to_rns(x, q) -> torch.Tensor:
+    """Small signed ints [..., N] (|x| < min q_i) -> residues
+    [..., k, N] for the moduli column q [k, 1]."""
+    return x.to(torch.int64).unsqueeze(-2) % q

@@ -1,0 +1,130 @@
+"""The port's BFV slice (keygen, encrypt, multiply_relin, decrypt, noise
+budget) against the JAX package and its frozen u32 golden vectors,
+bit for bit. The reference's relinearization key is built exactly as
+tests/test_golden_u32.py builds it, in its "pallas" NTT mode, and carried
+over with `keys.from_reference`."""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from sunscreen_tpu_torch.bfv import BfvParams, get_context, keys, ops
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "golden_u32_v1.npz")
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return np.load(FIXTURE)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's params, secret key and relin key under the pallas
+    NTT mode (env var set only inside this fixture)."""
+    prev = os.environ.get("SUNSCREEN_TPU_NTT")
+    os.environ["SUNSCREEN_TPU_NTT"] = "pallas"
+    try:
+        from sunscreen_tpu.bfv import BfvParams as RefParams
+        from sunscreen_tpu.bfv import get_context as ref_context
+        from sunscreen_tpu.bfv import keys as ref_keys
+
+        params = RefParams.insecure(512, limbs=3, limb_bits=27)
+        ctx = ref_context(params)
+        assert ctx.plan_q.mode == "pallas", ctx.plan_q.mode
+        key = jax.random.key(1000)
+        sk = ref_keys.gen_secret_key(ctx, jax.random.fold_in(key, 0))
+        rlk = ref_keys.gen_relin_key(ctx, sk, jax.random.fold_in(key, 2))
+        yield params, {name: np.asarray(v) for name, v in (
+            ("s", sk.s), ("s_ntt_q", sk.s_ntt_q),
+            ("s_ntt_key", sk.s_ntt_key), ("k0", rlk.k0), ("k1", rlk.k1))}
+    finally:
+        if prev is None:
+            os.environ.pop("SUNSCREEN_TPU_NTT", None)
+        else:
+            os.environ["SUNSCREEN_TPU_NTT"] = prev
+
+
+@pytest.fixture(scope="module")
+def port(golden, reference):
+    """The port's context and the reference's keys carried over."""
+    ctx = get_context(BfvParams.insecure(512, limbs=3, limb_bits=27), "cpu")
+    _, ref = reference
+    sk, _, rlk = keys.from_reference(ctx, s=golden["sk"], k0=ref["k0"],
+                                     k1=ref["k1"])
+    return ctx, sk, rlk
+
+
+def test_params_match_reference(golden, reference):
+    params, _ = reference
+    ours = BfvParams.insecure(512, limbs=3, limb_bits=27)
+    got = [ours.poly_degree, ours.plain_modulus, *ours.coeff_modulus,
+           ours.special_modulus]
+    assert got == [int(v) for v in golden["params"]]
+    assert (ours.coeff_modulus, ours.special_modulus) == \
+        (params.coeff_modulus, params.special_modulus)
+    ref_u32 = type(params).default_u32(8192)
+    ours_u32 = BfvParams.default_u32(8192)
+    assert (ours_u32.plain_modulus, ours_u32.coeff_modulus,
+            ours_u32.special_modulus) == (ref_u32.plain_modulus,
+                                          ref_u32.coeff_modulus,
+                                          ref_u32.special_modulus)
+
+
+def test_from_reference_is_a_move(golden, reference, port):
+    """Same NTT layout: the port's own transforms of the reference's s
+    reproduce the reference's stored NTT images."""
+    _, ref = reference
+    ctx, sk, rlk = port
+    np.testing.assert_array_equal(sk.s.numpy(), golden["sk"])
+    np.testing.assert_array_equal(sk.s_ntt_q.numpy(), ref["s_ntt_q"])
+    np.testing.assert_array_equal(sk.s_ntt_key.numpy(), ref["s_ntt_key"])
+    assert rlk.k0.dtype == torch.int64 and rlk.k0.shape == ref["k0"].shape
+    moved, _, _ = keys.from_reference(ctx, s=ref["s"],
+                                      s_ntt_q=ref["s_ntt_q"],
+                                      s_ntt_key=ref["s_ntt_key"])
+    assert torch.equal(moved.s_ntt_key, sk.s_ntt_key)
+
+
+def test_multiply_relin_matches_golden(golden, port):
+    ctx, sk, rlk = port
+    ct = torch.from_numpy(golden["ct"].astype(np.int64))
+    prod = ops.multiply_relin(ctx, ct, ct, rlk)
+    np.testing.assert_array_equal(prod.numpy(), golden["mul_relin"])
+    np.testing.assert_array_equal(ops.decrypt(ctx, sk, prod).numpy(),
+                                  golden["dec_mul"])
+    assert float(ops.invariant_noise_budget(ctx, sk, prod)) == \
+        float(golden["noise_budget"][0])
+
+
+def _negacyclic_square(a, t):
+    conv = np.convolve(a, a)
+    n = a.shape[0]
+    res = conv[:n].copy()
+    res[:n - 1] -= conv[n:]
+    return np.mod(res, t)
+
+
+def test_native_roundtrip():
+    """Port-native keys and randomness from a torch generator: encrypt,
+    multiply_relin and decrypt a batch against the numpy oracle."""
+    ctx = get_context(BfvParams.insecure_u32(512, limbs=3, limb_bits=27),
+                      "cpu")
+    gen = torch.Generator().manual_seed(7)
+    sk = keys.gen_secret_key(ctx, gen)
+    pk = keys.gen_public_key(ctx, sk, gen)
+    rlk = keys.gen_relin_key(ctx, sk, gen)
+    pts = torch.randint(0, ctx.t, (2, ctx.n), generator=gen)
+    cts = ops.encrypt(ctx, pk, pts, gen)
+    assert torch.equal(ops.decrypt(ctx, sk, cts), pts)
+    assert torch.equal(ops.decrypt(ctx, sk, ops.add(ctx, cts, cts)),
+                       2 * pts % ctx.t)
+    prod = ops.multiply_relin(ctx, cts, cts, rlk)
+    dec = ops.decrypt(ctx, sk, prod).numpy()
+    for r in range(2):
+        np.testing.assert_array_equal(
+            dec[r], _negacyclic_square(pts[r].numpy(), ctx.t))
+    assert np.all(ops.invariant_noise_budget(ctx, sk, prod) > 0)
