@@ -5,14 +5,20 @@
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc`, holds
 each kernel bit for bit against its plain PyTorch twin at the shapes of
-the main path, then drives the main path: BFV keygen, encryption and
-batched ct×ct `multiply_relin` at N=8192 with `BfvParams.default_u32`,
-batch 64. A decrypt gate checks the products against a numpy
-negacyclic oracle before timing, and one product is checked bit for bit
-against the same op on the CPU. Prints the card, each kernel's times and
-launch counts as one JSON line, the ops/s, and as the last line
-{"ok": true, "device": {...}}. Exits non-zero, printing no result, when
-no GPU is visible or any check fails.
+the main path (the fused RNS kernels also at the `default_u32(16384)`
+bases), then drives two paths at N=8192 with `BfvParams.default_u32`,
+batch 64, each with the launch counts set to 0 just before it:
+
+* keygen, encryption and batched ct×ct `multiply_relin`;
+* Galois keygen and the rotations `rotate_rows(ct, 1)` and
+  `rotate_columns(ct)`.
+
+Each path passes a decrypt gate against a numpy oracle and a card-vs-CPU
+bit-exact check on one ciphertext before it is timed and profiled.
+Prints the card, each kernel's times and launch counts as one JSON line,
+ops/s and rotations/s, and as the last line {"ok": true, "device":
+{...}}. Exits non-zero, printing no result, when no GPU is visible or any
+check fails.
 """
 
 from __future__ import annotations
@@ -24,9 +30,11 @@ import time
 
 import numpy as np
 
+DEV = "cuda"
 N = 8192
 BATCH = 64
-ITERS, REPS = 20, 5          # timed multiply_relin: median of REPS x ITERS
+ITERS, REPS = 20, 5          # timed ops: median of REPS x ITERS batches
+WIDE_N, WIDE_BATCH = 16384, 2   # fused RNS kernels at the widest bases
 
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM at 3.35 TB/s;
 # 67 TFLOP/s fp32 outside the tensor cores, i.e. 33.5 T FMA/s, and
@@ -63,11 +71,91 @@ def _negacyclic_square(a: np.ndarray, t: int) -> np.ndarray:
     return np.mod(res, t)
 
 
+def _automorphism(pts: np.ndarray, g: int, t: int) -> np.ndarray:
+    """a(x) -> a(x^g) mod (x^N + 1, t) on plaintext rows [..., N]."""
+    n = pts.shape[-1]
+    j = np.arange(n) * g % (2 * n)
+    out = np.empty_like(pts)
+    out[..., j % n] = np.where(j < n, pts, -pts)
+    return np.mod(out, t)
+
+
 def _uniform(gen, shape, q):
     """Residues < q per limb: shape [..., k, N] against q [k, 1]."""
     import torch
     return torch.randint(0, 1 << 62, shape, generator=gen,
-                         device="cuda", dtype=torch.int64) % q
+                         device=DEV, dtype=torch.int64) % q
+
+
+def _max_digits(x, base):
+    """Sets column 0 of every row of x [..., k, N] to the value whose
+    normalized digits y_i are all q_i - 1, the largest limb sums a fused
+    conversion can meet, and column 1 to -1 (all q_i - 1)."""
+    import torch
+    col = [(q - 1) * (p % q) % q for q, p in zip(base.moduli, base.punctured)]
+    x[..., :, 0] = torch.tensor(col, dtype=torch.int64, device=x.device)
+    x[..., :, 1] = base.q[:, 0] - 1
+    return x
+
+
+def rns_cases(ctx, gen, batch: int) -> list[tuple]:
+    """The fused RNS kernels (B6-B8) at the shapes `multiply_relin` gives
+    them for `batch` ciphertext pairs: (name, kernel, plain twin, args,
+    source, replaces, bytes, 32-bit multiplies). Multiplies count 2 per
+    32x32->64 product: 2 to normalize a digit, 8 for a digit times a
+    128-bit fraction, 2 per term of a limb contraction or correction."""
+    from sunscreen_tpu_torch.math import prns
+
+    n = ctx.n
+    conv = prns.fused_converter(ctx.conv_q_to_aux)
+    sc = ctx.scale_convert_op()
+    mdo = prns.fused_mod_down(ctx.mod_down)
+    src = "sunscreen_tpu_torch/csrc/rns.cu"
+    ks, kd = conv.ks, conv.kd
+    x_cv = _max_digits(_uniform(gen, (batch, 4, ks, n), ctx.q_base.q),
+                       ctx.q_base)
+    cols_cv = batch * 4 * n
+    x_sc = _max_digits(_uniform(gen, (batch, 3, sc.ks, n), ctx.mul_base.q),
+                       ctx.mul_base)
+    cols_sc = batch * 3 * n
+    k = ctx.k
+    both = _uniform(gen, (batch, 2, k + 1, n), ctx.key_base.q)
+    cols_md = batch * 2 * n
+    return [
+        ("convert",
+         lambda x: conv(x, include_src=True, centered=True),
+         lambda x: conv.call_plain(x, include_src=True, centered=True),
+         (x_cv,), src, "sunscreen_tpu/math/prns.py:264",
+         cols_cv * (2 * ks + kd) * WORD,
+         cols_cv * (10 * ks + 2 * ks * kd + 2 * kd)),
+        ("scale_convert", sc, sc.call_plain, (x_sc,), src,
+         "sunscreen_tpu/math/prns.py:608",
+         cols_sc * (sc.ks + sc.kd) * WORD,
+         cols_sc * (10 * sc.ks + 2 * sc.ks * sc.km + 10 * sc.km
+                    + 2 * sc.km * sc.kd + 2 * sc.kd)),
+        ("mod_down",
+         lambda b: mdo(b[..., :k, :], b[..., k, :]),
+         lambda b: mdo.call_plain(b[..., :k, :], b[..., k, :]),
+         (both,), src, "sunscreen_tpu/math/prns.py:495",
+         cols_md * (2 * k + 1) * WORD, cols_md * 2 * k),
+    ]
+
+
+def _held(name, kern, plain, args) -> int:
+    """Runs a kernel and its plain twin on the same inputs; exits unless
+    they agree bit for bit. Returns the max abs error (0)."""
+    import torch
+    got = kern(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    err = int((got - want).abs().max().item())
+    exact = torch.equal(got, want)
+    print(f"check {name}: shape {tuple(got.shape)} bit-exact={exact} "
+          f"(tolerance 0: integer arithmetic)", flush=True)
+    if not exact:
+        raise SystemExit(f"kernel {name} disagrees with its plain twin "
+                         f"(max abs err {err})")
+    return err
 
 
 def check_kernels(ctx, gen) -> list[dict]:
@@ -83,13 +171,13 @@ def check_kernels(ctx, gen) -> list[dict]:
     rows_fi = BATCH * 4
     x_fi = _uniform(gen, (rows_fi, pm.k, n), pm.q)
     x_fb = torch.randint(0, 1 << 32, (BATCH * kdig, n), generator=gen,
-                         device="cuda", dtype=torch.int64)
+                         device=DEV, dtype=torch.int64)
     x_t3 = _uniform(gen, (BATCH, 4, pm.k, n), pm.q)
     d_ks = _uniform(gen, (BATCH, kdig, pk.k, n), pk.q)
     k0 = _uniform(gen, (kdig, pk.k, n), pk.q)
     k1 = _uniform(gen, (kdig, pk.k, n), pk.q)
     polys_fi = rows_fi * pm.k
-    cases = [
+    cases = rns_cases(ctx, gen, BATCH) + [
         # name, kernel, plain, args, source, replaces, bytes, multiplies
         ("fwd", pm.fwd, pm.fwd_plain, (x_fi,), src_ntt,
          "sunscreen_tpu/math/pmntt.py:354",
@@ -116,16 +204,7 @@ def check_kernels(ctx, gen) -> list[dict]:
     ]
     rows = []
     for name, kern, plain, args, src, repl, nbytes, muls in cases:
-        got = kern(*args)
-        torch.cuda.synchronize()
-        want = plain(*args)
-        err = int((got - want).abs().max().item())
-        exact = torch.equal(got, want)
-        print(f"check {name}: shape {tuple(got.shape)} bit-exact={exact} "
-              f"(tolerance 0: integer arithmetic)", flush=True)
-        if not exact:
-            raise SystemExit(f"kernel {name} disagrees with its plain twin "
-                             f"(max abs err {err})")
+        err = _held(name, kern, plain, args)
         ms = _median_ms(lambda: kern(*args), reps=5, iters=10)
         plain_ms = _median_ms(lambda: plain(*args), reps=3, iters=2)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -143,20 +222,35 @@ def check_kernels(ctx, gen) -> list[dict]:
     return rows
 
 
-def profile_breakdown(ctx, out, cts, rlk, batches: int = 3) -> None:
-    """Device time per kernel name over a few multiply_relin batches
+def check_wide(gen) -> None:
+    """The fused RNS kernels at the default_u32(16384) bases, where the
+    multiply base has more than 16 limbs and the limb sums are folded."""
+    from sunscreen_tpu_torch.bfv import BfvParams, get_context
+
+    ctx = get_context(BfvParams.default_u32(WIDE_N), DEV)
+    print(f"wide bases: N={WIDE_N} k={ctx.k} mul base {ctx.mul_base.k} "
+          f"limbs, batch {WIDE_BATCH}", flush=True)
+    for name, kern, plain, args, *_ in rns_cases(ctx, gen, WIDE_BATCH):
+        _held(f"{name}@{WIDE_N}", kern, plain, args)
+
+
+PORT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel", "fwd_tensor3_kernel",
+                "inv_ks_kernel", "rns_convert_kernel", "scale_convert_kernel",
+                "mod_down_kernel")
+
+
+def profile_breakdown(label, step, batches: int = 3) -> None:
+    """Device time per kernel name over a few batches of `step`
     (torch.profiler), and the device's busy share of the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sunscreen_tpu_torch.bfv import ops
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(batches):
-            out = ops.multiply_relin(ctx, out, cts, rlk)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_name: dict[str, float] = {}
@@ -166,19 +260,48 @@ def profile_breakdown(ctx, out, cts, rlk, batches: int = 3) -> None:
                                  + ev.time_range.elapsed_us())
     busy = sum(per_name.values())
     if busy == 0:
-        print("profile: no device time recorded", flush=True)
+        print(f"profile {label}: no device time recorded", flush=True)
         return
     ours = sum(v for k, v in per_name.items()
-               if k.startswith(("ntt_fwd_kernel", "ntt_inv_kernel",
-                                "fwd_tensor3_kernel", "inv_ks_kernel")))
-    print(f"profile: per multiply_relin batch {wall_us / batches / 1e3:.3f}"
-          f" ms wall, device busy {busy / batches / 1e3:.3f} ms "
+               if any(p in k for p in PORT_KERNELS))
+    print(f"profile {label}: per batch {wall_us / batches / 1e3:.3f} ms "
+          f"wall, device busy {busy / batches / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f}% of wall), port kernels "
           f"{ours / batches / 1e3:.3f} ms ({100 * ours / busy:.1f}% of "
           f"device time)", flush=True)
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"profile:   {us / batches / 1e3:8.3f} ms  "
+        print(f"profile {label}:   {us / batches / 1e3:8.3f} ms  "
               f"{100 * us / busy:5.1f}%  {name[:110]}", flush=True)
+
+
+def _rate(step) -> float:
+    """Batches of BATCH ops per second: median of REPS x ITERS."""
+    import torch
+    step()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            step()
+        torch.cuda.synchronize()
+        rates.append(BATCH * ITERS / (time.perf_counter() - t0))
+    return sorted(rates)[REPS // 2]
+
+
+def _per_op(step) -> dict[str, int]:
+    """Kernel launches of one call of `step`."""
+    from sunscreen_tpu_torch import _build
+    before = dict(_build.LAUNCHES)
+    step()
+    return {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+
+
+def _path_counts(label, launches, needed) -> None:
+    missing = [k for k in needed if launches[k] == 0]
+    if missing:
+        raise SystemExit(f"{label} path never launched: {missing}")
+    print(f"launches {label}: {json.dumps(launches)}", flush=True)
 
 
 def main() -> int:
@@ -188,7 +311,6 @@ def main() -> int:
         return 1
     from sunscreen_tpu_torch import _build
     from sunscreen_tpu_torch.bfv import BfvParams, get_context, keys, ops
-    from sunscreen_tpu_torch.math import pmntt
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -204,29 +326,31 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     params = BfvParams.default_u32(N)
-    ctx = get_context(params, "cuda")
+    ctx = get_context(params, DEV)
     print(f"params: N={N} t={params.plain_modulus} k={ctx.k} "
           f"mul base {ctx.mul_base.k} limbs, key base {ctx.key_base.k} "
           f"limbs", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEV).manual_seed(0)
     table = check_kernels(ctx, gen)
+    check_wide(gen)
+    ctx_cpu = get_context(params, "cpu")
+    t = params.plain_modulus
 
-    # --- the main path: keygen, encrypt, multiply_relin -----------------
-    pmntt.reset_launches()
+    # --- path 1: keygen, encrypt, multiply_relin ----------------------
+    _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device=DEV).manual_seed(1)
     sk = keys.gen_secret_key(ctx, gen)
     pk = keys.gen_public_key(ctx, sk, gen)
     rlk = keys.gen_relin_key(ctx, sk, gen)
-    t = params.plain_modulus
     pts = torch.arange(BATCH * N, dtype=torch.int64,
-                       device="cuda").reshape(BATCH, N) % t
+                       device=DEV).reshape(BATCH, N) % t
     cts = ops.encrypt(ctx, pk, pts, gen)
+    pts_np = pts.cpu().numpy()
 
     # decrypt gate before timing: every product of the batch
     dec = ops.decrypt(ctx, sk, ops.multiply_relin(ctx, cts, cts, rlk))
     dec = dec.cpu().numpy()
-    pts_np = pts.cpu().numpy()
     for r in range(BATCH):
         if not np.array_equal(dec[r], _negacyclic_square(pts_np[r], t)):
             raise SystemExit(f"decrypt gate FAILED at batch row {r}")
@@ -235,7 +359,6 @@ def main() -> int:
 
     # the same multiply_relin through the kernels and on the CPU
     one = ops.multiply_relin(ctx, cts[0], cts[0], rlk).cpu()
-    ctx_cpu = get_context(params, "cpu")
     rlk_cpu = keys.KswKey(rlk.k0.cpu(), rlk.k1.cpu())
     ct_cpu = cts[0].cpu()
     want = ops.multiply_relin(ctx_cpu, ct_cpu, ct_cpu, rlk_cpu)
@@ -244,27 +367,64 @@ def main() -> int:
     print("multiply_relin: card kernels == CPU plain path, bit for bit",
           flush=True)
 
-    out = ops.multiply_relin(ctx, cts, cts, rlk)
+    state = {"out": ops.multiply_relin(ctx, cts, cts, rlk)}
+
+    def mul_step():
+        state["out"] = ops.multiply_relin(ctx, state["out"], cts, rlk)
+
+    ops_per_s = _rate(mul_step)
+    per_mul = _per_op(mul_step)
     torch.cuda.synchronize()
-    rates = []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            out = ops.multiply_relin(ctx, out, cts, rlk)
-        torch.cuda.synchronize()
-        rates.append(BATCH * ITERS / (time.perf_counter() - t0))
-    ops_per_s = sorted(rates)[REPS // 2]
-    launches = dict(pmntt.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     print(f"multiply_relin: {ops_per_s:.1f} ops/s (N={N}, batch {BATCH}, "
           f"median of {REPS} x {ITERS}) on {smi}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise SystemExit(f"main path never launched: {missing}")
-    profile_breakdown(ctx, out, cts, rlk)
+    _path_counts("multiply_relin", launches, list(launches))
+    print(f"launches per multiply_relin: {json.dumps(per_mul)}", flush=True)
+    profile_breakdown("multiply_relin", mul_step)
+
+    # --- path 2: Galois keygen, rotate_rows, rotate_columns -------------
+    _build.reset_launches()
+    g_row, g_col = ctx.rotate_rows_element(1), ctx.rotate_columns_element
+    gks = keys.gen_galois_keys(ctx, sk, gen, (g_row, g_col))
+    for label, got, g in (
+            ("rotate_rows(1)", ops.rotate_rows(ctx, cts, 1, gks), g_row),
+            ("rotate_columns", ops.rotate_columns(ctx, cts, gks), g_col)):
+        dec = ops.decrypt(ctx, sk, got).cpu().numpy()
+        if not np.array_equal(dec, _automorphism(pts_np, g, t)):
+            raise SystemExit(f"rotation decrypt gate FAILED: {label}")
+    print(f"rotation decrypt gate: {BATCH} rotate_rows(1) and "
+          f"rotate_columns results decrypt to the numpy automorphism",
+          flush=True)
+    one = ops.rotate_rows(ctx, cts[0], 1, gks).cpu()
+    gks_cpu = keys.GaloisKeys({g: keys.KswKey(v.k0.cpu(), v.k1.cpu())
+                               for g, v in gks.keys.items()})
+    if not torch.equal(one, ops.rotate_rows(ctx_cpu, ct_cpu, 1, gks_cpu)):
+        raise SystemExit("rotate_rows on the card differs from the CPU")
+    print("rotate_rows: card kernels == CPU plain path, bit for bit",
+          flush=True)
+    state["rot"] = cts
+
+    def rot_step():
+        state["rot"] = ops.rotate_rows(ctx, state["rot"], 1, gks)
+
+    rot_per_s = _rate(rot_step)
+    per_rot = _per_op(rot_step)
+    torch.cuda.synchronize()
+    launches_rot = dict(_build.LAUNCHES)
+    print(f"rotate_rows: {rot_per_s:.1f} rotations/s (N={N}, batch "
+          f"{BATCH}, median of {REPS} x {ITERS}) on {smi}", flush=True)
+    _path_counts("rotate", launches_rot,
+                 ("fwd", "fwd_broadcast", "inv", "inv_ks", "mod_down"))
+    print(f"launches per rotation: {json.dumps(per_rot)}", flush=True)
+    profile_breakdown("rotate_rows", rot_step)
+
     for row in table:
         row["launches"] = launches[row["name"]]
+        row["launches_rotate"] = launches_rot[row["name"]]
+        row["launches_per_multiply_relin"] = per_mul[row["name"]]
+        row["launches_per_rotation"] = per_rot[row["name"]]
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

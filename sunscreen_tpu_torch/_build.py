@@ -5,6 +5,9 @@ Each `csrc/<name>.cu` becomes `lib<name>.so`, a plain C interface, in
 covers every source, header and flag, so an edit rebuilds. All missing
 libraries are compiled at once, one nvcc process per source. Nothing is
 built when the package is imported: the first launch builds.
+
+`LAUNCHES` counts kernel launches per entry point, for every wrapper of
+the port (`math/pmntt.py`, `math/prns.py`); the plain twins never count.
 """
 
 from __future__ import annotations
@@ -27,7 +30,19 @@ SIGNATURES = {
     "ntt": {"ntt_fwd": "ppppiiiip", "ntt_inv": "ppppiiip"},
     "tensor3": {"fwd_tensor3": "ppppiiip"},
     "inv_ks": {"inv_ks": "ppppppiiiip"},
+    "rns": {"rns_convert": "pppppiiiiiip", "scale_convert": "pppppppiiiiip",
+            "mod_down": "ppppiiiiiiip"},
 }
+
+LAUNCHES = dict.fromkeys(
+    ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks",
+     "convert", "scale_convert", "mod_down"), 0)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

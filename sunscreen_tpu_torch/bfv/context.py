@@ -1,6 +1,6 @@
-"""BfvContext: the bases, NTT plans, converters, scalers and Δ tables
-of one parameter set on one device (port of
-`sunscreen_tpu/bfv/context.py`; the Galois tables are not ported yet).
+"""BfvContext: the bases, NTT plans, converters, scalers, Galois and Δ
+tables of one parameter set on one device (port of
+`sunscreen_tpu/bfv/context.py`).
 """
 
 from __future__ import annotations
@@ -8,11 +8,12 @@ from __future__ import annotations
 import math
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from sunscreen_tpu_torch import resolve_device
 from sunscreen_tpu_torch.bfv.params import BfvParams
-from sunscreen_tpu_torch.math import ntt, primes, rns
+from sunscreen_tpu_torch.math import ntt, primes, prns, rns
 from sunscreen_tpu_torch.math.modular import U32_MAX_MODULUS_BITS, s64
 
 AUX_PRIME_BITS_U32 = 30
@@ -62,6 +63,7 @@ class BfvContext:
             self.mul_base, self.q_base, self.aux_base, t)
         self.decrypt_scaler = rns.DecryptScaler(self.q_base, t)
         self.mod_down = rns.ModDown(self.q_base, params.special_modulus)
+        self._scale_convert_op = None      # see scale_convert_op()
 
         # --- Δ = round(Q*m/t) tables (see ops.scale_plain) ------------------
         Q = params.q_product
@@ -82,6 +84,48 @@ class BfvContext:
             [[P * self.q_base.punctured[i] * self.q_base.inv_punctured[i]
               % qj for qj in self.key_mods] for i in range(self.k)],
             dtype=torch.int64, device=self.device)           # [k, k+1]
+
+        # --- Galois tables, built per element on first use ---------------
+        self._galois_host: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        self._galois_dev: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def scale_convert_op(self) -> prns.FusedScaleConvert:
+        """round(t x / Q) from the multiply base into Q (kernel B7),
+        built once per context."""
+        if self._scale_convert_op is None:
+            self._scale_convert_op = prns.FusedScaleConvert(
+                self.scale_mul_to_aux, self.conv_aux_to_q)
+        return self._scale_convert_op
+
+    # -- Galois -------------------------------------------------------------
+
+    def galois_table_host(self, g: int):
+        """(src_index int64 [N], negate bool [N]) numpy tables for
+        a(x) -> a(x^g): coefficient j of the result is +-a[src_index[j]]."""
+        if g not in self._galois_host:
+            n = self.n
+            assert g % 2 == 1 and 0 < g < 2 * n
+            i = np.arange(n, dtype=np.int64) * pow(g, -1, 2 * n) % (2 * n)
+            self._galois_host[g] = (np.where(i < n, i, i - n), i >= n)
+        return self._galois_host[g]
+
+    def galois_table(self, g: int):
+        """The same tables as device tensors (cached)."""
+        if g not in self._galois_dev:
+            idx, neg = self.galois_table_host(g)
+            self._galois_dev[g] = (
+                torch.as_tensor(idx, device=self.device),
+                torch.as_tensor(neg, device=self.device))
+        return self._galois_dev[g]
+
+    def rotate_rows_element(self, steps: int) -> int:
+        """Galois element of a cyclic row rotation by `steps` slots
+        (SEAL: `GaloisTool::get_elt_from_step`)."""
+        return pow(3, steps % (self.n // 2), 2 * self.n)
+
+    @property
+    def rotate_columns_element(self) -> int:
+        return 2 * self.n - 1
 
 
 @lru_cache(maxsize=16)

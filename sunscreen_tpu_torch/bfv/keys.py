@@ -1,6 +1,7 @@
 """BFV key generation (port of `sunscreen_tpu/bfv/keys.py`): secret,
-public and relinearization keys, stored in the NTT domain, plus
-`from_reference` to carry the JAX package's key material over.
+public, relinearization and Galois keys, stored in the NTT domain, plus
+`from_reference` / `galois_from_reference` to carry the JAX package's
+key material over.
 
 Keys are sampled from an explicit `torch.Generator`. The NTT domain is
 the reference's, so `from_reference` is only a dtype and device move.
@@ -8,7 +9,7 @@ the reference's, so `from_reference` is only a dtype and device move.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -36,6 +37,18 @@ class KswKey:
     """One key-switching key: digit-major [k, k+1, N], NTT domain."""
     k0: torch.Tensor
     k1: torch.Tensor
+
+
+@dataclass(frozen=True)
+class GaloisKeys:
+    """One key-switching key per Galois element g."""
+    keys: dict[int, KswKey] = field(default_factory=dict)
+
+    def __getitem__(self, g: int) -> KswKey:
+        return self.keys[g]
+
+    def __contains__(self, g: int) -> bool:
+        return g in self.keys
 
 
 def _noise_ntt(ctx: BfvContext, gen, base, plan):
@@ -83,6 +96,33 @@ def gen_relin_key(ctx: BfvContext, sk: SecretKey,
     return gen_ksw_key(ctx, sk, s2, gen)
 
 
+def gen_galois_keys(ctx: BfvContext, sk: SecretKey, gen: torch.Generator,
+                    elements: tuple[int, ...]) -> GaloisKeys:
+    """Keys for a(x) -> a(x^g) keyswitching, one per Galois element: each
+    switches from s(x^g) back to s."""
+    keys = {}
+    for g in elements:
+        idx, neg = ctx.galois_table(g)
+        s_g = sk.s[idx]
+        s_g = torch.where(neg, -s_g, s_g)
+        w = ctx.plan_key.fwd(sampling.signed_to_rns(s_g, ctx.key_base.q))
+        keys[g] = gen_ksw_key(ctx, sk, w, gen)
+    return GaloisKeys(keys)
+
+
+def default_rotation_elements(ctx: BfvContext) -> tuple[int, ...]:
+    """Every power-of-two row rotation in both directions plus the
+    column swap (SEAL `GaloisTool::get_elts_all`)."""
+    half = ctx.n // 2
+    elems = {ctx.rotate_columns_element}
+    step = 1
+    while step < half:
+        elems.add(ctx.rotate_rows_element(step))
+        elems.add(ctx.rotate_rows_element(-step))
+        step *= 2
+    return tuple(sorted(elems))
+
+
 def from_reference(ctx: BfvContext, *, s=None, s_ntt_q=None, s_ntt_key=None,
                    p0=None, p1=None, k0=None, k1=None):
     """Key material of the JAX package, as numpy arrays, moved into the
@@ -107,3 +147,12 @@ def from_reference(ctx: BfvContext, *, s=None, s_ntt_q=None, s_ntt_key=None,
     if k0 is not None:
         rlk = KswKey(dev(k0), dev(k1))
     return sk, pk, rlk
+
+
+def galois_from_reference(ctx: BfvContext, keys) -> GaloisKeys:
+    """The reference's Galois keys, {g: (k0, k1)} as numpy arrays, moved
+    onto `ctx.device`."""
+    return GaloisKeys({
+        int(g): KswKey(*(torch.as_tensor(np.asarray(a).astype(np.int64),
+                                         device=ctx.device) for a in k))
+        for g, k in keys.items()})

@@ -1,11 +1,13 @@
 """BFV evaluator ops on int64 torch tensors (port of
-`sunscreen_tpu/bfv/ops.py`, along the reference's fused-NTT-plan
-branches: `fwd_tensor3` + `inv` in `multiply`, `fwd_broadcast` +
-`inv_ks` in `keyswitch`).
+`sunscreen_tpu/bfv/ops.py`, along the reference's TPU-default branches:
+the fused base extension, `fwd_tensor3` + `inv` and the chained
+scale+convert in `multiply`; `fwd_broadcast`, `inv_ks` and the fused
+mod-down in `keyswitch`, which relinearization and rotations share).
 
 Ciphertexts are [..., n_comp, k, N] in the coefficient domain;
 plaintexts [..., N] with coefficients in [0, t). Multiplication is the
-HPS RNS variant with exact fixed-point corrections (`math/rns.py`).
+HPS RNS variant with exact fixed-point corrections (`math/rns.py`,
+`math/prns.py`).
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import numpy as np
 import torch
 
 from sunscreen_tpu_torch.bfv.context import BfvContext
-from sunscreen_tpu_torch.bfv.keys import KswKey, PublicKey, SecretKey
+from sunscreen_tpu_torch.bfv.keys import (GaloisKeys, KswKey, PublicKey,
+                                          SecretKey)
 from sunscreen_tpu_torch.errors import InvalidArgument
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math import pmntt, rns, sampling
@@ -105,10 +108,18 @@ def add(ctx: BfvContext, a, b):
                      _q(ctx))
 
 
+def _scale_convert(ctx: BfvContext, tensor):
+    """round(t * tensor / Q) mapped into base Q: the chained kernel B7
+    on CUDA, scale-and-round into B then the centered conversion to Q
+    on the CPU."""
+    return ctx.scale_convert_op()(tensor)
+
+
 def multiply(ctx: BfvContext, a, b):
     """ct×ct tensor multiply with t/Q scaling: centered base extension
-    Q -> Q∪B, forward NTTs and component products, inverse NTT, exact
-    scale-and-round into B, centered conversion B -> Q. Output has
+    Q -> Q∪B (kernel B6 on CUDA), forward NTTs and component products,
+    inverse NTT, then exact scale-and-round into B chained with the
+    centered conversion B -> Q (kernel B7 on CUDA). Output has
     n_a + n_b - 1 components."""
     na, nb = a.shape[-3], b.shape[-3]
     plan = ctx.plan_mul
@@ -125,8 +136,7 @@ def multiply(ctx: BfvContext, a, b):
                      for ia in range(na) if 0 <= j - ia < nb]
             outs.append(sum(terms) % plan.q)
         tensor = plan.inv(torch.stack(outs, dim=-3))
-    scaled_aux = ctx.scale_mul_to_aux.apply(tensor)
-    return ctx.conv_aux_to_q.convert(scaled_aux, centered=True)
+    return _scale_convert(ctx, tensor)
 
 
 def keyswitch(ctx: BfvContext, d, ksw: KswKey):
@@ -134,7 +144,8 @@ def keyswitch(ctx: BfvContext, d, ksw: KswKey):
     (u0, u1) over Q after the special-prime mod-down. The k raw digits
     are transformed under every key modulus (exact for any u32, and the
     NTT is linear mod each modulus), contracted against the key and
-    inverse-transformed in one kernel."""
+    inverse-transformed in one kernel. The mod-down reads the Q limbs
+    and the special limb of that output in place."""
     d_hat = ctx.plan_key.fwd_broadcast(d)      # [..., k(digit), k+1, N]
     both = ctx.plan_key.inv_ks(d_hat, ksw.k0, ksw.k1)   # [..., 2, k+1, N]
     u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
@@ -154,3 +165,53 @@ def relinearize(ctx: BfvContext, ct, rlk: KswKey):
 
 def multiply_relin(ctx: BfvContext, a, b, rlk: KswKey):
     return relinearize(ctx, multiply(ctx, a, b), rlk)
+
+
+# --------------------------------------------------------------------------
+# Galois / rotations
+# --------------------------------------------------------------------------
+
+def _permute(ctx: BfvContext, poly, g: int):
+    """a(x) -> a(x^g) on [..., k, N] coefficient-domain residues."""
+    idx, neg = ctx.galois_table(g)
+    gathered = poly[..., idx]
+    return torch.where(neg, m.neg_mod(gathered, _q(ctx)), gathered)
+
+
+def apply_galois(ctx: BfvContext, ct, g: int, gks: GaloisKeys):
+    """a(x) -> a(x^g) on a 2-component ct, then keyswitch back to s
+    (SEAL: `Evaluator::apply_galois`)."""
+    if ct.shape[-3] != 2:
+        raise InvalidArgument(
+            f"apply_galois expects a 2-component ct, got {ct.shape[-3]}")
+    c0p = _permute(ctx, ct[..., 0, :, :], g)
+    c1p = _permute(ctx, ct[..., 1, :, :], g)
+    u0, u1 = keyswitch(ctx, c1p, gks[g])
+    return torch.stack([m.add_mod(c0p, u0, _q(ctx)), u1], dim=-3)
+
+
+def rotate_rows(ctx: BfvContext, ct, steps: int, gks: GaloisKeys):
+    """Cyclically rotate each batching row by `steps` (SEAL:
+    `Evaluator::rotate_rows`). Without a key for the exact element, the
+    rotation is composed from the power-of-two keys, lowest bit first."""
+    steps %= ctx.n // 2
+    if steps == 0:
+        return ct
+    g = ctx.rotate_rows_element(steps)
+    if g in gks:
+        return apply_galois(ctx, ct, g, gks)
+    out, bit = ct, 1
+    while steps:
+        if steps & 1:
+            gb = ctx.rotate_rows_element(bit)
+            if gb not in gks:
+                raise KeyError(f"missing galois key for rotation {bit}")
+            out = apply_galois(ctx, out, gb, gks)
+        steps >>= 1
+        bit <<= 1
+    return out
+
+
+def rotate_columns(ctx: BfvContext, ct, gks: GaloisKeys):
+    """Swap the two batching rows (SEAL: `Evaluator::rotate_columns`)."""
+    return apply_galois(ctx, ct, ctx.rotate_columns_element, gks)

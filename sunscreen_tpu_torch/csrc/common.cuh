@@ -1,7 +1,7 @@
-// Shared device code of the u32-engine NTT kernels (ntt.cu, tensor3.cu,
-// inv_ks.cu): modular helpers, the radix-2 transforms on shared memory, and
-// the map from the plan's flat NTT domain to the butterflies' bit-reversed
-// order.
+// Shared device code of the u32-engine kernels (ntt.cu, tensor3.cu,
+// inv_ks.cu, rns.cu): modular helpers, the exact 128-bit fixed-point sum of
+// the RNS conversions, the radix-2 transforms on shared memory, and the map
+// from the plan's flat NTT domain to the butterflies' bit-reversed order.
 //
 // Tensors cross the C interface as int64 residues (values < 2^32). Per limb
 // the plan uploads:
@@ -55,6 +55,54 @@ __device__ __forceinline__ u32 add_q(u32 a, u32 b, u32 q) {
 
 __device__ __forceinline__ u32 sub_q(u32 a, u32 b, u32 q) {
   return a >= b ? a - b : a + q - b;
+}
+
+// Exact running sum of y * f / 2^128 over terms with y < 2^32 and f a
+// 128-bit fraction (f_hi, f_lo): the 192-bit total is (w2, w1, w0), w2 its
+// integer part. Every carry out of the fractional words reaches w2, as in
+// the reference's six 32-bit column sums (math/rns.py::fixed_point_dot).
+struct Fixed192 {
+  u64 w0 = 0, w1 = 0, w2 = 0;
+};
+
+__device__ __forceinline__ void fixed_add(Fixed192& a, u64 y, u64 f_hi,
+                                          u64 f_lo) {
+  const u64 l0 = y * f_lo, h0 = __umul64hi(y, f_lo);
+  const u64 l1 = y * f_hi, h1 = __umul64hi(y, f_hi);
+  a.w0 += l0;
+  const u64 c0 = a.w0 < l0;
+  u64 mid = h0 + l1;
+  u64 c1 = mid < l1;
+  mid += c0;
+  c1 += mid < c0;
+  a.w1 += mid;
+  c1 += a.w1 < mid;
+  a.w2 += h1 + c1;
+}
+
+// Integer part of the total, plus 1/2 first when rounding. The total of k
+// terms is below k * 2^160, so no bit lies above w2.
+__device__ __forceinline__ u64 fixed_int(Fixed192 a, bool add_half) {
+  if (add_half) a.w2 += a.w1 + (1ull << 63) < a.w1;
+  return a.w2;
+}
+
+// sum_i y[i] * w[i * stride] mod q for y, w < 2^30 and i < k <= K. The raw
+// u64 sum is folded mod q every 16 terms (q + 16 (2^30 - 1)^2 < 2^64), so it
+// is exact for any k. K is a compile-time bound so that y stays in registers.
+template <int K>
+__device__ __forceinline__ u32 dot_mod(const u32 (&y)[K], int k,
+                                       const long long* __restrict__ w,
+                                       int stride, u32 q, u64 m) {
+  u64 acc = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i < k) {
+      acc += (u64)y[i] * (u32)__ldg(w + i * stride);
+      if ((i & 15) == 15) acc = reduce64(acc, q, m);
+    }
+  }
+  return reduce64(acc, q, m);
 }
 
 // Flat position p = j2 * n1 + j1 of the NTT domain (n1 = N / 128) holds the

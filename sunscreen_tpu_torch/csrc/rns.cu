@@ -1,0 +1,212 @@
+// Fused RNS conversions of the BFV multiply and keyswitch.
+//
+// Replaces the Pallas kernels of sunscreen_tpu/math/prns.py:
+//   rns_convert   FusedRnsOp, mode "convert" (pallas_call at prns.py:264),
+//                 built by fused_converter; reached through
+//                 BaseConverter.extend / .convert (B6);
+//   scale_convert FusedScaleConvert (pallas_call at prns.py:608); reached
+//                 through bfv/ops.py::_scale_convert (B7);
+//   mod_down      FusedModDown (pallas_call at prns.py:495); reached through
+//                 ModDown.apply (B8).
+// Each computes the residues of the unfused math/rns.py code, bit for bit.
+//
+// Design: one thread per (row, coefficient). A thread reads its column's
+// source limbs once (neighbouring threads on neighbouring coefficients, so
+// every load and store is coalesced), keeps the normalized digits in
+// registers, and writes each output limb once. Native 64-bit products
+// (__umul64hi) take the place of the TPU's 16-bit-half arithmetic: the
+// fixed-point sums are exact in three u64 words (Fixed192), and the limb
+// contractions fold their raw u64 sums every 16 terms (dot_mod), so both are
+// exact for any base up to MAXK limbs. The tables are a few KB, read through
+// the read-only cache; all threads of a warp read the same entry.
+//
+// Tables are int64, one row of 8 per modulus: q, floor(2^64 / q), then the
+// op's constants (below). Residues cross the interface as int64 values < 2^30.
+//
+// Bound on the H100 at the main-path shapes (N = 8192, batch 64,
+// default_u32(8192)), int64 in and out: rns_convert [64,4,7,N] ->
+// [64,4,15,N] moves 369 MB (0.110 ms at 3.35 TB/s); scale_convert
+// [64,3,15,N] -> [64,3,7,N] moves 277 MB (0.083 ms); mod_down
+// [64,2,8,N] -> [64,2,7,N] moves 126 MB (0.038 ms). Their 32-bit multiplies
+// (chip_smoke.py counts them) take under 0.06 ms at 16.7 T/s, so all three
+// are bound by bytes.
+
+#include "common.cuh"
+
+#define MAXK 32
+
+struct Mod {
+  u32 q;
+  u64 m;
+};
+
+__device__ __forceinline__ Mod load_mod(const long long* tab, int i) {
+  return {(u32)__ldg(tab + 8 * i), (u64)__ldg(tab + 8 * i + 1)};
+}
+
+__device__ __forceinline__ u64 tab_at(const long long* tab, int i, int c) {
+  return (u64)__ldg(tab + 8 * i + c);
+}
+
+// x [rows, ks, N] -> out [rows, kd, N], or [rows, ks + kd, N] with the source
+// limbs copied ahead (include_src). alpha = floor(sum_i y_i / q_i (+ 1/2 if
+// centered)); out_j = sum_i y_i theta_ij - alpha (Q mod d_j) mod d_j.
+//   src [ks]: q_i, m, (Q/q_i)^-1 mod q_i, 1/q_i rounded up (hi, lo word)
+//   dst [kd]: d_j, m, Q mod d_j
+//   theta [ks][kd]: (Q/q_i) mod d_j
+template <int K>
+__global__ void rns_convert_kernel(const long long* __restrict__ x,
+                                   long long* __restrict__ out,
+                                   const long long* __restrict__ src,
+                                   const long long* __restrict__ dst,
+                                   const long long* __restrict__ theta,
+                                   int rows, int ks, int kd, int n,
+                                   int centered, int include_src) {
+  const size_t id = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (id >= (size_t)rows * n) return;
+  const size_t row = id / n, col = id % n;
+  const long long* xc = x + row * ks * n + col;
+  long long* oc = out + row * (include_src ? ks + kd : kd) * n + col;
+  u32 y[K];
+  Fixed192 fp;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i < ks) {
+      const long long xi = xc[(size_t)i * n];
+      if (include_src) oc[(size_t)i * n] = xi;
+      const Mod s = load_mod(src, i);
+      y[i] = reduce64((u64)xi * tab_at(src, i, 2), s.q, s.m);
+      fixed_add(fp, y[i], tab_at(src, i, 3), tab_at(src, i, 4));
+    }
+  }
+  const u64 alpha = fixed_int(fp, centered);
+  if (include_src) oc += (size_t)ks * n;
+  for (int j = 0; j < kd; ++j) {
+    const Mod d = load_mod(dst, j);
+    const u32 acc = dot_mod<K>(y, ks, theta + j, kd, d.q, d.m);
+    const u32 corr = reduce64(alpha * tab_at(dst, j, 2), d.q, d.m);
+    oc[(size_t)j * n] = sub_q(acc, corr, d.q);
+  }
+}
+
+// x [rows, ks, N] in the tensor base A = Q u B -> out [rows, kd, N] in Q:
+// s = round(t x / Q) mod each b_j (omega contraction plus the rounded
+// fixed-point part r), then the centered conversion of s from B to Q, with s
+// kept in registers.
+//   a [ks]: q_i, m, (A/q_i)^-1 mod q_i, phi_i = frac(t (A/q_i) / Q) (hi, lo)
+//   b [km]: b_j, m, (B/b_j)^-1 mod b_j, 1/b_j rounded up (hi, lo)
+//   d [kd]: d_l, m, B mod d_l
+//   omega [ks][km], theta [km][kd]
+template <int K>
+__global__ void scale_convert_kernel(const long long* __restrict__ x,
+                                     long long* __restrict__ out,
+                                     const long long* __restrict__ a,
+                                     const long long* __restrict__ b,
+                                     const long long* __restrict__ d,
+                                     const long long* __restrict__ omega,
+                                     const long long* __restrict__ theta,
+                                     int rows, int ks, int km, int kd, int n) {
+  const size_t id = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (id >= (size_t)rows * n) return;
+  const size_t row = id / n, col = id % n;
+  const long long* xc = x + row * ks * n + col;
+  long long* oc = out + row * kd * n + col;
+  u32 y[K];
+  Fixed192 fr;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i < ks) {
+      const Mod s = load_mod(a, i);
+      y[i] = reduce64((u64)xc[(size_t)i * n] * tab_at(a, i, 2), s.q, s.m);
+      fixed_add(fr, y[i], tab_at(a, i, 3), tab_at(a, i, 4));
+    }
+  }
+  const u64 r = fixed_int(fr, true);  // < ks 2^30
+  u32 z[K];
+  Fixed192 fz;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (j < km) {
+      const Mod bj = load_mod(b, j);
+      const u32 s = add_q(dot_mod<K>(y, ks, omega + j, km, bj.q, bj.m),
+                          reduce64(r, bj.q, bj.m), bj.q);
+      z[j] = reduce64((u64)s * tab_at(b, j, 2), bj.q, bj.m);
+      fixed_add(fz, z[j], tab_at(b, j, 3), tab_at(b, j, 4));
+    }
+  }
+  const u64 alpha = fixed_int(fz, true);
+  for (int l = 0; l < kd; ++l) {
+    const Mod dl = load_mod(d, l);
+    const u32 acc = dot_mod<K>(z, km, theta + l, kd, dl.q, dl.m);
+    const u32 corr = reduce64(alpha * tab_at(d, l, 2), dl.q, dl.m);
+    oc[(size_t)l * n] = sub_q(acc, corr, dl.q);
+  }
+}
+
+// x_q rows of k limbs (row stride sq elements, limbs N apart) and x_p rows
+// (row stride sp) -> out [rows, k, N] = round(x / p) mod q_j:
+// v = (x_p + p/2) mod p; out_j = ((x_j + p/2 mod q_j) - v mod q_j) p^-1.
+//   tab [k]: q_j, m, floor(p/2) mod q_j, p^-1 mod q_j
+__global__ void mod_down_kernel(const long long* __restrict__ xq,
+                                const long long* __restrict__ xp,
+                                long long* __restrict__ out,
+                                const long long* __restrict__ tab, int rows,
+                                int k, int n, int sq, int sp, int p,
+                                int half) {
+  const size_t id = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (id >= (size_t)rows * n) return;
+  const size_t row = id / n, col = id % n;
+  u32 v = (u32)xp[row * sp + col] + (u32)half;
+  if (v >= (u32)p) v -= (u32)p;
+  const long long* xc = xq + row * sq + col;
+  long long* oc = out + row * k * n + col;
+  for (int j = 0; j < k; ++j) {
+    const Mod qj = load_mod(tab, j);
+    const u32 num = sub_q(add_q((u32)xc[(size_t)j * n], (u32)tab_at(tab, j, 2),
+                                qj.q),
+                          reduce64(v, qj.q, qj.m), qj.q);
+    oc[(size_t)j * n] = reduce64((u64)num * tab_at(tab, j, 3), qj.q, qj.m);
+  }
+}
+
+static const int THREADS = 256;
+
+static unsigned blocks_for(int rows, int n) {
+  return (unsigned)(((size_t)rows * n + THREADS - 1) / THREADS);
+}
+
+extern "C" int rns_convert(const void* x, void* out, const void* src,
+                           const void* dst, const void* theta, int rows,
+                           int ks, int kd, int n, int centered,
+                           int include_src, void* stream) {
+  if (ks > MAXK) return (int)cudaErrorInvalidValue;
+  auto kern = ks <= 16 ? &rns_convert_kernel<16> : &rns_convert_kernel<MAXK>;
+  kern<<<blocks_for(rows, n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const long long*)x, (long long*)out, (const long long*)src,
+      (const long long*)dst, (const long long*)theta, rows, ks, kd, n,
+      centered, include_src);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int scale_convert(const void* x, void* out, const void* a,
+                             const void* b, const void* d, const void* omega,
+                             const void* theta, int rows, int ks, int km,
+                             int kd, int n, void* stream) {
+  if (ks > MAXK || km > MAXK) return (int)cudaErrorInvalidValue;
+  auto kern = (ks <= 16 && km <= 16) ? &scale_convert_kernel<16>
+                                     : &scale_convert_kernel<MAXK>;
+  kern<<<blocks_for(rows, n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const long long*)x, (long long*)out, (const long long*)a,
+      (const long long*)b, (const long long*)d, (const long long*)omega,
+      (const long long*)theta, rows, ks, km, kd, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mod_down(const void* xq, const void* xp, void* out,
+                        const void* tab, int rows, int k, int n, int sq,
+                        int sp, int p, int half, void* stream) {
+  mod_down_kernel<<<blocks_for(rows, n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const long long*)xq, (const long long*)xp, (long long*)out,
+      (const long long*)tab, rows, k, n, sq, sp, p, half);
+  return (int)cudaGetLastError();
+}

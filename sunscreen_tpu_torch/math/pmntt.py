@@ -11,8 +11,8 @@ with 1/N folded in.
 Each transform entry point has two implementations with identical
 results. On a CUDA tensor it launches a hand-written kernel
 (`csrc/ntt.cu`, `csrc/tensor3.cu`, `csrc/inv_ks.cu`) and counts the
-launch in `LAUNCHES`; on a CPU tensor it runs the plain PyTorch twin
-(`*_plain`), a vectorized radix-2 transform in int64 that also serves
+launch in `_build.LAUNCHES`; on a CPU tensor it runs the plain PyTorch
+twin (`*_plain`), a vectorized radix-2 transform in int64 that also serves
 as the kernels' oracle on the card. There is no fallback from one to
 the other.
 """
@@ -29,15 +29,6 @@ from sunscreen_tpu_torch.math import primes
 LANES = 128            # n2 of the reference's four-step layout
 MAX_KDIG = 16          # kdig * q^2 < 2^64 for q < 2^30 (inv_ks.cu)
 TENSOR3_MAX_N = 8192   # four polys of N u32 in one block's shared memory
-
-# Kernel launches per entry point (the plain twins do not count).
-LAUNCHES = dict.fromkeys(
-    ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks"), 0)
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _bitrev(n: int) -> np.ndarray:
@@ -204,7 +195,7 @@ class NttPlanU32:
         if rows:
             _build.launch("ntt", "ntt_fwd", x, out, self.tw, self.consts,
                           rows, self.k, self.logn, 0)
-            LAUNCHES["fwd"] += 1
+            _build.LAUNCHES["fwd"] += 1
         return out
 
     def fwd_broadcast(self, x):
@@ -219,7 +210,7 @@ class NttPlanU32:
         if rows:
             _build.launch("ntt", "ntt_fwd", x, out, self.tw, self.consts,
                           rows, self.k, self.logn, 1)
-            LAUNCHES["fwd_broadcast"] += 1
+            _build.LAUNCHES["fwd_broadcast"] += 1
         return out
 
     def inv(self, x):
@@ -231,7 +222,7 @@ class NttPlanU32:
         if rows:
             _build.launch("ntt", "ntt_inv", x, out, self.tw, self.consts,
                           rows, self.k, self.logn)
-            LAUNCHES["inv"] += 1
+            _build.LAUNCHES["inv"] += 1
         return out
 
     def fwd_tensor3(self, ext):
@@ -250,7 +241,7 @@ class NttPlanU32:
         if rows:
             _build.launch("tensor3", "fwd_tensor3", ext, out, self.tw,
                           self.consts, rows, self.k, self.logn)
-            LAUNCHES["fwd_tensor3"] += 1
+            _build.LAUNCHES["fwd_tensor3"] += 1
         return out
 
     def inv_ks(self, d_hat, k0, k1):
@@ -274,7 +265,7 @@ class NttPlanU32:
         if rows:
             _build.launch("inv_ks", "inv_ks", d_hat, k0, k1, out, self.tw,
                           self.consts, rows, kdig, self.k, self.logn)
-            LAUNCHES["inv_ks"] += 1
+            _build.LAUNCHES["inv_ks"] += 1
         return out
 
     # -- pointwise (plain PyTorch on every device) ---------------------------

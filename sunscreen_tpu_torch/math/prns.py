@@ -1,0 +1,209 @@
+"""Fused RNS conversions: the port of `sunscreen_tpu/math/prns.py`.
+
+Three ops, each one pass over its input with the same residues as the
+unfused `math/rns.py` code:
+
+* `FusedRnsOp` (built by `fused_converter`): base conversion C -> D,
+  optionally centered and with the source limbs copied ahead of the
+  result (base extension) - kernel B6;
+* `FusedScaleConvert`: round(t x / Q) from the tensor base Q ∪ B into B,
+  chained with the centered conversion B -> Q - kernel B7;
+* `FusedModDown` (built by `fused_mod_down`): the special-prime rescale
+  round(x / p) mod Q - kernel B8.
+
+On a CUDA tensor each op launches its kernel in `csrc/rns.cu` and counts
+the launch in `_build.LAUNCHES`; on a CPU tensor it runs its plain twin
+(`call_plain`), a composition of the plain `math/rns.py` code that also
+serves as the kernel's oracle on the card. The tables are packed once,
+on the host, from the port's own `RnsBase` / `BaseConverter` /
+`ScaleAndRound` / `ModDown` objects and uploaded to their device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from sunscreen_tpu_torch import _build
+
+MAX_LIMBS = 32       # register arrays of csrc/rns.cu (MAXK)
+
+
+def _table(base, *cols) -> torch.Tensor:
+    """[k, 8] int64 per modulus of `base`: q, floor(2^64 / q) (below 2^63
+    for q > 2), then the given [k, 1] columns, zero-padded."""
+    m = torch.tensor([(1 << 64) // q for q in base.moduli],
+                     dtype=torch.int64, device=base.device).reshape(-1, 1)
+    out = torch.cat([base.q, m, *(c.to(base.device) for c in cols)], dim=1)
+    return torch.nn.functional.pad(out, (0, 8 - out.shape[1]))
+
+
+def _is_cpu(x) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return False
+
+
+def _check(x, device, tail) -> int:
+    """Validates a kernel input; returns its row count."""
+    if x.device != device or x.dtype != torch.int64:
+        raise ValueError(f"expected int64 on {device}, got {x.dtype} on "
+                         f"{x.device}")
+    if tuple(x.shape[x.dim() - len(tail):]) != tuple(tail):
+        raise ValueError(f"expected trailing shape {tuple(tail)}, got "
+                         f"{tuple(x.shape)}")
+    rows = 1
+    for d in x.shape[:x.dim() - len(tail)]:
+        rows *= d
+    return rows
+
+
+def _limbs_ok(*ks) -> None:
+    if max(ks) > MAX_LIMBS:
+        raise ValueError(f"the fused RNS kernels hold at most {MAX_LIMBS} "
+                         f"limbs per base, got {max(ks)}")
+
+
+def _strided_rows(x, inner_dims: int):
+    """x whose trailing `inner_dims` dims form one contiguous block ->
+    (x, row stride in elements), the leading dims merged into evenly
+    strided rows. Copies only when no such stride exists: the
+    keyswitch's `both[..., :k, :]` view is read in place."""
+    lead = x.dim() - inner_dims
+    block = math.prod(x.shape[lead:])
+    dense = all(x.stride(d) == math.prod(x.shape[d + 1:])
+                for d in range(lead, x.dim()) if x.shape[d] > 1)
+    outer = [(x.shape[d], x.stride(d)) for d in range(lead)
+             if x.shape[d] > 1]
+    even = all(s0 == n1 * s1 for (_, s0), (n1, s1) in zip(outer, outer[1:]))
+    if not (dense and even):
+        return x.contiguous(), block
+    return x, outer[-1][1] if outer else block
+
+
+class FusedRnsOp:
+    """Base conversion C -> D of a `rns.BaseConverter` in one pass
+    (mode "convert" of the reference's op)."""
+
+    def __init__(self, conv):
+        src, dst = conv.src, conv.dst
+        self.conv = conv
+        self.ks, self.kd = src.k, dst.k
+        self.device = dst.device
+        self.src_tab = _table(src, src.inv_punc, src.inv_q_fp_hi,
+                              src.inv_q_fp_lo)
+        self.dst_tab = _table(dst, conv.c_mod_d)
+        self.theta = conv.theta.reshape(self.ks, self.kd).contiguous()
+
+    def call_plain(self, x, include_src: bool = False, centered: bool = True):
+        out = self.conv.convert_plain(x, centered=centered)
+        return torch.cat([x, out], dim=-2) if include_src else out
+
+    def __call__(self, x, include_src: bool = False, centered: bool = True):
+        """x [..., ks, N] -> [..., kd, N]; include_src -> [..., ks+kd, N]
+        with the source limbs first (base extension, no concat pass)."""
+        if _is_cpu(x):
+            return self.call_plain(x, include_src, centered)
+        n = x.shape[-1]
+        rows = _check(x, self.device, (self.ks, n))
+        _limbs_ok(self.ks)
+        x = x.contiguous()
+        ko = self.ks + self.kd if include_src else self.kd
+        out = torch.empty(*x.shape[:-2], ko, n, dtype=torch.int64,
+                          device=x.device)
+        if rows:
+            _build.launch("rns", "rns_convert", x, out, self.src_tab,
+                          self.dst_tab, self.theta, rows, self.ks, self.kd,
+                          n, int(centered), int(include_src))
+            _build.LAUNCHES["convert"] += 1
+        return out
+
+
+class FusedScaleConvert:
+    """`ScaleAndRound.apply` (base Q∪B -> B) chained with the centered
+    `BaseConverter.convert` (B -> Q) in one pass: out = [round(t x/Q)]_Q
+    for x in the tensor base; the scaled-aux intermediate never exists
+    in device memory."""
+
+    def __init__(self, sc, conv):
+        assert sc.dst.moduli == conv.src.moduli
+        self.sc, self.conv = sc, conv
+        self.ks, self.km, self.kd = sc.src.k, sc.dst.k, conv.dst.k
+        self.device = conv.dst.device
+        b = conv.src
+        self.a_tab = _table(sc.src, sc.src.inv_punc, sc.phi_hi, sc.phi_lo)
+        self.b_tab = _table(b, b.inv_punc, b.inv_q_fp_hi, b.inv_q_fp_lo)
+        self.d_tab = _table(conv.dst, conv.c_mod_d)
+        self.omega = sc.omega.reshape(self.ks, self.km).contiguous()
+        self.theta = conv.theta.reshape(self.km, self.kd).contiguous()
+
+    def call_plain(self, x):
+        return self.conv.convert_plain(self.sc.apply(x), centered=True)
+
+    def __call__(self, x):
+        """x [..., ks, N] (tensor base Q∪B) -> [..., kd, N] (base Q)."""
+        if _is_cpu(x):
+            return self.call_plain(x)
+        n = x.shape[-1]
+        rows = _check(x, self.device, (self.ks, n))
+        _limbs_ok(self.ks, self.km)
+        x = x.contiguous()
+        out = torch.empty(*x.shape[:-2], self.kd, n, dtype=torch.int64,
+                          device=x.device)
+        if rows:
+            _build.launch("rns", "scale_convert", x, out, self.a_tab,
+                          self.b_tab, self.d_tab, self.omega, self.theta,
+                          rows, self.ks, self.km, self.kd, n)
+            _build.LAUNCHES["scale_convert"] += 1
+        return out
+
+
+class FusedModDown:
+    """One-pass special-prime rescale of a `rns.ModDown`:
+    v = (x_p + p/2) mod p; out_j = (x_j + (p/2 mod q_j) - v) p^-1 mod q_j."""
+
+    def __init__(self, md):
+        qb = md.q_base
+        self.md = md
+        self.k = qb.k
+        self.device = qb.device
+        self.p, self.half = int(md.p), int(md.half)
+        self.tab = _table(qb, md.half_mod_q, md.inv_p)
+
+    def call_plain(self, x_q, x_p):
+        return self.md.apply_plain(x_q, x_p)
+
+    def __call__(self, x_q, x_p):
+        """x_q [..., k, N], x_p [..., N] -> [..., k, N]. Both may be
+        strided views of one tensor (the keyswitch passes the limbs and
+        the special limb of its [..., 2, k+1, N] output): each is read
+        in place wherever its rows are evenly strided."""
+        if _is_cpu(x_q):
+            return self.call_plain(x_q, x_p)
+        n = x_q.shape[-1]
+        rows = _check(x_q, self.device, (self.k, n))
+        if _check(x_p, self.device, (n,)) != rows:
+            raise ValueError(f"x_q {tuple(x_q.shape)} and x_p "
+                             f"{tuple(x_p.shape)} differ in rows")
+        xq, sq = _strided_rows(x_q, 2)
+        xp, sp = _strided_rows(x_p, 1)
+        out = torch.empty(*x_q.shape[:-2], self.k, n, dtype=torch.int64,
+                          device=x_q.device)
+        if rows:
+            _build.launch("rns", "mod_down", xq, xp, out, self.tab, rows,
+                          self.k, n, sq, sp, self.p, self.half)
+            _build.LAUNCHES["mod_down"] += 1
+        return out
+
+
+def fused_converter(conv) -> FusedRnsOp:
+    """The fused op of a `rns.BaseConverter`."""
+    return FusedRnsOp(conv)
+
+
+def fused_mod_down(md) -> FusedModDown:
+    """The fused op of a `rns.ModDown`."""
+    return FusedModDown(md)

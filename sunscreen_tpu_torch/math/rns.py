@@ -1,11 +1,17 @@
 """RNS machinery: base conversion and scaling, on int64 torch tensors.
 
-Port of `sunscreen_tpu/math/rns.py` along its unfused branches, which
-are what the JAX package runs on every backend but the TPU: HPS-style
-conversions whose correction term alpha comes from an exact 128-bit
-fixed-point sum built from 32-bit column sums. The residue products
-here are below 2^60, so they are taken exactly in int64 and reduced with
-`%`; the results are the same residues the reference computes.
+Port of `sunscreen_tpu/math/rns.py`: HPS-style conversions whose
+correction term alpha comes from an exact 128-bit fixed-point sum built
+from 32-bit column sums. As in the reference's `_fused()` hooks, a CUDA
+tensor goes to the fused kernels of `math/prns.py`:
+`BaseConverter.extend` / `.convert` to B6 and `ModDown.apply` to B8,
+each op built once per object and cached. On the CPU they run the plain
+code (`convert_plain`, `apply_plain`), which is also the kernels'
+oracle. `ScaleAndRound.apply` is plain on every device; the multiply
+reaches it only through the chained B7 (`bfv/ops.py::_scale_convert`).
+The plain residue products are below 2^60, so they are taken exactly in
+int64 and reduced with `%`; the results are the same residues the
+reference computes.
 
 Layouts: polynomials are [..., k, N], limb-major.
 """
@@ -15,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from sunscreen_tpu_torch.math import modular as m
+from sunscreen_tpu_torch.math import prns
 from sunscreen_tpu_torch.math.modular import M32, s64, srl
 
 
@@ -110,14 +117,23 @@ class BaseConverter:
              for i in range(src.k)], dtype=torch.int64,
             device=dev).unsqueeze(-1)                        # [ks, kd, 1]
         self.c_mod_d = _col([src.product % d for d in dst.moduli], dev)
+        self._fused_op = None
+
+    def _fused(self) -> prns.FusedRnsOp:
+        if self._fused_op is None:
+            self._fused_op = prns.fused_converter(self)
+        return self._fused_op
 
     def extend(self, x, centered: bool = True):
         """[..., k_src, N] -> [..., k_src + k_dst, N]: the source limbs
-        followed by the converted ones."""
-        return torch.cat([x, self.convert(x, centered=centered)], dim=-2)
+        followed by the converted ones (one kernel pass on CUDA)."""
+        return self._fused()(x, include_src=True, centered=centered)
 
     def convert(self, x, centered: bool = False):
         """[..., k_src, N] -> [..., k_dst, N]."""
+        return self._fused()(x, centered=centered)
+
+    def convert_plain(self, x, centered: bool = False):
         src, dst = self.src, self.dst
         y = src.normalize_digits(x)
         (_, alpha), _ = fixed_point_dot(
@@ -204,9 +220,16 @@ class ModDown:
         dev = q_base.device
         self.inv_p = _col([pow(p % q, -1, q) for q in q_base.moduli], dev)
         self.half_mod_q = _col([self.half % q for q in q_base.moduli], dev)
+        self._fused_op = None
 
     def apply(self, x_q, x_p):
-        """x_q: [..., k, N], x_p: [..., N] -> [..., k, N]."""
+        """x_q: [..., k, N], x_p: [..., N] -> [..., k, N] (one kernel
+        pass on CUDA, reading strided views in place)."""
+        if self._fused_op is None:
+            self._fused_op = prns.fused_mod_down(self)
+        return self._fused_op(x_q, x_p)
+
+    def apply_plain(self, x_q, x_p):
         q = self.q_base.q
         xp = m.add_mod(x_p, self.half, self.p).unsqueeze(-2) % q
         num = m.sub_mod(m.add_mod(x_q, self.half_mod_q, q), xp, q)

@@ -1,8 +1,9 @@
-"""The port's BFV slice (keygen, encrypt, multiply_relin, decrypt, noise
-budget) against the JAX package and its frozen u32 golden vectors,
-bit for bit. The reference's relinearization key is built exactly as
-tests/test_golden_u32.py builds it, in its "pallas" NTT mode, and carried
-over with `keys.from_reference`."""
+"""The port's BFV slice (keygen, encrypt, multiply_relin, rotations,
+decrypt, noise budget) against the JAX package and its frozen u32 golden
+vectors, bit for bit. The reference's relinearization and Galois keys are
+built exactly as tests/test_golden_u32.py builds them, in its "pallas"
+NTT mode, and carried over with `keys.from_reference` and
+`keys.galois_from_reference`."""
 
 import os
 
@@ -23,8 +24,9 @@ def golden():
 
 @pytest.fixture(scope="module")
 def reference():
-    """The reference's params, secret key and relin key under the pallas
-    NTT mode (env var set only inside this fixture)."""
+    """The reference's params, secret key, relin and Galois keys under
+    the pallas NTT mode (env var set only inside this fixture), plus its
+    Galois tables."""
     prev = os.environ.get("SUNSCREEN_TPU_NTT")
     os.environ["SUNSCREEN_TPU_NTT"] = "pallas"
     try:
@@ -38,9 +40,18 @@ def reference():
         key = jax.random.key(1000)
         sk = ref_keys.gen_secret_key(ctx, jax.random.fold_in(key, 0))
         rlk = ref_keys.gen_relin_key(ctx, sk, jax.random.fold_in(key, 2))
-        yield params, {name: np.asarray(v) for name, v in (
+        elements = (ctx.rotate_rows_element(1), ctx.rotate_columns_element)
+        gks = ref_keys.gen_galois_keys(ctx, sk, jax.random.fold_in(key, 3),
+                                       elements)
+        ref = {name: np.asarray(v) for name, v in (
             ("s", sk.s), ("s_ntt_q", sk.s_ntt_q),
             ("s_ntt_key", sk.s_ntt_key), ("k0", rlk.k0), ("k1", rlk.k1))}
+        ref["galois"] = {g: (np.asarray(gks[g].k0), np.asarray(gks[g].k1))
+                         for g in elements}
+        ref["galois_tables"] = {g: ctx.galois_table_host(g)
+                                for g in (*elements, 3 ** 5 % 1024)}
+        ref["default_elements"] = ref_keys.default_rotation_elements(ctx)
+        yield params, ref
     finally:
         if prev is None:
             os.environ.pop("SUNSCREEN_TPU_NTT", None)
@@ -55,7 +66,7 @@ def port(golden, reference):
     _, ref = reference
     sk, _, rlk = keys.from_reference(ctx, s=golden["sk"], k0=ref["k0"],
                                      k1=ref["k1"])
-    return ctx, sk, rlk
+    return ctx, sk, rlk, keys.galois_from_reference(ctx, ref["galois"])
 
 
 def test_params_match_reference(golden, reference):
@@ -78,7 +89,7 @@ def test_from_reference_is_a_move(golden, reference, port):
     """Same NTT layout: the port's own transforms of the reference's s
     reproduce the reference's stored NTT images."""
     _, ref = reference
-    ctx, sk, rlk = port
+    ctx, sk, rlk, _ = port
     np.testing.assert_array_equal(sk.s.numpy(), golden["sk"])
     np.testing.assert_array_equal(sk.s_ntt_q.numpy(), ref["s_ntt_q"])
     np.testing.assert_array_equal(sk.s_ntt_key.numpy(), ref["s_ntt_key"])
@@ -90,7 +101,7 @@ def test_from_reference_is_a_move(golden, reference, port):
 
 
 def test_multiply_relin_matches_golden(golden, port):
-    ctx, sk, rlk = port
+    ctx, sk, rlk, _ = port
     ct = torch.from_numpy(golden["ct"].astype(np.int64))
     prod = ops.multiply_relin(ctx, ct, ct, rlk)
     np.testing.assert_array_equal(prod.numpy(), golden["mul_relin"])
@@ -128,3 +139,63 @@ def test_native_roundtrip():
         np.testing.assert_array_equal(
             dec[r], _negacyclic_square(pts[r].numpy(), ctx.t))
     assert np.all(ops.invariant_noise_budget(ctx, sk, prod) > 0)
+
+
+def test_galois_tables_match_reference(reference, port):
+    _, ref = reference
+    ctx = port[0]
+    for g, (idx, neg) in ref["galois_tables"].items():
+        got_idx, got_neg = ctx.galois_table_host(g)
+        np.testing.assert_array_equal(got_idx, idx)
+        np.testing.assert_array_equal(got_neg, neg)
+    assert keys.default_rotation_elements(ctx) == ref["default_elements"]
+
+
+def test_rotations_match_golden(golden, port):
+    """rotate_rows by one slot and the column swap with the reference's
+    Galois keys reproduce `rot1` and `swap` bit for bit."""
+    ctx, _, _, gks = port
+    ct = torch.from_numpy(golden["ct"].astype(np.int64))
+    np.testing.assert_array_equal(ops.rotate_rows(ctx, ct, 1, gks).numpy(),
+                                  golden["rot1"])
+    np.testing.assert_array_equal(ops.rotate_columns(ctx, ct, gks).numpy(),
+                                  golden["swap"])
+
+
+def _automorphism(ctx, pts, g):
+    """a(x) -> a(x^g) mod (x^N + 1, t) on plaintext rows, in numpy."""
+    n, t = ctx.n, ctx.t
+    out = np.zeros_like(pts)
+    for i in range(n):
+        j = i * g % (2 * n)
+        if j < n:
+            out[..., j] = (out[..., j] + pts[..., i]) % t
+        else:
+            out[..., j - n] = (out[..., j - n] - pts[..., i]) % t
+    return out
+
+
+def test_native_rotation_roundtrip():
+    """Port-native Galois keys from a torch generator: rotate, decrypt,
+    and compare with the automorphism of the plaintext; a rotation by 3
+    slots is composed from the keys for 1 and 2."""
+    ctx = get_context(BfvParams.insecure_u32(512, limbs=3, limb_bits=27),
+                      "cpu")
+    gen = torch.Generator().manual_seed(11)
+    sk = keys.gen_secret_key(ctx, gen)
+    pk = keys.gen_public_key(ctx, sk, gen)
+    g1, g2 = ctx.rotate_rows_element(1), ctx.rotate_rows_element(2)
+    gc = ctx.rotate_columns_element
+    gks = keys.gen_galois_keys(ctx, sk, gen, (g1, g2, gc))
+    pts = torch.randint(0, ctx.t, (2, ctx.n), generator=gen)
+    cts = ops.encrypt(ctx, pk, pts, gen)
+    p = pts.numpy()
+    for got, g in ((ops.rotate_rows(ctx, cts, 1, gks), g1),
+                   (ops.rotate_columns(ctx, cts, gks), gc),
+                   (ops.rotate_rows(ctx, cts, 3, gks),
+                    ctx.rotate_rows_element(3))):
+        np.testing.assert_array_equal(ops.decrypt(ctx, sk, got).numpy(),
+                                      _automorphism(ctx, p, g))
+    assert ops.rotate_rows(ctx, cts, ctx.n // 2, gks) is cts
+    with pytest.raises(KeyError, match="rotation 4"):
+        ops.rotate_rows(ctx, cts, 4, gks)

@@ -12,6 +12,7 @@ import torch
 
 from sunscreen_tpu.math import pmntt as rpmntt
 from sunscreen_tpu.math import primes as rprimes
+from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.errors import Unsupported
 from sunscreen_tpu_torch.math import ntt as pntt
 from sunscreen_tpu_torch.math import pmntt
@@ -123,10 +124,10 @@ def test_cpu_tensors_never_launch():
     n = 256
     mods = tuple(rprimes.gen_ntt_primes(29, 2, n))
     port = pmntt.NttPlanU32(n, mods, "cpu")
-    pmntt.reset_launches()
+    _build.reset_launches()
     x = _t(_residues(np.random.default_rng(1), mods, (1,), n))
     port.inv(port.fwd(x))
-    assert all(v == 0 for v in pmntt.LAUNCHES.values())
+    assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
 def test_get_plan_envelope():
