@@ -4,26 +4,36 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc`, holds
-each kernel bit for bit against its plain PyTorch twin at the shapes of
-the main path (the fused RNS kernels also at the `default_u32(16384)`
-bases), then drives two paths at N=8192 with `BfvParams.default_u32`,
-batch 64, each with the launch counts set to 0 just before it:
+each of the twelve kernel entry points bit for bit against its plain
+PyTorch twin at the shapes of the main path (N=8192,
+`BfvParams.default_u32`, batch 64) and again at the `default_u32(16384)`
+shapes (batch 2), then drives five paths, each with the launch counts
+set to 0 just before it and read just after:
 
-* keygen, encryption and batched ct×ct `multiply_relin`;
-* Galois keygen and the rotations `rotate_rows(ct, 1)` and
-  `rotate_columns(ct)`.
+1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
+   batch 64, under the default fusion settings;
+2. Galois keygen and the rotations `rotate_rows(ct, 1)` and
+   `rotate_columns(ct)` on the same ciphertexts;
+3. `multiply_relin` at `default_u32(16384)`, batch 64: the B4 kernel
+   holds N <= 8192, so the tensor product runs B1, B10 and B3;
+4. path 1's `multiply_relin` under the reference's unfused settings
+   (`SUNSCREEN_TPU_FUSE_FT3=0`, `_SC=0`, `_KS=0`: kernels B9-B11);
+5. path 1's `multiply_relin` under `SUNSCREEN_TPU_FUSE_FT3=0
+   SUNSCREEN_TPU_FUSE_T3=1` (kernel B12).
 
-Each path passes a decrypt gate against a numpy oracle and a card-vs-CPU
-bit-exact check on one ciphertext before it is timed and profiled.
-Prints the card, each kernel's times and launch counts as one JSON line,
-ops/s and rotations/s, and as the last line {"ok": true, "device":
-{...}}. Exits non-zero, printing no result, when no GPU is visible or any
-check fails.
+Paths 1-3 pass a decrypt gate against a numpy oracle and a card-vs-CPU
+bit-exact check on one ciphertext; paths 4 and 5 must give path 1's
+output bit for bit. Each path is then timed and profiled. Prints the
+card, each kernel's times and launch counts as one JSON line, the rates,
+and as the last line {"ok": true, "device": {...}}. Exits non-zero,
+printing no result, when no GPU is visible or any check fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -34,7 +44,14 @@ DEV = "cuda"
 N = 8192
 BATCH = 64
 ITERS, REPS = 20, 5          # timed ops: median of REPS x ITERS batches
-WIDE_N, WIDE_BATCH = 16384, 2   # fused RNS kernels at the widest bases
+WIDE_N, WIDE_BATCH = 16384, 2   # kernel checks at the widest bases
+GATES = ("SUNSCREEN_TPU_FUSED_RNS", "SUNSCREEN_TPU_FUSE_INV",
+         "SUNSCREEN_TPU_FUSE_FT3", "SUNSCREEN_TPU_FUSE_T3",
+         "SUNSCREEN_TPU_FUSE_TFULL", "SUNSCREEN_TPU_FUSE_SC",
+         "SUNSCREEN_TPU_FUSE_KS", "SUNSCREEN_TPU_FUSE_KSFULL")
+UNFUSED = {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_SC": "0",
+           "SUNSCREEN_TPU_FUSE_KS": "0"}
+T3 = {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_T3": "1"}
 
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM at 3.35 TB/s;
 # 67 TFLOP/s fp32 outside the tensor cores, i.e. 33.5 T FMA/s, and
@@ -63,12 +80,13 @@ def _median_ms(fn, reps: int, iters: int) -> float:
 
 
 def _negacyclic_square(a: np.ndarray, t: int) -> np.ndarray:
-    """a*a mod (x^N + 1, t); exact in int64 for t < 2^20."""
-    conv = np.convolve(a, a)
+    """a*a mod (x^N + 1, t) for 0 <= a < t < 2^20, exact: the plain
+    product is one big-integer square with a 64-bit slot per coefficient
+    (Kronecker substitution); every slot sum is below N t^2 < 2^54."""
     n = a.shape[0]
-    res = conv[:n].copy()
-    res[:n - 1] -= conv[n:]
-    return np.mod(res, t)
+    big = int.from_bytes(a.astype("<u8").tobytes(), "little")
+    conv = np.frombuffer((big * big).to_bytes(16 * n, "little"), dtype="<u8")
+    return np.mod(conv[:n].astype(np.int64) - conv[n:].astype(np.int64), t)
 
 
 def _automorphism(pts: np.ndarray, g: int, t: int) -> np.ndarray:
@@ -98,49 +116,6 @@ def _max_digits(x, base):
     return x
 
 
-def rns_cases(ctx, gen, batch: int) -> list[tuple]:
-    """The fused RNS kernels (B6-B8) at the shapes `multiply_relin` gives
-    them for `batch` ciphertext pairs: (name, kernel, plain twin, args,
-    source, replaces, bytes, 32-bit multiplies). Multiplies count 2 per
-    32x32->64 product: 2 to normalize a digit, 8 for a digit times a
-    128-bit fraction, 2 per term of a limb contraction or correction."""
-    from sunscreen_tpu_torch.math import prns
-
-    n = ctx.n
-    conv = prns.fused_converter(ctx.conv_q_to_aux)
-    sc = ctx.scale_convert_op()
-    mdo = prns.fused_mod_down(ctx.mod_down)
-    src = "sunscreen_tpu_torch/csrc/rns.cu"
-    ks, kd = conv.ks, conv.kd
-    x_cv = _max_digits(_uniform(gen, (batch, 4, ks, n), ctx.q_base.q),
-                       ctx.q_base)
-    cols_cv = batch * 4 * n
-    x_sc = _max_digits(_uniform(gen, (batch, 3, sc.ks, n), ctx.mul_base.q),
-                       ctx.mul_base)
-    cols_sc = batch * 3 * n
-    k = ctx.k
-    both = _uniform(gen, (batch, 2, k + 1, n), ctx.key_base.q)
-    cols_md = batch * 2 * n
-    return [
-        ("convert",
-         lambda x: conv(x, include_src=True, centered=True),
-         lambda x: conv.call_plain(x, include_src=True, centered=True),
-         (x_cv,), src, "sunscreen_tpu/math/prns.py:264",
-         cols_cv * (2 * ks + kd) * WORD,
-         cols_cv * (10 * ks + 2 * ks * kd + 2 * kd)),
-        ("scale_convert", sc, sc.call_plain, (x_sc,), src,
-         "sunscreen_tpu/math/prns.py:608",
-         cols_sc * (sc.ks + sc.kd) * WORD,
-         cols_sc * (10 * sc.ks + 2 * sc.ks * sc.km + 10 * sc.km
-                    + 2 * sc.km * sc.kd + 2 * sc.kd)),
-        ("mod_down",
-         lambda b: mdo(b[..., :k, :], b[..., k, :]),
-         lambda b: mdo.call_plain(b[..., :k, :], b[..., k, :]),
-         (both,), src, "sunscreen_tpu/math/prns.py:495",
-         cols_md * (2 * k + 1) * WORD, cols_md * 2 * k),
-    ]
-
-
 def _held(name, kern, plain, args) -> int:
     """Runs a kernel and its plain twin on the same inputs; exits unless
     they agree bit for bit. Returns the max abs error (0)."""
@@ -158,52 +133,152 @@ def _held(name, kern, plain, args) -> int:
     return err
 
 
-def check_kernels(ctx, gen) -> list[dict]:
-    """Each kernel entry point against its plain twin at the main-path
-    shapes, bit for bit, with both times and the bound."""
-    import torch
+def _max_residues(x, q):
+    """Sets coefficient 0 of every limb of x [..., k, N] to q - 1."""
+    x[..., 0] = q[:, 0] - 1
+    return x
 
-    pq, pm, pk = ctx.plan_q, ctx.plan_mul, ctx.plan_key
-    n, logn = N, N.bit_length() - 1
-    kdig = ctx.k
+
+def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
+    """Every kernel entry point at the shapes `multiply_relin` and the
+    rotations give it for `batch` ciphertexts of `ctx`: (name, kernel,
+    plain twin, args, source, replaces, bytes, 32-bit multiplies).
+    Multiplies count 3 per Shoup butterfly and per 1/N scaling, 2 per
+    32x32->64 product: in the RNS kernels 2 to normalize a digit, 8 for a
+    digit times a 128-bit fraction, 2 per term of a limb contraction or
+    correction. The fwd_tensor3 kernel holds N <= 8192 and is left out
+    above that."""
+    import torch
+    from sunscreen_tpu_torch.math import pmntt, prns
+
+    n, logn = ctx.n, ctx.n.bit_length() - 1
+    pm, pk = ctx.plan_mul, ctx.plan_key
+    k, km, kk, kdig = ctx.k, pm.k, pk.k, ctx.k
     ntt_muls = 3 * (n // 2) * logn        # Shoup butterfly: 3 multiplies
+    conv = prns.fused_converter(ctx.conv_q_to_aux)
+    scaler = prns.fused_scaler(ctx.scale_mul_to_aux)
+    sc = ctx.fused_op("scale_convert")
+    t3 = ctx.fused_op("tensor3")
+    ksi = ctx.fused_op("ks_inner")
+    mdo = prns.fused_mod_down(ctx.mod_down)
+    src_rns = "sunscreen_tpu_torch/csrc/rns.cu"
     src_ntt = "sunscreen_tpu_torch/csrc/ntt.cu"
-    rows_fi = BATCH * 4
-    x_fi = _uniform(gen, (rows_fi, pm.k, n), pm.q)
-    x_fb = torch.randint(0, 1 << 32, (BATCH * kdig, n), generator=gen,
+    src_pw = "sunscreen_tpu_torch/csrc/pointwise.cu"
+    ks, kd = conv.ks, conv.kd
+    x_cv = _max_digits(_uniform(gen, (batch, 4, ks, n), ctx.q_base.q),
+                       ctx.q_base)
+    cols_cv = batch * 4 * n
+    x_sc = _max_digits(_uniform(gen, (batch, 3, sc.ks, n), ctx.mul_base.q),
+                       ctx.mul_base)
+    cols_sc = batch * 3 * n
+    both = _uniform(gen, (batch, 2, kk, n), ctx.key_base.q)
+    cols_md = batch * 2 * n
+    # the multiply's operand stack [batch, 4, km, N]: a and b are its halves
+    ab = _max_residues(_uniform(gen, (batch, 4, km, n), pm.q), pm.q)
+    a_hat, b_hat = ab[:, :2], ab[:, 2:]
+    rows_fi = batch * 4
+    x_fi = _uniform(gen, (rows_fi, km, n), pm.q)
+    x_fb = torch.randint(0, 1 << 32, (batch * kdig, n), generator=gen,
                          device=DEV, dtype=torch.int64)
-    x_t3 = _uniform(gen, (BATCH, 4, pm.k, n), pm.q)
-    d_ks = _uniform(gen, (BATCH, kdig, pk.k, n), pk.q)
-    k0 = _uniform(gen, (kdig, pk.k, n), pk.q)
-    k1 = _uniform(gen, (kdig, pk.k, n), pk.q)
-    polys_fi = rows_fi * pm.k
-    cases = rns_cases(ctx, gen, BATCH) + [
-        # name, kernel, plain, args, source, replaces, bytes, multiplies
+    d_ks = _max_residues(_uniform(gen, (batch, kdig, kk, n), pk.q), pk.q)
+    k0 = _max_residues(_uniform(gen, (kdig, kk, n), pk.q), pk.q)
+    k1 = _uniform(gen, (kdig, kk, n), pk.q)
+    polys_fi = rows_fi * km
+    cols_pm = batch * km * n
+    cols_pk = batch * kk * n
+    cases = [
+        ("convert",
+         lambda x: conv(x, include_src=True, centered=True),
+         lambda x: conv.call_plain(x, include_src=True, centered=True),
+         (x_cv,), src_rns, "sunscreen_tpu/math/prns.py:264",
+         cols_cv * (2 * ks + kd) * WORD,
+         cols_cv * (10 * ks + 2 * ks * kd + 2 * kd)),
+        ("scale_convert", sc, sc.call_plain, (x_sc,), src_rns,
+         "sunscreen_tpu/math/prns.py:608",
+         cols_sc * (sc.ks + sc.kd) * WORD,
+         cols_sc * (10 * sc.ks + 2 * sc.ks * sc.km + 10 * sc.km
+                    + 2 * sc.km * sc.kd + 2 * sc.kd)),
+        ("mod_down",
+         lambda b: mdo(b[..., :k, :], b[..., k, :]),
+         lambda b: mdo.call_plain(b[..., :k, :], b[..., k, :]),
+         (both,), src_rns, "sunscreen_tpu/math/prns.py:495",
+         cols_md * (2 * k + 1) * WORD, cols_md * 2 * k),
+        ("scale", scaler, scaler.call_plain, (x_sc,), src_rns,
+         "sunscreen_tpu/math/prns.py:264",
+         cols_sc * (scaler.ks + scaler.kd) * WORD,
+         cols_sc * (10 * scaler.ks + 2 * scaler.ks * scaler.kd
+                    + 2 * scaler.kd)),
+        ("tensor3", t3, t3.call_plain, (a_hat, b_hat), src_pw,
+         "sunscreen_tpu/math/prns.py:343",
+         (2 + 2 + 3) * cols_pm * WORD, 8 * cols_pm),
+        ("ks_inner", ksi, ksi.call_plain, (d_ks, k0, k1), src_pw,
+         "sunscreen_tpu/math/prns.py:410",
+         (batch * kdig + 2 * kdig + batch * 2) * kk * n * WORD,
+         4 * kdig * cols_pk),
         ("fwd", pm.fwd, pm.fwd_plain, (x_fi,), src_ntt,
          "sunscreen_tpu/math/pmntt.py:354",
          2 * polys_fi * n * WORD, polys_fi * ntt_muls),
         ("fwd_broadcast", pk.fwd_broadcast, pk.fwd_broadcast_plain, (x_fb,),
          src_ntt, "sunscreen_tpu/math/pmntt.py:354",
-         (BATCH * kdig * n + BATCH * kdig * pk.k * n) * WORD,
-         BATCH * kdig * pk.k * ntt_muls),
+         (batch * kdig * n + batch * kdig * kk * n) * WORD,
+         batch * kdig * kk * ntt_muls),
         ("inv", pm.inv, pm.inv_plain, (x_fi,), src_ntt,
          "sunscreen_tpu/math/pmntt.py:354",
          2 * polys_fi * n * WORD, polys_fi * (ntt_muls + 3 * n)),
-        ("fwd_tensor3", pm.fwd_tensor3, pm.fwd_tensor3_plain, (x_t3,),
-         "sunscreen_tpu_torch/csrc/tensor3.cu",
-         "sunscreen_tpu/math/pmntt.py:715",
-         (4 + 3) * BATCH * pm.k * n * WORD,
-         # 4 transforms + 4 products of 32x32 -> 64 bits (2 each)
-         BATCH * pm.k * (4 * ntt_muls + 8 * n)),
+        ("inv_tensor3", pm.inv_tensor3, pm.inv_tensor3_plain, (a_hat, b_hat),
+         "sunscreen_tpu_torch/csrc/inv_tensor3.cu",
+         "sunscreen_tpu/math/pmntt.py:427",
+         (2 + 2 + 3) * cols_pm * WORD,
+         # 4 products of 32x32 -> 64 bits (2 each) + 3 inverse transforms
+         batch * km * (8 * n + 3 * (ntt_muls + 3 * n))),
         ("inv_ks", pk.inv_ks, pk.inv_ks_plain, (d_ks, k0, k1),
          "sunscreen_tpu_torch/csrc/inv_ks.cu",
          "sunscreen_tpu/math/pmntt.py:500",
-         (BATCH * kdig + 2 * kdig + BATCH * 2) * pk.k * n * WORD,
+         (batch * kdig + 2 * kdig + batch * 2) * kk * n * WORD,
          # 2 kdig digit products (2 each) + 2 inverse transforms
-         BATCH * pk.k * (4 * kdig * n + 2 * (ntt_muls + 3 * n))),
+         batch * kk * (4 * kdig * n + 2 * (ntt_muls + 3 * n))),
     ]
+    if n <= pmntt.TENSOR3_MAX_N:
+        x_t3 = _uniform(gen, (batch, 4, km, n), pm.q)
+        cases.append(
+            ("fwd_tensor3", pm.fwd_tensor3, pm.fwd_tensor3_plain, (x_t3,),
+             "sunscreen_tpu_torch/csrc/tensor3.cu",
+             "sunscreen_tpu/math/pmntt.py:715",
+             (4 + 3) * cols_pm * WORD,
+             # 4 transforms + 4 products of 32x32 -> 64 bits (2 each)
+             batch * km * (4 * ntt_muls + 8 * n)))
+    return cases
+
+
+def extra_checks(ctx, gen, batch: int) -> None:
+    """Kernel calls off the table's shapes: B6 on the conv_aux_to_q tables
+    (the aux -> Q conversion after B9, 8 -> 7 limbs at N=8192, without
+    the source copy), and B11 at 20 digits, where its sums fold, with
+    every digit and key at q - 1."""
+    import torch
+    from sunscreen_tpu_torch.math import prns
+
+    n = ctx.n
+    aux = prns.fused_converter(ctx.conv_aux_to_q)
+    x = _max_digits(_uniform(gen, (batch, 3, aux.ks, n), ctx.aux_base.q),
+                    ctx.aux_base)
+    _held(f"convert(aux->q)@{n}",
+          lambda v: aux(v, centered=True),
+          lambda v: aux.call_plain(v, centered=True), (x,))
+    ksi = ctx.fused_op("ks_inner")
+    kdig, pk = 20, ctx.plan_key
+    top = torch.broadcast_to(pk.q - 1, (kdig, pk.k, n)).contiguous()
+    d = torch.cat([top.unsqueeze(0),
+                   _uniform(gen, (batch, kdig, pk.k, n), pk.q)])
+    _held(f"ks_inner(kdig={kdig})@{n}", ksi, ksi.call_plain, (d, top, top))
+
+
+def check_kernels(ctx, gen) -> list[dict]:
+    """Each kernel entry point against its plain twin at the main-path
+    shapes, bit for bit, with both times and the bound."""
     rows = []
-    for name, kern, plain, args, src, repl, nbytes, muls in cases:
+    for (name, kern, plain, args, src, repl, nbytes,
+         muls) in kernel_cases(ctx, gen, BATCH):
         err = _held(name, kern, plain, args)
         ms = _median_ms(lambda: kern(*args), reps=5, iters=10)
         plain_ms = _median_ms(lambda: plain(*args), reps=3, iters=2)
@@ -219,24 +294,29 @@ def check_kernels(ctx, gen) -> list[dict]:
               f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB "
               f"= {t_bytes:.4f} ms, {muls / 1e9:.4f} G 32-bit multiplies "
               f"= {t_ops:.4f} ms)", flush=True)
+    extra_checks(ctx, gen, BATCH)
     return rows
 
 
 def check_wide(gen) -> None:
-    """The fused RNS kernels at the default_u32(16384) bases, where the
-    multiply base has more than 16 limbs and the limb sums are folded."""
+    """Every kernel but fwd_tensor3 at the default_u32(16384) shapes:
+    N=16384 transforms (64 and 128 KB of shared memory per block for B1,
+    B2, B3 and B5, 192 KB for B12), a 29-limb multiply base whose limb
+    sums fold, and 14 keyswitch digits."""
     from sunscreen_tpu_torch.bfv import BfvParams, get_context
 
     ctx = get_context(BfvParams.default_u32(WIDE_N), DEV)
     print(f"wide bases: N={WIDE_N} k={ctx.k} mul base {ctx.mul_base.k} "
           f"limbs, batch {WIDE_BATCH}", flush=True)
-    for name, kern, plain, args, *_ in rns_cases(ctx, gen, WIDE_BATCH):
+    for name, kern, plain, args, *_ in kernel_cases(ctx, gen, WIDE_BATCH):
         _held(f"{name}@{WIDE_N}", kern, plain, args)
+    extra_checks(ctx, gen, WIDE_BATCH)
 
 
 PORT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel", "fwd_tensor3_kernel",
                 "inv_ks_kernel", "rns_convert_kernel", "scale_convert_kernel",
-                "mod_down_kernel")
+                "mod_down_kernel", "rns_scale_kernel", "tensor3_kernel",
+                "ks_inner_kernel", "inv_tensor3_kernel")
 
 
 def profile_breakdown(label, step, batches: int = 3) -> None:
@@ -297,11 +377,136 @@ def _per_op(step) -> dict[str, int]:
     return {k: v - before[k] for k, v in _build.LAUNCHES.items()}
 
 
-def _path_counts(label, launches, needed) -> None:
+def _path_counts(label, launches, needed, absent=()) -> None:
     missing = [k for k in needed if launches[k] == 0]
     if missing:
         raise SystemExit(f"{label} path never launched: {missing}")
+    stray = [k for k in absent if launches[k] != 0]
+    if stray:
+        raise SystemExit(f"{label} path launched {stray}, which its "
+                         f"settings route around")
     print(f"launches {label}: {json.dumps(launches)}", flush=True)
+
+
+@contextlib.contextmanager
+def _gates(settings: dict[str, str]):
+    """The fusion settings of one path, restored afterwards."""
+    saved = {name: os.environ.get(name) for name in settings}
+    os.environ.update(settings)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+DEFAULT_MUL = ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks",
+               "convert", "scale_convert", "mod_down")
+NEW_KERNELS = ("scale", "tensor3", "ks_inner", "inv_tensor3")
+
+
+def multiply_path(label, ctx, seed: int, smi: str, needed, absent):
+    """Keygen, encryption, a decrypt gate on every product of the batch
+    and a card-vs-CPU bit-exact check on one ciphertext, then the rate,
+    launch counts and profile of batched `multiply_relin`. Returns the
+    keys and ciphertexts, the gate's product, the path's launches and the
+    launches of one op."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.bfv import get_context, keys, ops
+
+    n, t = ctx.n, ctx.t
+    at = "" if n == N else f" at N={n}"
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    sk = keys.gen_secret_key(ctx, gen)
+    pk = keys.gen_public_key(ctx, sk, gen)
+    rlk = keys.gen_relin_key(ctx, sk, gen)
+    pts = torch.arange(BATCH * n, dtype=torch.int64,
+                       device=DEV).reshape(BATCH, n) % t
+    cts = ops.encrypt(ctx, pk, pts, gen)
+    pts_np = pts.cpu().numpy()
+
+    # decrypt gate before timing: every product of the batch
+    prod = ops.multiply_relin(ctx, cts, cts, rlk)
+    dec = ops.decrypt(ctx, sk, prod).cpu().numpy()
+    for r in range(BATCH):
+        if not np.array_equal(dec[r], _negacyclic_square(pts_np[r], t)):
+            raise SystemExit(f"decrypt gate{at} FAILED at batch row {r}")
+    print(f"decrypt gate{at}: {BATCH} products decrypt to the numpy "
+          f"negacyclic oracle", flush=True)
+
+    # the same multiply_relin through the kernels and on the CPU
+    one = ops.multiply_relin(ctx, cts[0], cts[0], rlk).cpu()
+    ctx_cpu = get_context(ctx.params, "cpu")
+    rlk_cpu = keys.KswKey(rlk.k0.cpu(), rlk.k1.cpu())
+    ct_cpu = cts[0].cpu()
+    want = ops.multiply_relin(ctx_cpu, ct_cpu, ct_cpu, rlk_cpu)
+    if not torch.equal(one, want):
+        raise SystemExit(f"{label} on the card differs from the CPU")
+    print(f"{label}: card kernels == CPU plain path, bit for bit",
+          flush=True)
+
+    state = {"out": ops.multiply_relin(ctx, cts, cts, rlk)}
+
+    def mul_step():
+        state["out"] = ops.multiply_relin(ctx, state["out"], cts, rlk)
+
+    ops_per_s = _rate(mul_step)
+    per_op = _per_op(mul_step)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"{label}: {ops_per_s:.1f} ops/s (N={n}, batch {BATCH}, "
+          f"median of {REPS} x {ITERS}) on {smi}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    _path_counts(label, launches, needed, absent)
+    print(f"launches per {label}: {json.dumps(per_op)}", flush=True)
+    profile_breakdown(label, mul_step)
+    inputs = {"sk": sk, "rlk": rlk, "cts": cts, "pts_np": pts_np,
+              "ct_cpu": ct_cpu, "ctx_cpu": ctx_cpu, "gen": gen}
+    return inputs, prod, launches, per_op
+
+
+def gated_path(label, settings, ctx, inputs, want, smi: str, needed,
+               absent):
+    """Path 1's multiply_relin under other fusion settings: its output
+    must be path 1's bit for bit, as every route is exact integer
+    arithmetic. Then the rate, launch counts and profile."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.bfv import ops
+
+    cts, rlk = inputs["cts"], inputs["rlk"]
+    with _gates(settings):
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        if not torch.equal(ops.multiply_relin(ctx, cts, cts, rlk), want):
+            raise SystemExit(f"{label}: multiply_relin differs from the "
+                             f"default settings' output")
+        print(f"{label} ({json.dumps(settings)}): {BATCH} products == "
+              f"path 1's multiply_relin, bit for bit", flush=True)
+        state = {"out": want}
+
+        def step():
+            state["out"] = ops.multiply_relin(ctx, state["out"], cts, rlk)
+
+        ops_per_s = _rate(step)
+        per_op = _per_op(step)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        print(f"{label}: {ops_per_s:.1f} ops/s (N={ctx.n}, batch {BATCH}, "
+              f"median of {REPS} x {ITERS}) on {smi}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        _path_counts(label, launches, needed, absent)
+        print(f"launches per {label}: {json.dumps(per_op)}", flush=True)
+        profile_breakdown(label, step)
+    return launches, per_op
 
 
 def main() -> int:
@@ -312,6 +517,8 @@ def main() -> int:
     from sunscreen_tpu_torch import _build
     from sunscreen_tpu_torch.bfv import BfvParams, get_context, keys, ops
 
+    for name in GATES:                 # paths 1-3 run the default settings
+        os.environ.pop(name, None)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -333,59 +540,19 @@ def main() -> int:
     gen = torch.Generator(device=DEV).manual_seed(0)
     table = check_kernels(ctx, gen)
     check_wide(gen)
-    ctx_cpu = get_context(params, "cpu")
     t = params.plain_modulus
+    paths: dict[str, tuple[dict, dict]] = {}
 
     # --- path 1: keygen, encrypt, multiply_relin ----------------------
-    _build.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=DEV).manual_seed(1)
-    sk = keys.gen_secret_key(ctx, gen)
-    pk = keys.gen_public_key(ctx, sk, gen)
-    rlk = keys.gen_relin_key(ctx, sk, gen)
-    pts = torch.arange(BATCH * N, dtype=torch.int64,
-                       device=DEV).reshape(BATCH, N) % t
-    cts = ops.encrypt(ctx, pk, pts, gen)
-    pts_np = pts.cpu().numpy()
-
-    # decrypt gate before timing: every product of the batch
-    dec = ops.decrypt(ctx, sk, ops.multiply_relin(ctx, cts, cts, rlk))
-    dec = dec.cpu().numpy()
-    for r in range(BATCH):
-        if not np.array_equal(dec[r], _negacyclic_square(pts_np[r], t)):
-            raise SystemExit(f"decrypt gate FAILED at batch row {r}")
-    print(f"decrypt gate: {BATCH} products decrypt to the numpy "
-          f"negacyclic oracle", flush=True)
-
-    # the same multiply_relin through the kernels and on the CPU
-    one = ops.multiply_relin(ctx, cts[0], cts[0], rlk).cpu()
-    rlk_cpu = keys.KswKey(rlk.k0.cpu(), rlk.k1.cpu())
-    ct_cpu = cts[0].cpu()
-    want = ops.multiply_relin(ctx_cpu, ct_cpu, ct_cpu, rlk_cpu)
-    if not torch.equal(one, want):
-        raise SystemExit("multiply_relin on the card differs from the CPU")
-    print("multiply_relin: card kernels == CPU plain path, bit for bit",
-          flush=True)
-
-    state = {"out": ops.multiply_relin(ctx, cts, cts, rlk)}
-
-    def mul_step():
-        state["out"] = ops.multiply_relin(ctx, state["out"], cts, rlk)
-
-    ops_per_s = _rate(mul_step)
-    per_mul = _per_op(mul_step)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f"multiply_relin: {ops_per_s:.1f} ops/s (N={N}, batch {BATCH}, "
-          f"median of {REPS} x {ITERS}) on {smi}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
-    _path_counts("multiply_relin", launches, list(launches))
-    print(f"launches per multiply_relin: {json.dumps(per_mul)}", flush=True)
-    profile_breakdown("multiply_relin", mul_step)
+    inputs, prod, launches, per_mul = multiply_path(
+        "multiply_relin", ctx, 1, smi, DEFAULT_MUL, NEW_KERNELS)
+    paths["multiply_relin"] = (launches, per_mul)
+    sk, cts, pts_np = inputs["sk"], inputs["cts"], inputs["pts_np"]
+    ctx_cpu, ct_cpu = inputs["ctx_cpu"], inputs["ct_cpu"]
 
     # --- path 2: Galois keygen, rotate_rows, rotate_columns -------------
     _build.reset_launches()
+    gen = inputs["gen"]
     g_row, g_col = ctx.rotate_rows_element(1), ctx.rotate_columns_element
     gks = keys.gen_galois_keys(ctx, sk, gen, (g_row, g_col))
     for label, got, g in (
@@ -404,7 +571,7 @@ def main() -> int:
         raise SystemExit("rotate_rows on the card differs from the CPU")
     print("rotate_rows: card kernels == CPU plain path, bit for bit",
           flush=True)
-    state["rot"] = cts
+    state = {"rot": cts}
 
     def rot_step():
         state["rot"] = ops.rotate_rows(ctx, state["rot"], 1, gks)
@@ -419,12 +586,38 @@ def main() -> int:
                  ("fwd", "fwd_broadcast", "inv", "inv_ks", "mod_down"))
     print(f"launches per rotation: {json.dumps(per_rot)}", flush=True)
     profile_breakdown("rotate_rows", rot_step)
+    paths["rotate"] = (launches_rot, per_rot)
+
+    # --- path 3: multiply_relin at default_u32(16384) ----------------
+    wide = get_context(BfvParams.default_u32(WIDE_N), DEV)
+    _, _, launches, per_op = multiply_path(
+        f"multiply_relin@{WIDE_N}", wide, 3, smi,
+        ("tensor3", "fwd", "fwd_broadcast", "inv", "inv_ks", "convert",
+         "scale_convert", "mod_down"),
+        ("fwd_tensor3", "scale", "ks_inner", "inv_tensor3"))
+    paths[f"multiply_relin@{WIDE_N}"] = (launches, per_op)
+
+    # --- paths 4 and 5: path 1's multiply under other settings -----------
+    paths["unfused"] = gated_path(
+        "unfused", UNFUSED, ctx, inputs, prod, smi,
+        ("scale", "tensor3", "ks_inner", "convert", "fwd", "fwd_broadcast",
+         "inv", "mod_down"),
+        ("fwd_tensor3", "scale_convert", "inv_ks", "inv_tensor3"))
+    paths["t3"] = gated_path(
+        "t3", T3, ctx, inputs, prod, smi,
+        ("inv_tensor3", "fwd", "convert", "scale_convert", "fwd_broadcast",
+         "inv_ks", "mod_down"),
+        ("fwd_tensor3", "tensor3", "scale", "ks_inner"))
 
     for row in table:
-        row["launches"] = launches[row["name"]]
-        row["launches_rotate"] = launches_rot[row["name"]]
-        row["launches_per_multiply_relin"] = per_mul[row["name"]]
-        row["launches_per_rotation"] = per_rot[row["name"]]
+        name = row["name"]
+        row["launches_by_path"] = {p: v[0][name] for p, v in paths.items()}
+        row["launches_per_op_by_path"] = {p: v[1][name]
+                                          for p, v in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    never = [row["name"] for row in table if row["launches"] == 0]
+    if never or len(table) != len(_build.LAUNCHES):
+        raise SystemExit(f"kernels no path launched: {never}")
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

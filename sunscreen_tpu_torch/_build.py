@@ -8,6 +8,10 @@ built when the package is imported: the first launch builds.
 
 `LAUNCHES` counts kernel launches per entry point, for every wrapper of
 the port (`math/pmntt.py`, `math/prns.py`); the plain twins never count.
+Keys name the entry points: "fwd", "fwd_broadcast", "inv" (B1-B3),
+"fwd_tensor3" (B4), "inv_ks" (B5), "convert" (B6), "scale_convert" (B7),
+"mod_down" (B8), "scale" (B9), "tensor3" (B10), "ks_inner" (B11),
+"inv_tensor3" (B12).
 """
 
 from __future__ import annotations
@@ -30,13 +34,17 @@ SIGNATURES = {
     "ntt": {"ntt_fwd": "ppppiiiip", "ntt_inv": "ppppiiip"},
     "tensor3": {"fwd_tensor3": "ppppiiip"},
     "inv_ks": {"inv_ks": "ppppppiiiip"},
-    "rns": {"rns_convert": "pppppiiiiiip", "scale_convert": "pppppppiiiiip",
-            "mod_down": "ppppiiiiiiip"},
+    "inv_tensor3": {"inv_tensor3": "pppppiiiiip"},
+    "rns": {"rns_convert": "pppppiiiiiip", "rns_scale": "pppppiiiip",
+            "scale_convert": "pppppppiiiiip", "mod_down": "ppppiiiiiiip"},
+    "pointwise": {"tensor3_pointwise": "ppppiiiiip",
+                  "ks_inner": "pppppiiiip"},
 }
 
 LAUNCHES = dict.fromkeys(
     ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks",
-     "convert", "scale_convert", "mod_down"), 0)
+     "convert", "scale_convert", "mod_down",
+     "scale", "tensor3", "ks_inner", "inv_tensor3"), 0)
 
 
 def reset_launches() -> None:

@@ -63,7 +63,7 @@ class BfvContext:
             self.mul_base, self.q_base, self.aux_base, t)
         self.decrypt_scaler = rns.DecryptScaler(self.q_base, t)
         self.mod_down = rns.ModDown(self.q_base, params.special_modulus)
-        self._scale_convert_op = None      # see scale_convert_op()
+        self._fused_ops: dict[str, object] = {}    # see fused_op()
 
         # --- Δ = round(Q*m/t) tables (see ops.scale_plain) ------------------
         Q = params.q_product
@@ -89,13 +89,21 @@ class BfvContext:
         self._galois_host: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self._galois_dev: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def scale_convert_op(self) -> prns.FusedScaleConvert:
-        """round(t x / Q) from the multiply base into Q (kernel B7),
-        built once per context."""
-        if self._scale_convert_op is None:
-            self._scale_convert_op = prns.FusedScaleConvert(
-                self.scale_mul_to_aux, self.conv_aux_to_q)
-        return self._scale_convert_op
+    def fused_op(self, kind: str):
+        """The context's fused op of one kind, built once: "scale_convert"
+        (kernel B7: round(t x / Q) from the multiply base into Q),
+        "tensor3" (B10, over the multiply base) or "ks_inner" (B11, over
+        the key base). The op holds tables only: which route runs is read
+        from the environment on every call (`bfv/ops.py`)."""
+        if kind not in self._fused_ops:
+            build = {
+                "scale_convert": lambda: prns.FusedScaleConvert(
+                    self.scale_mul_to_aux, self.conv_aux_to_q),
+                "tensor3": lambda: prns.FusedTensor3(self.mul_base),
+                "ks_inner": lambda: prns.FusedKsInner(self.key_base),
+            }[kind]
+            self._fused_ops[kind] = build()
+        return self._fused_ops[kind]
 
     # -- Galois -------------------------------------------------------------
 

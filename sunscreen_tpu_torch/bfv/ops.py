@@ -1,16 +1,32 @@
 """BFV evaluator ops on int64 torch tensors (port of
-`sunscreen_tpu/bfv/ops.py`, along the reference's TPU-default branches:
-the fused base extension, `fwd_tensor3` + `inv` and the chained
-scale+convert in `multiply`; `fwd_broadcast`, `inv_ks` and the fused
-mod-down in `keyswitch`, which relinearization and rotations share).
+`sunscreen_tpu/bfv/ops.py`).
 
 Ciphertexts are [..., n_comp, k, N] in the coefficient domain;
 plaintexts [..., N] with coefficients in [0, t). Multiplication is the
 HPS RNS variant with exact fixed-point corrections (`math/rns.py`,
 `math/prns.py`).
+
+The reference picks between fused routes with environment settings,
+read at call time; the port reads the same names the same way, so a
+deployment's settings carry over (every route gives the same bits):
+
+* `SUNSCREEN_TPU_FUSE_FT3` (default on), `SUNSCREEN_TPU_FUSE_T3`
+  (default off), `SUNSCREEN_TPU_FUSE_INV` (default on): the tensor
+  product of `multiply` (`multiply_route`);
+* `SUNSCREEN_TPU_FUSE_SC` (default on): the scale back to Q
+  (`scale_convert_route`);
+* `SUNSCREEN_TPU_FUSE_KS` (default on) and `SUNSCREEN_TPU_FUSE_INV`: the
+  keyswitch contraction (`keyswitch_route`);
+* `SUNSCREEN_TPU_FUSE_TFULL=1` and `SUNSCREEN_TPU_FUSE_KSFULL=1` ask for
+  kernels B13 and B14, which are not ported: they raise;
+* `SUNSCREEN_TPU_FUSED_RNS=0` asks for the reference's plain glue, which
+  the port runs only on the CPU: it raises for CUDA tensors and changes
+  nothing on the CPU, whose path is always the plain twins.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -108,31 +124,104 @@ def add(ctx: BfvContext, a, b):
                      _q(ctx))
 
 
+def _env_on(name: str, default: str = "1") -> bool:
+    return os.environ.get(name, default) != "0"
+
+
+def _check_fused_rns(device_type: str) -> None:
+    """SUNSCREEN_TPU_FUSED_RNS=0, which turns off every fused pipeline in
+    the reference, raises for a CUDA tensor: the port has no plain path
+    on the card."""
+    if (os.environ.get("SUNSCREEN_TPU_FUSED_RNS") == "0"
+            and device_type != "cpu"):
+        raise NotImplementedError(
+            "SUNSCREEN_TPU_FUSED_RNS=0 selects the reference's plain RNS "
+            "glue, which the port runs only on CPU tensors")
+
+
+def _plan_fused(device_type: str) -> bool:
+    """True when the fused-inverse kernels (B4, B12, B5) may run: unless
+    SUNSCREEN_TPU_FUSE_INV=0 opts out."""
+    _check_fused_rns(device_type)
+    return _env_on("SUNSCREEN_TPU_FUSE_INV")
+
+
+def _unported(setting: str, kernel: str):
+    return NotImplementedError(
+        f"{setting} asks for kernel {kernel}, which sunscreen_tpu_torch "
+        f"does not port yet")
+
+
+def multiply_route(n: int, na: int, nb: int, device_type: str) -> str:
+    """How `multiply` forms the tensor product, in the reference's order:
+    "fwd_tensor3" (B4, then B3) unless FUSE_INV or FUSE_FT3 is off or,
+    on CUDA, N > pmntt.TENSOR3_MAX_N; else "inv_tensor3" (B1, then B12)
+    under FUSE_T3=1; else "tensor3" (B1, B10, B3) for 2 x 2 components;
+    else "loop" (B1, plain products per component, B3)."""
+    fused = _plan_fused(device_type)
+    if na != 2 or nb != 2:
+        return "loop"
+    if (fused and _env_on("SUNSCREEN_TPU_FUSE_FT3")
+            and (device_type == "cpu" or n <= pmntt.TENSOR3_MAX_N)):
+        if _env_on("SUNSCREEN_TPU_FUSE_TFULL", default="0"):
+            raise _unported("SUNSCREEN_TPU_FUSE_TFULL=1", "B13 "
+                            "(fwd_tensor3(full=True), pmntt.py:715)")
+        return "fwd_tensor3"
+    if fused and _env_on("SUNSCREEN_TPU_FUSE_T3", default="0"):
+        return "inv_tensor3"
+    return "tensor3"
+
+
+def scale_convert_route(device_type: str) -> str:
+    """"scale_convert" (B7) unless SUNSCREEN_TPU_FUSE_SC=0, then "scale"
+    (B9, then the centered conversion B -> Q through B6)."""
+    _check_fused_rns(device_type)
+    return ("scale_convert" if _env_on("SUNSCREEN_TPU_FUSE_SC")
+            else "scale")
+
+
+def keyswitch_route(device_type: str) -> str:
+    """"inv_ks" (B2, B5) unless FUSE_KS or FUSE_INV is off, then
+    "ks_inner" (B2, B11, B3)."""
+    fused = _plan_fused(device_type)
+    if fused and _env_on("SUNSCREEN_TPU_FUSE_KSFULL", default="0"):
+        raise _unported("SUNSCREEN_TPU_FUSE_KSFULL=1",
+                        "B14 (ks_full, pmntt.py:620)")
+    return ("inv_ks" if fused and _env_on("SUNSCREEN_TPU_FUSE_KS")
+            else "ks_inner")
+
+
 def _scale_convert(ctx: BfvContext, tensor):
-    """round(t * tensor / Q) mapped into base Q: the chained kernel B7
-    on CUDA, scale-and-round into B then the centered conversion to Q
-    on the CPU."""
-    return ctx.scale_convert_op()(tensor)
+    """round(t * tensor / Q) mapped into base Q: the chained kernel B7,
+    or B9 into B followed by the centered conversion to Q (B6)."""
+    if scale_convert_route(tensor.device.type) == "scale_convert":
+        return ctx.fused_op("scale_convert")(tensor)
+    return ctx.conv_aux_to_q.convert(ctx.scale_mul_to_aux.apply(tensor),
+                                     centered=True)
 
 
 def multiply(ctx: BfvContext, a, b):
     """ct×ct tensor multiply with t/Q scaling: centered base extension
-    Q -> Q∪B (kernel B6 on CUDA), forward NTTs and component products,
-    inverse NTT, then exact scale-and-round into B chained with the
-    centered conversion B -> Q (kernel B7 on CUDA). Output has
-    n_a + n_b - 1 components."""
+    Q -> Q∪B (B6 on CUDA), the tensor product along `multiply_route`,
+    then exact scale-and-round back to Q along `scale_convert_route`.
+    Output has n_a + n_b - 1 components."""
     na, nb = a.shape[-3], b.shape[-3]
+    route = multiply_route(ctx.n, na, nb, a.device.type)
     plan = ctx.plan_mul
     ext = ctx.conv_q_to_aux.extend(torch.cat([a, b], dim=-3), centered=True)
-    if (na == 2 and nb == 2
-            and (ext.device.type == "cpu" or ctx.n <= pmntt.TENSOR3_MAX_N)):
-        tensor = plan.inv(plan.fwd_tensor3(ext))
+    if route == "fwd_tensor3":
+        return _scale_convert(ctx, plan.inv(plan.fwd_tensor3(ext)))
+    both = plan.fwd(ext)
+    a_hat, b_hat = both[..., :na, :, :], both[..., na:, :, :]
+    if route == "inv_tensor3":
+        tensor = plan.inv_tensor3(a_hat, b_hat)
+    elif route == "tensor3":
+        tensor = plan.inv(ctx.fused_op("tensor3")(a_hat, b_hat))
     else:
-        both = plan.fwd(ext)
         outs = []
         for j in range(na + nb - 1):
-            terms = [plan.pointwise_mul(both[..., ia, :, :],
-                                        both[..., na + j - ia, :, :])
+            terms = [plan.pointwise_mul(a_hat[..., ia, :, :],
+                                        b_hat[..., j - ia, :, :])
                      for ia in range(na) if 0 <= j - ia < nb]
             outs.append(sum(terms) % plan.q)
         tensor = plan.inv(torch.stack(outs, dim=-3))
@@ -144,10 +233,16 @@ def keyswitch(ctx: BfvContext, d, ksw: KswKey):
     (u0, u1) over Q after the special-prime mod-down. The k raw digits
     are transformed under every key modulus (exact for any u32, and the
     NTT is linear mod each modulus), contracted against the key and
-    inverse-transformed in one kernel. The mod-down reads the Q limbs
-    and the special limb of that output in place."""
+    inverse-transformed, in one kernel on the "inv_ks" route. The
+    mod-down reads the Q limbs and the special limb of that output in
+    place."""
+    route = keyswitch_route(d.device.type)
     d_hat = ctx.plan_key.fwd_broadcast(d)      # [..., k(digit), k+1, N]
-    both = ctx.plan_key.inv_ks(d_hat, ksw.k0, ksw.k1)   # [..., 2, k+1, N]
+    if route == "inv_ks":
+        both = ctx.plan_key.inv_ks(d_hat, ksw.k0, ksw.k1)
+    else:
+        both = ctx.plan_key.inv(ctx.fused_op("ks_inner")(d_hat, ksw.k0,
+                                                         ksw.k1))
     u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
     return u[..., 0, :, :], u[..., 1, :, :]
 

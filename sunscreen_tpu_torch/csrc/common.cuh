@@ -1,5 +1,6 @@
 // Shared device code of the u32-engine kernels (ntt.cu, tensor3.cu,
-// inv_ks.cu, rns.cu): modular helpers, the exact 128-bit fixed-point sum of
+// inv_ks.cu, inv_tensor3.cu, rns.cu, pointwise.cu): modular helpers, the
+// per-modulus tables, the exact 128-bit fixed-point sum of
 // the RNS conversions, the radix-2 transforms on shared memory, and the map
 // from the plan's flat NTT domain to the butterflies' bit-reversed order.
 //
@@ -39,6 +40,33 @@ __device__ __forceinline__ u32 reduce64(u64 x, u32 q, u64 m) {
   if (r >= q) r -= q;
   if (r >= q) r -= q;
   return (u32)r;
+}
+
+// Per-modulus tables of the RNS and pointwise kernels (rns.cu,
+// pointwise.cu): int64, one row of 8 per modulus: q, floor(2^64 / q), then
+// the op's constants.
+struct Mod {
+  u32 q;
+  u64 m;
+};
+
+__device__ __forceinline__ Mod load_mod(const long long* tab, int i) {
+  return {(u32)__ldg(tab + 8 * i), (u64)__ldg(tab + 8 * i + 1)};
+}
+
+__device__ __forceinline__ u64 tab_at(const long long* tab, int i, int c) {
+  return (u64)__ldg(tab + 8 * i + c);
+}
+
+// The BFV tensor (a0 b0, a0 b1 + a1 b0, a1 b1) mod q of NTT-domain residues
+// a, b < q < 2^30 (tensor3.cu, inv_tensor3.cu, pointwise.cu): the middle sum
+// is below 2^61, so each component is one u64 reduction.
+__device__ __forceinline__ void tensor3_mod(u64 a0, u64 a1, u64 b0, u64 b1,
+                                            u32 q, u64 m, u32& c0, u32& c1,
+                                            u32& c2) {
+  c0 = reduce64(a0 * b0, q, m);
+  c1 = reduce64(a0 * b1 + a1 * b0, q, m);
+  c2 = reduce64(a1 * b1, q, m);
 }
 
 // (x w) mod q for any u32 x and w < q < 2^30, w_sh = floor(w 2^32 / q)

@@ -4,6 +4,10 @@
 //   rns_convert   FusedRnsOp, mode "convert" (pallas_call at prns.py:264),
 //                 built by fused_converter; reached through
 //                 BaseConverter.extend / .convert (B6);
+//   rns_scale     FusedRnsOp, mode "scale" (the same pallas_call), built by
+//                 fused_scaler; reached through ScaleAndRound.apply, which
+//                 bfv/ops.py::_scale_convert runs when SUNSCREEN_TPU_FUSE_SC=0
+//                 (B9);
 //   scale_convert FusedScaleConvert (pallas_call at prns.py:608); reached
 //                 through bfv/ops.py::_scale_convert (B7);
 //   mod_down      FusedModDown (pallas_call at prns.py:495); reached through
@@ -18,35 +22,24 @@
 // fixed-point sums are exact in three u64 words (Fixed192), and the limb
 // contractions fold their raw u64 sums every 16 terms (dot_mod), so both are
 // exact for any base up to MAXK limbs. The tables are a few KB, read through
-// the read-only cache; all threads of a warp read the same entry.
+// the read-only cache; all threads of a warp read the same entry. rns_scale
+// and scale_convert share their scale step (scale_digits, scale_limb).
 //
-// Tables are int64, one row of 8 per modulus: q, floor(2^64 / q), then the
-// op's constants (below). Residues cross the interface as int64 values < 2^30.
+// Tables are int64, one row of 8 per modulus (load_mod in common.cuh): q,
+// floor(2^64 / q), then the op's constants (below). Residues cross the
+// interface as int64 values < 2^30.
 //
 // Bound on the H100 at the main-path shapes (N = 8192, batch 64,
 // default_u32(8192)), int64 in and out: rns_convert [64,4,7,N] ->
 // [64,4,15,N] moves 369 MB (0.110 ms at 3.35 TB/s); scale_convert
-// [64,3,15,N] -> [64,3,7,N] moves 277 MB (0.083 ms); mod_down
-// [64,2,8,N] -> [64,2,7,N] moves 126 MB (0.038 ms). Their 32-bit multiplies
-// (chip_smoke.py counts them) take under 0.06 ms at 16.7 T/s, so all three
-// are bound by bytes.
+// [64,3,15,N] -> [64,3,7,N] moves 277 MB (0.083 ms); rns_scale [64,3,15,N]
+// -> [64,3,8,N] moves 289 MB (0.086 ms); mod_down [64,2,8,N] -> [64,2,7,N]
+// moves 126 MB (0.038 ms). Their 32-bit multiplies (chip_smoke.py counts
+// them) take under 0.06 ms at 16.7 T/s, so all four are bound by bytes.
 
 #include "common.cuh"
 
 #define MAXK 32
-
-struct Mod {
-  u32 q;
-  u64 m;
-};
-
-__device__ __forceinline__ Mod load_mod(const long long* tab, int i) {
-  return {(u32)__ldg(tab + 8 * i), (u64)__ldg(tab + 8 * i + 1)};
-}
-
-__device__ __forceinline__ u64 tab_at(const long long* tab, int i, int c) {
-  return (u64)__ldg(tab + 8 * i + c);
-}
 
 // x [rows, ks, N] -> out [rows, kd, N], or [rows, ks + kd, N] with the source
 // limbs copied ahead (include_src). alpha = floor(sum_i y_i / q_i (+ 1/2 if
@@ -89,11 +82,59 @@ __global__ void rns_convert_kernel(const long long* __restrict__ x,
   }
 }
 
-// x [rows, ks, N] in the tensor base A = Q u B -> out [rows, kd, N] in Q:
-// s = round(t x / Q) mod each b_j (omega contraction plus the rounded
-// fixed-point part r), then the centered conversion of s from B to Q, with s
-// kept in registers.
+// The scale step of rns_scale and scale_convert for the column at xc (limbs
+// n apart) in the tensor base A = Q u B: y_i = x_i (A/q_i)^-1 mod q_i into
+// y, and r = floor(sum_i y_i phi_i + 1/2) as returned, r < ks 2^30.
 //   a [ks]: q_i, m, (A/q_i)^-1 mod q_i, phi_i = frac(t (A/q_i) / Q) (hi, lo)
+template <int K>
+__device__ __forceinline__ u64 scale_digits(const long long* xc, size_t n,
+                                            const long long* a, int ks,
+                                            u32 (&y)[K]) {
+  Fixed192 fr;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i < ks) {
+      const Mod s = load_mod(a, i);
+      y[i] = reduce64((u64)xc[i * n] * tab_at(a, i, 2), s.q, s.m);
+      fixed_add(fr, y[i], tab_at(a, i, 3), tab_at(a, i, 4));
+    }
+  }
+  return fixed_int(fr, true);
+}
+
+// round(t x / Q) mod b_j = sum_i y_i omega_ij + r mod b_j.
+template <int K>
+__device__ __forceinline__ u32 scale_limb(const u32 (&y)[K], int ks, u64 r,
+                                          const long long* omega, int j,
+                                          int km, Mod bj) {
+  return add_q(dot_mod<K>(y, ks, omega + j, km, bj.q, bj.m),
+               reduce64(r, bj.q, bj.m), bj.q);
+}
+
+// x [rows, ks, N] in the tensor base -> out [rows, kd, N] = round(t x / Q)
+// mod each d_j of a base D dividing A / Q.
+//   a [ks] as for scale_digits; d [kd]: d_j, m; omega [ks][kd]
+template <int K>
+__global__ void rns_scale_kernel(const long long* __restrict__ x,
+                                 long long* __restrict__ out,
+                                 const long long* __restrict__ a,
+                                 const long long* __restrict__ d,
+                                 const long long* __restrict__ omega, int rows,
+                                 int ks, int kd, int n) {
+  const size_t id = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (id >= (size_t)rows * n) return;
+  const size_t row = id / n, col = id % n;
+  u32 y[K];
+  const u64 r = scale_digits<K>(x + row * ks * n + col, n, a, ks, y);
+  long long* oc = out + row * kd * n + col;
+  for (int j = 0; j < kd; ++j)
+    oc[(size_t)j * n] = scale_limb<K>(y, ks, r, omega, j, kd, load_mod(d, j));
+}
+
+// x [rows, ks, N] in the tensor base -> out [rows, kd, N] in Q:
+// s = round(t x / Q) mod each b_j (the scale step above), then the centered
+// conversion of s from B to Q, with s kept in registers.
+//   a [ks] as for scale_digits
 //   b [km]: b_j, m, (B/b_j)^-1 mod b_j, 1/b_j rounded up (hi, lo)
 //   d [kd]: d_l, m, B mod d_l
 //   omega [ks][km], theta [km][kd]
@@ -109,27 +150,16 @@ __global__ void scale_convert_kernel(const long long* __restrict__ x,
   const size_t id = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (id >= (size_t)rows * n) return;
   const size_t row = id / n, col = id % n;
-  const long long* xc = x + row * ks * n + col;
   long long* oc = out + row * kd * n + col;
   u32 y[K];
-  Fixed192 fr;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    if (i < ks) {
-      const Mod s = load_mod(a, i);
-      y[i] = reduce64((u64)xc[(size_t)i * n] * tab_at(a, i, 2), s.q, s.m);
-      fixed_add(fr, y[i], tab_at(a, i, 3), tab_at(a, i, 4));
-    }
-  }
-  const u64 r = fixed_int(fr, true);  // < ks 2^30
+  const u64 r = scale_digits<K>(x + row * ks * n + col, n, a, ks, y);
   u32 z[K];
   Fixed192 fz;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     if (j < km) {
       const Mod bj = load_mod(b, j);
-      const u32 s = add_q(dot_mod<K>(y, ks, omega + j, km, bj.q, bj.m),
-                          reduce64(r, bj.q, bj.m), bj.q);
+      const u32 s = scale_limb<K>(y, ks, r, omega, j, km, bj);
       z[j] = reduce64((u64)s * tab_at(b, j, 2), bj.q, bj.m);
       fixed_add(fz, z[j], tab_at(b, j, 3), tab_at(b, j, 4));
     }
@@ -185,6 +215,17 @@ extern "C" int rns_convert(const void* x, void* out, const void* src,
       (const long long*)x, (long long*)out, (const long long*)src,
       (const long long*)dst, (const long long*)theta, rows, ks, kd, n,
       centered, include_src);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rns_scale(const void* x, void* out, const void* a,
+                         const void* d, const void* omega, int rows, int ks,
+                         int kd, int n, void* stream) {
+  if (ks > MAXK) return (int)cudaErrorInvalidValue;
+  auto kern = ks <= 16 ? &rns_scale_kernel<16> : &rns_scale_kernel<MAXK>;
+  kern<<<blocks_for(rows, n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const long long*)x, (long long*)out, (const long long*)a,
+      (const long long*)d, (const long long*)omega, rows, ks, kd, n);
   return (int)cudaGetLastError();
 }
 

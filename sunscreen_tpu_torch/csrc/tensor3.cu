@@ -40,11 +40,12 @@ __global__ void fwd_tensor3_kernel(const long long* __restrict__ x,
   long long* dst = out + (size_t)row * 3 * kn + (size_t)limb * n;
   for (int p = threadIdx.x; p < n; p += blockDim.x) {
     const int s = flat_to_br(p, logn);
-    const u64 a0 = sm[s], a1 = sm[n + s], b0 = sm[2 * n + s],
-              b1 = sm[3 * n + s];
-    dst[p] = reduce64(a0 * b0, L.q, L.m);
-    dst[kn + p] = reduce64(a0 * b1 + a1 * b0, L.q, L.m);
-    dst[2 * kn + p] = reduce64(a1 * b1, L.q, L.m);
+    u32 c0, c1, c2;
+    tensor3_mod(sm[s], sm[n + s], sm[2 * n + s], sm[3 * n + s], L.q, L.m, c0,
+                c1, c2);
+    dst[p] = c0;
+    dst[kn + p] = c1;
+    dst[2 * kn + p] = c2;
   }
 }
 

@@ -67,6 +67,25 @@ def reduce_2q(x, q):
     return torch.where(x >= q, x - q, x)
 
 
+def tensor3_mod(a, b, q):
+    """The BFV tensor of two 2-component stacks [..., 2, k, N] of residues
+    a, b < q < 2^30 -> [..., 3, k, N] = (a0 b0, a0 b1 + a1 b0, a1 b1) mod q
+    (the middle sum is below 2^61, exact in int64)."""
+    a0, a1 = a.unbind(-3)
+    b0, b1 = b.unbind(-3)
+    return torch.stack([a0 * b0 % q, (a0 * b1 + a1 * b0) % q, a1 * b1 % q],
+                       -3)
+
+
+def ks_inner_mod(d_hat, k0, k1, q):
+    """The keyswitch digit contraction: d_hat [..., kdig, k, N] against
+    both key components [kdig, k, N] (residues < q < 2^30) ->
+    [..., 2, k, N] = sum_i d_i key_c[i] mod q. Each product is reduced
+    before the sum, so int64 cannot overflow."""
+    return torch.stack([(d_hat * key % q).sum(-3) % q for key in (k0, k1)],
+                       -3)
+
+
 # ---------------------------------------------------------------------------
 # u32 engine (q < 2^30)
 # ---------------------------------------------------------------------------

@@ -10,10 +10,10 @@ with 1/N folded in.
 
 Each transform entry point has two implementations with identical
 results. On a CUDA tensor it launches a hand-written kernel
-(`csrc/ntt.cu`, `csrc/tensor3.cu`, `csrc/inv_ks.cu`) and counts the
-launch in `_build.LAUNCHES`; on a CPU tensor it runs the plain PyTorch
-twin (`*_plain`), a vectorized radix-2 transform in int64 that also serves
-as the kernels' oracle on the card. There is no fallback from one to
+(`csrc/ntt.cu`, `csrc/tensor3.cu`, `csrc/inv_ks.cu`, `csrc/inv_tensor3.cu`)
+and counts the launch in `_build.LAUNCHES`; on a CPU tensor it runs the
+plain PyTorch twin (`*_plain`), a vectorized radix-2 transform in int64
+that also serves as the kernels' oracle on the card. There is no fallback from one to
 the other.
 """
 
@@ -25,10 +25,12 @@ import torch
 from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math import primes
+from sunscreen_tpu_torch.math.prns import _check, _strided_rows
 
 LANES = 128            # n2 of the reference's four-step layout
 MAX_KDIG = 16          # kdig * q^2 < 2^64 for q < 2^30 (inv_ks.cu)
 TENSOR3_MAX_N = 8192   # four polys of N u32 in one block's shared memory
+INV_TENSOR3_MAX_N = 16384  # three polys: 192 KB of the 227 KB a block holds
 
 
 def _bitrev(n: int) -> np.ndarray:
@@ -145,21 +147,19 @@ class NttPlanU32:
     def fwd_tensor3_plain(self, ext):
         """[..., 4, k, N] (a0, a1, b0, b1) -> [..., 3, k, N] NTT-domain
         (a0 b0, a0 b1 + a1 b0, a1 b1) mod q."""
-        a0, a1, b0, b1 = self.fwd_plain(ext).unbind(-3)
-        q = self.q
-        return torch.stack(
-            [a0 * b0 % q, (a0 * b1 + a1 * b0) % q, a1 * b1 % q], -3)
+        both = self.fwd_plain(ext)
+        return m.tensor3_mod(both[..., :2, :, :], both[..., 2:, :, :], self.q)
+
+    def inv_tensor3_plain(self, a_hat, b_hat):
+        """a_hat, b_hat [..., 2, k, N] (flat NTT domain, values < q) ->
+        [..., 3, k, N] coefficient-domain tensor: B10's twin, then
+        `inv_plain`."""
+        return self.inv_plain(m.tensor3_mod(a_hat, b_hat, self.q))
 
     def inv_ks_plain(self, d_hat, k0, k1):
         """d_hat [..., kdig, k, N], keys [kdig, k, N] (flat NTT domain,
-        values < q) -> [..., 2, k, N] = INTT(sum_i d_i key_i mod q).
-        Reduces each digit product, so int64 cannot overflow."""
-        q = self.q
-        accs = []
-        for key in (k0, k1):
-            acc = (d_hat * key % q).sum(-3) % q
-            accs.append(acc)
-        return self.inv_plain(torch.stack(accs, -3))
+        values < q) -> [..., 2, k, N] = INTT(sum_i d_i key_i mod q)."""
+        return self.inv_plain(m.ks_inner_mod(d_hat, k0, k1, self.q))
 
     # -- kernel entry points -------------------------------------------------
 
@@ -266,6 +266,35 @@ class NttPlanU32:
             _build.launch("inv_ks", "inv_ks", d_hat, k0, k1, out, self.tw,
                           self.consts, rows, kdig, self.k, self.logn)
             _build.LAUNCHES["inv_ks"] += 1
+        return out
+
+    def inv_tensor3(self, a_hat, b_hat):
+        """a_hat, b_hat [..., 2, k, N] (flat NTT domain, values < q) ->
+        [..., 3, k, N] coefficient-domain BFV tensor (a0 b0, a0 b1 + a1 b0,
+        a1 b1): the component products fused into the inverse transform
+        of all three, so the NTT-domain tensor never exists in device
+        memory. The operands may be views of one stack (the halves of a
+        forward-transformed [..., 4, k, N]): evenly strided rows are read
+        in place."""
+        if self._cpu(a_hat):
+            return self.inv_tensor3_plain(a_hat, b_hat)
+        if self.n > INV_TENSOR3_MAX_N:
+            raise ValueError(f"inv_tensor3 kernel holds N <= "
+                             f"{INV_TENSOR3_MAX_N}, got {self.n}")
+        tail = (2, self.k, self.n)
+        rows = _check(a_hat, self.device, tail)
+        if a_hat.shape != b_hat.shape:
+            raise ValueError(f"operands differ in shape: "
+                             f"{tuple(a_hat.shape)} vs {tuple(b_hat.shape)}")
+        _check(b_hat, self.device, tail)
+        a, sa = _strided_rows(a_hat, 3)
+        b, sb = _strided_rows(b_hat, 3)
+        out = torch.empty(*a_hat.shape[:-3], 3, self.k, self.n,
+                          dtype=torch.int64, device=a_hat.device)
+        if rows:
+            _build.launch("inv_tensor3", "inv_tensor3", a, b, out, self.tw,
+                          self.consts, rows, self.k, self.logn, sa, sb)
+            _build.LAUNCHES["inv_tensor3"] += 1
         return out
 
     # -- pointwise (plain PyTorch on every device) ---------------------------

@@ -1,22 +1,30 @@
-"""Fused RNS conversions: the port of `sunscreen_tpu/math/prns.py`.
+"""Fused RNS conversions and pointwise passes: the port of
+`sunscreen_tpu/math/prns.py`.
 
-Three ops, each one pass over its input with the same residues as the
-unfused `math/rns.py` code:
+Six ops, each one pass over its input with the same residues as the
+unfused `math/rns.py` code or the plain pointwise products:
 
-* `FusedRnsOp` (built by `fused_converter`): base conversion C -> D,
-  optionally centered and with the source limbs copied ahead of the
-  result (base extension) - kernel B6;
-* `FusedScaleConvert`: round(t x / Q) from the tensor base Q ∪ B into B,
-  chained with the centered conversion B -> Q - kernel B7;
+* `FusedRnsOp` in mode "convert" (built by `fused_converter`): base
+  conversion C -> D, optionally centered and with the source limbs
+  copied ahead of the result (base extension) - kernel B6;
+* `FusedRnsOp` in mode "scale" (built by `fused_scaler`): round(t x / Q)
+  from the tensor base Q ∪ B into B - kernel B9;
+* `FusedScaleConvert`: the same scale chained with the centered
+  conversion B -> Q - kernel B7;
 * `FusedModDown` (built by `fused_mod_down`): the special-prime rescale
-  round(x / p) mod Q - kernel B8.
+  round(x / p) mod Q - kernel B8;
+* `FusedTensor3`: the BFV tensor (a0 b0, a0 b1 + a1 b0, a1 b1) mod q of
+  two NTT-domain operands - kernel B10;
+* `FusedKsInner`: the keyswitch digit contraction against both key
+  components - kernel B11.
 
-On a CUDA tensor each op launches its kernel in `csrc/rns.cu` and counts
-the launch in `_build.LAUNCHES`; on a CPU tensor it runs its plain twin
-(`call_plain`), a composition of the plain `math/rns.py` code that also
-serves as the kernel's oracle on the card. The tables are packed once,
-on the host, from the port's own `RnsBase` / `BaseConverter` /
-`ScaleAndRound` / `ModDown` objects and uploaded to their device.
+On a CUDA tensor each op launches its kernel in `csrc/rns.cu` or
+`csrc/pointwise.cu` and counts the launch in `_build.LAUNCHES`; on a CPU
+tensor it runs its plain twin (`call_plain`), a composition of the plain
+`math/rns.py` / `math/modular.py` code that also serves as the kernel's
+oracle on the card. The tables are packed once, on the host, from the
+port's own `RnsBase` / `BaseConverter` / `ScaleAndRound` / `ModDown`
+objects and uploaded to their device.
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ import math
 import torch
 
 from sunscreen_tpu_torch import _build
+from sunscreen_tpu_torch.math import modular as m
 
 MAX_LIMBS = 32       # register arrays of csrc/rns.cu (MAXK)
+MAX_KS_DIGITS = 32   # FusedKsInner digits (its sums fold every 16 terms)
 
 
 def _table(base, *cols) -> torch.Tensor:
@@ -85,26 +95,41 @@ def _strided_rows(x, inner_dims: int):
 
 
 class FusedRnsOp:
-    """Base conversion C -> D of a `rns.BaseConverter` in one pass
-    (mode "convert" of the reference's op)."""
+    """One conversion between two bases in one pass: mode "convert" is
+    the base conversion C -> D of a `rns.BaseConverter`; mode "scale" is
+    `rns.ScaleAndRound.apply`, round(t x / Q) from its source base into
+    its target base (the reference's modes of the same op)."""
 
-    def __init__(self, conv):
-        src, dst = conv.src, conv.dst
-        self.conv = conv
+    def __init__(self, op, mode: str):
+        assert mode in ("convert", "scale"), mode
+        src, dst = op.src, op.dst
+        self.op, self.mode = op, mode
         self.ks, self.kd = src.k, dst.k
         self.device = dst.device
-        self.src_tab = _table(src, src.inv_punc, src.inv_q_fp_hi,
-                              src.inv_q_fp_lo)
-        self.dst_tab = _table(dst, conv.c_mod_d)
-        self.theta = conv.theta.reshape(self.ks, self.kd).contiguous()
+        if mode == "convert":
+            self.src_tab = _table(src, src.inv_punc, src.inv_q_fp_hi,
+                                  src.inv_q_fp_lo)
+            self.dst_tab = _table(dst, op.c_mod_d)
+            mat = op.theta
+        else:
+            self.src_tab = _table(src, src.inv_punc, op.phi_hi, op.phi_lo)
+            self.dst_tab = _table(dst)
+            mat = op.omega
+        self.mat = mat.reshape(self.ks, self.kd).contiguous()
 
     def call_plain(self, x, include_src: bool = False, centered: bool = True):
-        out = self.conv.convert_plain(x, centered=centered)
+        if self.mode == "scale":
+            return self.op.apply_plain(x)
+        out = self.op.convert_plain(x, centered=centered)
         return torch.cat([x, out], dim=-2) if include_src else out
 
     def __call__(self, x, include_src: bool = False, centered: bool = True):
-        """x [..., ks, N] -> [..., kd, N]; include_src -> [..., ks+kd, N]
-        with the source limbs first (base extension, no concat pass)."""
+        """x [..., ks, N] -> [..., kd, N]. Mode "convert": include_src ->
+        [..., ks+kd, N] with the source limbs first (base extension, no
+        concat pass). Mode "scale" always rounds and takes neither
+        option."""
+        if self.mode == "scale" and include_src:
+            raise ValueError('mode "scale" has no include_src')
         if _is_cpu(x):
             return self.call_plain(x, include_src, centered)
         n = x.shape[-1]
@@ -114,9 +139,13 @@ class FusedRnsOp:
         ko = self.ks + self.kd if include_src else self.kd
         out = torch.empty(*x.shape[:-2], ko, n, dtype=torch.int64,
                           device=x.device)
-        if rows:
+        if rows and self.mode == "scale":
+            _build.launch("rns", "rns_scale", x, out, self.src_tab,
+                          self.dst_tab, self.mat, rows, self.ks, self.kd, n)
+            _build.LAUNCHES["scale"] += 1
+        elif rows:
             _build.launch("rns", "rns_convert", x, out, self.src_tab,
-                          self.dst_tab, self.theta, rows, self.ks, self.kd,
+                          self.dst_tab, self.mat, rows, self.ks, self.kd,
                           n, int(centered), int(include_src))
             _build.LAUNCHES["convert"] += 1
         return out
@@ -141,7 +170,7 @@ class FusedScaleConvert:
         self.theta = conv.theta.reshape(self.km, self.kd).contiguous()
 
     def call_plain(self, x):
-        return self.conv.convert_plain(self.sc.apply(x), centered=True)
+        return self.conv.convert_plain(self.sc.apply_plain(x), centered=True)
 
     def __call__(self, x):
         """x [..., ks, N] (tensor base Q∪B) -> [..., kd, N] (base Q)."""
@@ -199,9 +228,90 @@ class FusedModDown:
         return out
 
 
+class FusedTensor3:
+    """The BFV tensor of two 2-component NTT-domain operands in one
+    pass: (a0 b0, a0 b1 + a1 b0, a1 b1) mod q per limb of `base` (the
+    component loop of `bfv.ops.multiply`)."""
+
+    def __init__(self, base):
+        self.k = base.k
+        self.q = base.q
+        self.device = base.device
+        self.tab = _table(base)
+
+    def call_plain(self, a, b):
+        return m.tensor3_mod(a, b, self.q)
+
+    def __call__(self, a, b):
+        """a, b [..., 2, k, N] (values < q) -> [..., 3, k, N]. Either may
+        be a strided view (the halves of one [..., 4, k, N] stack): evenly
+        strided rows are read in place."""
+        if _is_cpu(a):
+            return self.call_plain(a, b)
+        n = a.shape[-1]
+        tail = (2, self.k, n)
+        rows = _check(a, self.device, tail)
+        if a.shape != b.shape:
+            raise ValueError(f"operands differ in shape: {tuple(a.shape)} "
+                             f"vs {tuple(b.shape)}")
+        _check(b, self.device, tail)
+        ar, sa = _strided_rows(a, 3)
+        br, sb = _strided_rows(b, 3)
+        out = torch.empty(*a.shape[:-3], 3, self.k, n, dtype=torch.int64,
+                          device=a.device)
+        if rows:
+            _build.launch("pointwise", "tensor3_pointwise", ar, br, out,
+                          self.tab, rows, self.k, n, sa, sb)
+            _build.LAUNCHES["tensor3"] += 1
+        return out
+
+
+class FusedKsInner:
+    """The keyswitch inner products in one pass: for both key components
+    c, sum_i d_hat[i] key_c[i] mod q per limb of `base` (the digit-axis
+    contraction of `bfv.ops.keyswitch`, without the inverse transform)."""
+
+    def __init__(self, base):
+        self.kk = base.k
+        self.q = base.q
+        self.device = base.device
+        self.tab = _table(base)
+
+    def call_plain(self, d_hat, k0, k1):
+        return m.ks_inner_mod(d_hat, k0, k1, self.q)
+
+    def __call__(self, d_hat, k0, k1):
+        """d_hat [..., kdig, kk, N], keys k0/k1 [kdig, kk, N] (values < q)
+        -> [..., 2, kk, N], both key components stacked in one output."""
+        if _is_cpu(d_hat):
+            return self.call_plain(d_hat, k0, k1)
+        kdig, n = d_hat.shape[-3], d_hat.shape[-1]
+        if kdig > MAX_KS_DIGITS:
+            raise ValueError(f"FusedKsInner holds at most {MAX_KS_DIGITS} "
+                             f"digits, got {kdig}")
+        tail = (kdig, self.kk, n)
+        rows = _check(d_hat, self.device, tail)
+        for key in (k0, k1):
+            if _check(key, self.device, tail) != 1 or key.dim() != 3:
+                raise ValueError("keys must be [kdig, kk, N]")
+        out = torch.empty(*d_hat.shape[:-3], 2, self.kk, n,
+                          dtype=torch.int64, device=d_hat.device)
+        if rows:
+            _build.launch("pointwise", "ks_inner", d_hat.contiguous(),
+                          k0.contiguous(), k1.contiguous(), out, self.tab,
+                          rows, kdig, self.kk, n)
+            _build.LAUNCHES["ks_inner"] += 1
+        return out
+
+
 def fused_converter(conv) -> FusedRnsOp:
     """The fused op of a `rns.BaseConverter`."""
-    return FusedRnsOp(conv)
+    return FusedRnsOp(conv, "convert")
+
+
+def fused_scaler(sc) -> FusedRnsOp:
+    """The fused op of a `rns.ScaleAndRound`."""
+    return FusedRnsOp(sc, "scale")
 
 
 def fused_mod_down(md) -> FusedModDown:

@@ -4,14 +4,14 @@ Port of `sunscreen_tpu/math/rns.py`: HPS-style conversions whose
 correction term alpha comes from an exact 128-bit fixed-point sum built
 from 32-bit column sums. As in the reference's `_fused()` hooks, a CUDA
 tensor goes to the fused kernels of `math/prns.py`:
-`BaseConverter.extend` / `.convert` to B6 and `ModDown.apply` to B8,
-each op built once per object and cached. On the CPU they run the plain
-code (`convert_plain`, `apply_plain`), which is also the kernels'
-oracle. `ScaleAndRound.apply` is plain on every device; the multiply
-reaches it only through the chained B7 (`bfv/ops.py::_scale_convert`).
-The plain residue products are below 2^60, so they are taken exactly in
-int64 and reduced with `%`; the results are the same residues the
-reference computes.
+`BaseConverter.extend` / `.convert` to B6, `ScaleAndRound.apply` to B9
+and `ModDown.apply` to B8, each op built once per object and cached. On
+the CPU they run the plain code (`convert_plain`, `apply_plain`), which
+is also the kernels' oracle. The default multiply reaches the scale
+through the chained B7 instead (`bfv/ops.py::_scale_convert`); B9 runs
+under `SUNSCREEN_TPU_FUSE_SC=0`. The plain residue products are below
+2^60, so they are taken exactly in int64 and reduced with `%`; the
+results are the same residues the reference computes.
 
 Layouts: polynomials are [..., k, N], limb-major.
 """
@@ -164,9 +164,16 @@ class ScaleAndRound:
                                   device=dev).unsqueeze(-1)  # [ks, kd, 1]
         self.phi_hi = _col([v >> 64 for v in fr], dev)
         self.phi_lo = _col(fr, dev)
+        self._fused_op = None
 
     def apply(self, x):
-        """[..., k_src, N] -> [..., k_dst, N] = [round(t*x/Q)]_D."""
+        """[..., k_src, N] -> [..., k_dst, N] = [round(t*x/Q)]_D (one
+        kernel pass on CUDA)."""
+        if self._fused_op is None:
+            self._fused_op = prns.fused_scaler(self)
+        return self._fused_op(x)
+
+    def apply_plain(self, x):
         y = self.src.normalize_digits(x)
         (_, r_lo), _ = fixed_point_dot(y, self.phi_hi, self.phi_lo,
                                        add_half=True)

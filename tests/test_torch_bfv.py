@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.bfv import BfvParams, get_context, keys, ops
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_u32_v1.npz")
@@ -109,6 +110,93 @@ def test_multiply_relin_matches_golden(golden, port):
                                   golden["dec_mul"])
     assert float(ops.invariant_noise_budget(ctx, sk, prod)) == \
         float(golden["noise_budget"][0])
+
+
+GATES = {
+    "default": {},
+    "ft3_off": {"SUNSCREEN_TPU_FUSE_FT3": "0"},
+    "t3": {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_T3": "1"},
+    "sc_off": {"SUNSCREEN_TPU_FUSE_SC": "0"},
+    "ks_off": {"SUNSCREEN_TPU_FUSE_KS": "0"},
+    "inv_off": {"SUNSCREEN_TPU_FUSE_INV": "0"},
+    "ft3_sc_ks_off": {"SUNSCREEN_TPU_FUSE_FT3": "0",
+                      "SUNSCREEN_TPU_FUSE_SC": "0",
+                      "SUNSCREEN_TPU_FUSE_KS": "0"},
+}
+
+
+@pytest.mark.parametrize("gate", list(GATES))
+def test_gates_match_golden(golden, port, monkeypatch, gate):
+    """Under each of the reference's fusion settings the port's route
+    reproduces `mul_relin` and `dec_mul` bit for bit (the reference's keys
+    were built by the module fixture, before any setting). Each setting
+    takes the routes the reference would."""
+    ctx, sk, rlk, _ = port
+    ct = torch.from_numpy(golden["ct"].astype(np.int64))
+    for name, value in GATES[gate].items():
+        monkeypatch.setenv(name, value)
+    want_routes = {
+        "default": ("fwd_tensor3", "scale_convert", "inv_ks"),
+        "ft3_off": ("tensor3", "scale_convert", "inv_ks"),
+        "t3": ("inv_tensor3", "scale_convert", "inv_ks"),
+        "sc_off": ("fwd_tensor3", "scale", "inv_ks"),
+        "ks_off": ("fwd_tensor3", "scale_convert", "ks_inner"),
+        "inv_off": ("tensor3", "scale_convert", "ks_inner"),
+        "ft3_sc_ks_off": ("tensor3", "scale", "ks_inner"),
+    }[gate]
+    for device_type in ("cpu", "cuda"):
+        assert (ops.multiply_route(ctx.n, 2, 2, device_type),
+                ops.scale_convert_route(device_type),
+                ops.keyswitch_route(device_type)) == want_routes
+    _build.reset_launches()
+    prod = ops.multiply_relin(ctx, ct, ct, rlk)
+    np.testing.assert_array_equal(prod.numpy(), golden["mul_relin"])
+    np.testing.assert_array_equal(ops.decrypt(ctx, sk, prod).numpy(),
+                                  golden["dec_mul"])
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+def test_routes_by_size_and_device(monkeypatch):
+    """The route is a pure function of N, the component counts, the
+    device and the environment: on CUDA the B4 kernel holds N <= 8192,
+    so N=16384 takes B10 (or B12 under FUSE_T3=1); the CPU twin of B4
+    holds any N; other component counts take the plain loop."""
+    assert ops.multiply_route(8192, 2, 2, "cuda") == "fwd_tensor3"
+    assert ops.multiply_route(16384, 2, 2, "cuda") == "tensor3"
+    assert ops.multiply_route(16384, 2, 2, "cpu") == "fwd_tensor3"
+    assert ops.multiply_route(8192, 3, 2, "cuda") == "loop"
+    monkeypatch.setenv("SUNSCREEN_TPU_FUSE_T3", "1")
+    assert ops.multiply_route(16384, 2, 2, "cuda") == "inv_tensor3"
+    assert ops.multiply_route(8192, 2, 2, "cuda") == "fwd_tensor3"
+    monkeypatch.setenv("SUNSCREEN_TPU_FUSE_INV", "0")
+    assert ops.multiply_route(16384, 2, 2, "cuda") == "tensor3"
+
+
+@pytest.mark.parametrize("name, value, call, kernel", [
+    ("SUNSCREEN_TPU_FUSE_TFULL", "1",
+     lambda: ops.multiply_route(8192, 2, 2, "cuda"), "B13"),
+    ("SUNSCREEN_TPU_FUSE_KSFULL", "1",
+     lambda: ops.keyswitch_route("cuda"), "B14"),
+    ("SUNSCREEN_TPU_FUSED_RNS", "0",
+     lambda: ops.multiply_route(8192, 2, 2, "cuda"), "FUSED_RNS=0"),
+    ("SUNSCREEN_TPU_FUSED_RNS", "0",
+     lambda: ops.keyswitch_route("cuda"), "FUSED_RNS=0"),
+    ("SUNSCREEN_TPU_FUSED_RNS", "0",
+     lambda: ops.scale_convert_route("cuda"), "FUSED_RNS=0"),
+])
+def test_unported_settings_raise(monkeypatch, name, value, call, kernel):
+    """A setting that asks for a kernel the port does not have, or for
+    the plain glue on the card, raises instead of being ignored."""
+    monkeypatch.setenv(name, value)
+    with pytest.raises(NotImplementedError, match=kernel):
+        call()
+
+
+def test_plain_glue_setting_is_a_no_op_on_cpu(monkeypatch):
+    monkeypatch.setenv("SUNSCREEN_TPU_FUSED_RNS", "0")
+    assert ops.multiply_route(512, 2, 2, "cpu") == "fwd_tensor3"
+    assert ops.keyswitch_route("cpu") == "inv_ks"
+    assert ops.scale_convert_route("cpu") == "scale_convert"
 
 
 def _negacyclic_square(a, t):

@@ -69,6 +69,22 @@ def test_fwd_tensor3_matches_reference(plans):
         np.asarray(ref.fwd_tensor3(jnp.asarray(ext), full=False)))
 
 
+def test_inv_tensor3_matches_reference(plans):
+    """B12's twin against the reference plan's inv_tensor3; the operands
+    also as the two halves of one [rows, 4, k, N] stack, as the multiply
+    passes them."""
+    n, mods, ref, port = plans
+    rng = np.random.default_rng(n + 6)
+    both = _residues(rng, mods, (2, 4), n)
+    a, b = both[:, :2], both[:, 2:]
+    want = np.asarray(ref.inv_tensor3(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(port.inv_tensor3(_t(a), _t(b)).numpy(),
+                                  want)
+    stack = _t(both)
+    np.testing.assert_array_equal(
+        port.inv_tensor3(stack[:, :2], stack[:, 2:]).numpy(), want)
+
+
 def test_inv_ks_matches_reference(plans):
     """kdig = 9 digits: past the point where int64 sums of unreduced
     products would overflow."""

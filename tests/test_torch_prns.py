@@ -76,15 +76,10 @@ def test_scale_convert_matches_reference(ctxs):
     """B7 on random tensor-base residues plus values x whose t x / Q
     lies next to a half-integer (the rounding of r)."""
     ref, port = ctxs
-    mb, t, big_q = port.mul_base, port.t, port.q_base.product
+    mb = port.mul_base
     rng = np.random.default_rng(6)
     x = _rand(mb.moduli, (2,), port.n, rng)
-    col = 0
-    for h in (1, 3, 2 * t - 1):
-        mid = h * big_q // (2 * t)
-        for v in range(mid - 2, mid + 3):
-            _put(x[1], col, v, mb.moduli)
-            col += 1
+    _half_integer_columns(x, port, 1)
     want = np.asarray(rprns.FusedScaleConvert(
         ref.scale_mul_to_aux, ref.conv_aux_to_q)(jnp.asarray(x)))
     got = prns.FusedScaleConvert(port.scale_mul_to_aux,
@@ -92,6 +87,106 @@ def test_scale_convert_matches_reference(ctxs):
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
     np.testing.assert_array_equal(ops._scale_convert(port, _t(x)).numpy(),
                                   want.astype(np.int64))
+
+
+def _half_integer_columns(x, port, row):
+    """Writes into row `row` of x values v whose t v / Q lies next to a
+    half-integer, where the rounding of r flips."""
+    mb, t, big_q = port.mul_base, port.t, port.q_base.product
+    col = 0
+    for h in (1, 3, 2 * t - 1):
+        mid = h * big_q // (2 * t)
+        for v in range(mid - 2, mid + 3):
+            _put(x[row], col, v, mb.moduli)
+            col += 1
+
+
+def test_scaler_matches_reference(ctxs):
+    """B9's twin and ScaleAndRound.apply against the reference's mode
+    "scale" kernel, on random tensor-base residues plus half-integer
+    boundaries of t x / Q and a column whose digits are all q_i - 1."""
+    ref, port = ctxs
+    mb = port.mul_base
+    rng = np.random.default_rng(12)
+    x = _rand(mb.moduli, (2,), port.n, rng)
+    _half_integer_columns(x, port, 1)
+    for i, (q, p) in enumerate(zip(mb.moduli, mb.punctured)):
+        x[0, i, 0] = (q - 1) * (p % q) % q       # every y_i = q_i - 1
+    want = np.asarray(rprns.fused_scaler(ref.scale_mul_to_aux)(
+        jnp.asarray(x))).astype(np.int64)
+    op = prns.fused_scaler(port.scale_mul_to_aux)
+    assert op.mode == "scale"
+    np.testing.assert_array_equal(op(_t(x)).numpy(), want)
+    np.testing.assert_array_equal(
+        port.scale_mul_to_aux.apply(_t(x)).numpy(), want)
+    with pytest.raises(ValueError, match="include_src"):
+        op(_t(x), include_src=True)
+
+
+def test_tensor3_matches_reference(ctxs):
+    """B10's twin against the reference's FusedTensor3, with residues at
+    q - 1 in every component (the largest middle sum)."""
+    ref, port = ctxs
+    mb = port.mul_base
+    rng = np.random.default_rng(13)
+    a = _rand(mb.moduli, (2, 2), port.n, rng)
+    b = _rand(mb.moduli, (2, 2), port.n, rng)
+    top = np.array(mb.moduli, dtype=np.uint32)[:, None] - 1
+    a[0, :, :, :3] = top[None, :, :]
+    b[0, :, :, :3] = top[None, :, :]
+    want = np.asarray(rprns.FusedTensor3(ref.mul_base.moduli)(
+        jnp.asarray(a), jnp.asarray(b))).astype(np.int64)
+    np.testing.assert_array_equal(
+        prns.FusedTensor3(mb)(_t(a), _t(b)).numpy(), want)
+    np.testing.assert_array_equal(
+        port.fused_op("tensor3")(_t(a), _t(b)).numpy(), want)
+
+
+def test_ks_inner_matches_reference(ctxs):
+    """B11's twin against the reference's FusedKsInner at the context's
+    kdig = k digits, including digits and keys all equal to q - 1."""
+    ref, port = ctxs
+    kb = port.key_base
+    rng = np.random.default_rng(14)
+    kdig = port.k
+    d = _rand(kb.moduli, (2, kdig), port.n, rng)
+    k0 = _rand(kb.moduli, (kdig,), port.n, rng)
+    k1 = _rand(kb.moduli, (kdig,), port.n, rng)
+    top = np.array(kb.moduli, dtype=np.uint32)[:, None] - 1
+    d[1, :, :, :] = top
+    k0[:, :, :4] = top
+    k1[:, :, 2:6] = top
+    want = np.asarray(rprns.FusedKsInner(ref.key_base.moduli)(
+        jnp.asarray(d), jnp.asarray(k0), jnp.asarray(k1))).astype(np.int64)
+    np.testing.assert_array_equal(
+        prns.FusedKsInner(kb)(_t(d), _t(k0), _t(k1)).numpy(), want)
+    np.testing.assert_array_equal(
+        port.fused_op("ks_inner")(_t(d), _t(k0), _t(k1)).numpy(), want)
+
+
+@pytest.mark.parametrize("kdig", [16, 20])
+def test_ks_inner_digit_sums(kdig):
+    """At 16 and 20 digits, where the kernel folds its u64 sum, the twin
+    against a python-int oracle; the first column has every digit and
+    key at q - 1, the largest sum."""
+    n = 16
+    moduli = tuple(primes.gen_ntt_primes(30, 2, 256))
+    op = prns.FusedKsInner(rns.RnsBase(moduli, "cpu"))
+    rng = np.random.default_rng(kdig)
+    d = _rand(moduli, (1, kdig), n, rng)
+    k0 = _rand(moduli, (kdig,), n, rng)
+    k1 = _rand(moduli, (kdig,), n, rng)
+    top = np.array(moduli, dtype=np.uint32) - 1
+    d[0, :, :, 0] = top
+    k0[:, :, 0] = top
+    k1[:, :, 0] = top
+    got = op(_t(d), _t(k0), _t(k1)).numpy()
+    for c, key in enumerate((k0, k1)):
+        for j, q in enumerate(moduli):
+            for col in range(n):
+                want = sum(int(d[0, i, j, col]) * int(key[i, j, col])
+                           for i in range(kdig)) % q
+                assert got[0, c, j, col] == want, (c, j, col)
 
 
 def test_mod_down_matches_reference(ctxs):
@@ -160,9 +255,15 @@ def test_cpu_tensors_never_launch(ctxs):
     x = _t(_rand(port.q_base.moduli, (1,), port.n, rng))
     ext = port.conv_q_to_aux.extend(x)
     ops._scale_convert(port, ext)
+    port.scale_mul_to_aux.apply(ext)
     port.mod_down.apply(x, x[:, 0])
+    pair = torch.stack([ext, ext], dim=-3)
+    port.fused_op("tensor3")(pair, pair)
+    key = torch.ones(port.k, port.k + 1, port.n, dtype=torch.int64)
+    port.fused_op("ks_inner")(key.unsqueeze(0), key, key)
     assert all(v == 0 for v in _build.LAUNCHES.values())
-    assert set(_build.LAUNCHES) >= {"convert", "scale_convert", "mod_down"}
+    assert set(_build.LAUNCHES) >= {"convert", "scale_convert", "mod_down",
+                                    "scale", "tensor3", "ks_inner"}
 
 
 def test_other_devices_raise(ctxs):
