@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc`, holds
-each of the twelve kernel entry points bit for bit against its plain
+each of the fourteen kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
-`BfvParams.default_u32`, batch 64) and again at the `default_u32(16384)`
-shapes (batch 2), then drives five paths, each with the launch counts
-set to 0 just before it and read just after:
+`BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
+`ks_full_limbs`) and again at the `default_u32(16384)` shapes (batch 2),
+then drives eight paths, each with the launch counts set to 0 just
+before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
    batch 64, under the default fusion settings;
@@ -19,11 +20,17 @@ set to 0 just before it and read just after:
 4. path 1's `multiply_relin` under the reference's unfused settings
    (`SUNSCREEN_TPU_FUSE_FT3=0`, `_SC=0`, `_KS=0`: kernels B9-B11);
 5. path 1's `multiply_relin` under `SUNSCREEN_TPU_FUSE_FT3=0
-   SUNSCREEN_TPU_FUSE_T3=1` (kernel B12).
+   SUNSCREEN_TPU_FUSE_T3=1` (kernel B12);
+6. path 1's `multiply_relin` under `SUNSCREEN_TPU_FUSE_KSFULL=1` (the
+   keyswitch megakernel B14);
+7. TFHE: keygen at LWE_512_80 -> GLWE_1_1024_80, the NTT-domain bootstrap
+   key, and the univariate programmable bootstrap of 64 ciphertexts
+   (512 blind-rotation steps of B1 + B5, sample extraction, keyswitch);
+8. path 7's PBS under `SUNSCREEN_TPU_TFHE_KSFULL=1` (B15 per step).
 
-Paths 1-3 pass a decrypt gate against a numpy oracle and a card-vs-CPU
-bit-exact check on one ciphertext; paths 4 and 5 must give path 1's
-output bit for bit. Each path is then timed and profiled. Prints the
+Paths 1-3 and 7 pass a decrypt gate and a card-vs-CPU bit-exact check
+on one ciphertext; paths 4-6 must give path 1's output and path 8 path
+7's, bit for bit. Each path is then timed and profiled. Prints the
 card, each kernel's times and launch counts as one JSON line, the rates,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, when no GPU is visible or any check fails.
@@ -48,10 +55,12 @@ WIDE_N, WIDE_BATCH = 16384, 2   # kernel checks at the widest bases
 GATES = ("SUNSCREEN_TPU_FUSED_RNS", "SUNSCREEN_TPU_FUSE_INV",
          "SUNSCREEN_TPU_FUSE_FT3", "SUNSCREEN_TPU_FUSE_T3",
          "SUNSCREEN_TPU_FUSE_TFULL", "SUNSCREEN_TPU_FUSE_SC",
-         "SUNSCREEN_TPU_FUSE_KS", "SUNSCREEN_TPU_FUSE_KSFULL")
+         "SUNSCREEN_TPU_FUSE_KS", "SUNSCREEN_TPU_FUSE_KSFULL",
+         "SUNSCREEN_TPU_TFHE_KSFULL")
 UNFUSED = {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_SC": "0",
            "SUNSCREEN_TPU_FUSE_KS": "0"}
 T3 = {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_T3": "1"}
+KSFULL = {"SUNSCREEN_TPU_FUSE_KSFULL": "1"}
 
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM at 3.35 TB/s;
 # 67 TFLOP/s fp32 outside the tensor cores, i.e. 33.5 T FMA/s, and
@@ -237,6 +246,11 @@ def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
          (batch * kdig + 2 * kdig + batch * 2) * kk * n * WORD,
          # 2 kdig digit products (2 each) + 2 inverse transforms
          batch * kk * (4 * kdig * n + 2 * (ntt_muls + 3 * n))),
+        ("ks_full", pk.ks_full, pk.ks_full_plain,
+         (x_fb.reshape(batch, kdig, n), k0, k1), SRC_KS_FULL,
+         "sunscreen_tpu/math/pmntt.py:620",
+         (batch * kdig + 2 * kdig * kk + batch * 2 * kk) * n * WORD,
+         ks_full_muls(batch, kdig, kk, n)),
     ]
     if n <= pmntt.TENSOR3_MAX_N:
         x_t3 = _uniform(gen, (batch, 4, km, n), pm.q)
@@ -248,6 +262,58 @@ def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
              # 4 transforms + 4 products of 32x32 -> 64 bits (2 each)
              batch * km * (4 * ntt_muls + 8 * n)))
     return cases
+
+
+SRC_KS_FULL = "sunscreen_tpu_torch/csrc/ks_full.cu"
+
+
+def ks_full_muls(rows: int, kdig: int, k: int, n: int) -> int:
+    """32-bit multiplies of B14/B15 per call: per (row, limb) kdig forward
+    transforms, 2 kdig digit products (2 each), 2 inverse transforms."""
+    ntt_muls = 3 * (n // 2) * (n.bit_length() - 1)
+    return rows * k * (kdig * ntt_muls + 4 * kdig * n
+                       + 2 * (ntt_muls + 3 * n))
+
+
+def _pbs_plan():
+    """The u32 NTT plan of GLWE_1_1024_80's torus plan (four 30-bit
+    primes, N=1024)."""
+    from sunscreen_tpu_torch.tfhe import GLWE_1_1024_80, poly
+
+    return poly.get_torus_plan_u32(GLWE_1_1024_80.poly_degree,
+                                   device=DEV).plan
+
+
+def pbs_kernel_case(gen, batch: int) -> tuple:
+    """B15 at the blind-rotation step of path 7: digit residues
+    [batch, 6, 4, 1024] against one NTT bootstrap-key row [6, 4, 1024]
+    per GLWE component."""
+    plan = _pbs_plan()
+    n, k, kdig = plan.n, plan.k, 6
+    d = _max_residues(_uniform(gen, (batch, kdig, k, n), plan.q), plan.q)
+    k0 = _max_residues(_uniform(gen, (kdig, k, n), plan.q), plan.q)
+    k1 = _uniform(gen, (kdig, k, n), plan.q)
+    return ("ks_full_limbs", plan.ks_full_limbs, plan.ks_full_limbs_plain,
+            (d, k0, k1), SRC_KS_FULL, "sunscreen_tpu/math/pmntt.py:620",
+            (batch * kdig * k + 2 * kdig * k + batch * 2 * k) * n * WORD,
+            ks_full_muls(batch, kdig, k, n))
+
+
+def ks_full_extremes(plan, gen, batch: int) -> None:
+    """B14 and B15 at 16 and 20 digits with every digit at its largest
+    value (2^32 - 1 raw, q - 1 per limb) and every key at q - 1."""
+    import torch
+
+    n, k = plan.n, plan.k
+    for kdig in (16, 20):
+        top = torch.broadcast_to(plan.q - 1, (kdig, k, n)).contiguous()
+        raw = torch.full((batch, kdig, n), (1 << 32) - 1, dtype=torch.int64,
+                         device=DEV)
+        _held(f"ks_full(kdig={kdig})@{n}", plan.ks_full, plan.ks_full_plain,
+              (raw, top, top))
+        limbs = torch.broadcast_to(top, (batch, kdig, k, n)).contiguous()
+        _held(f"ks_full_limbs(kdig={kdig})@{n}", plan.ks_full_limbs,
+              plan.ks_full_limbs_plain, (limbs, top, top))
 
 
 def extra_checks(ctx, gen, batch: int) -> None:
@@ -271,6 +337,7 @@ def extra_checks(ctx, gen, batch: int) -> None:
     d = torch.cat([top.unsqueeze(0),
                    _uniform(gen, (batch, kdig, pk.k, n), pk.q)])
     _held(f"ks_inner(kdig={kdig})@{n}", ksi, ksi.call_plain, (d, top, top))
+    ks_full_extremes(pk, gen, 2)
 
 
 def check_kernels(ctx, gen) -> list[dict]:
@@ -278,7 +345,8 @@ def check_kernels(ctx, gen) -> list[dict]:
     shapes, bit for bit, with both times and the bound."""
     rows = []
     for (name, kern, plain, args, src, repl, nbytes,
-         muls) in kernel_cases(ctx, gen, BATCH):
+         muls) in kernel_cases(ctx, gen, BATCH) + [pbs_kernel_case(gen,
+                                                                  BATCH)]:
         err = _held(name, kern, plain, args)
         ms = _median_ms(lambda: kern(*args), reps=5, iters=10)
         plain_ms = _median_ms(lambda: plain(*args), reps=3, iters=2)
@@ -295,6 +363,7 @@ def check_kernels(ctx, gen) -> list[dict]:
               f"= {t_bytes:.4f} ms, {muls / 1e9:.4f} G 32-bit multiplies "
               f"= {t_ops:.4f} ms)", flush=True)
     extra_checks(ctx, gen, BATCH)
+    ks_full_extremes(_pbs_plan(), gen, 2)
     return rows
 
 
@@ -316,12 +385,13 @@ def check_wide(gen) -> None:
 PORT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel", "fwd_tensor3_kernel",
                 "inv_ks_kernel", "rns_convert_kernel", "scale_convert_kernel",
                 "mod_down_kernel", "rns_scale_kernel", "tensor3_kernel",
-                "ks_inner_kernel", "inv_tensor3_kernel")
+                "ks_inner_kernel", "inv_tensor3_kernel", "ks_full_kernel")
 
 
-def profile_breakdown(label, step, batches: int = 3) -> None:
+def profile_breakdown(label, step, batches: int = 3) -> dict:
     """Device time per kernel name over a few batches of `step`
-    (torch.profiler), and the device's busy share of the wall time."""
+    (torch.profiler), the device's busy share of the wall time and the
+    device operations (kernels, copies, fills) per batch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -334,24 +404,27 @@ def profile_breakdown(label, step, batches: int = 3) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_name: dict[str, float] = {}
+    count = 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
+            count += 1
             per_name[ev.name] = (per_name.get(ev.name, 0.0)
                                  + ev.time_range.elapsed_us())
     busy = sum(per_name.values())
     if busy == 0:
-        print(f"profile {label}: no device time recorded", flush=True)
-        return
+        raise SystemExit(f"profile {label}: no device time recorded")
     ours = sum(v for k, v in per_name.items()
                if any(p in k for p in PORT_KERNELS))
     print(f"profile {label}: per batch {wall_us / batches / 1e3:.3f} ms "
           f"wall, device busy {busy / batches / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f}% of wall), port kernels "
           f"{ours / batches / 1e3:.3f} ms ({100 * ours / busy:.1f}% of "
-          f"device time)", flush=True)
+          f"device time), {count / batches:.0f} device ops", flush=True)
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"profile {label}:   {us / batches / 1e3:8.3f} ms  "
               f"{100 * us / busy:5.1f}%  {name[:110]}", flush=True)
+    return {"wall_ms": wall_us / batches / 1e3,
+            "busy_ms": busy / batches / 1e3, "ops": count / batches}
 
 
 def _rate(step) -> float:
@@ -405,7 +478,8 @@ def _gates(settings: dict[str, str]):
 
 DEFAULT_MUL = ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks",
                "convert", "scale_convert", "mod_down")
-NEW_KERNELS = ("scale", "tensor3", "ks_inner", "inv_tensor3")
+MEGAKERNELS = ("ks_full", "ks_full_limbs")     # opt-in B14, B15
+NEW_KERNELS = ("scale", "tensor3", "ks_inner", "inv_tensor3") + MEGAKERNELS
 
 
 def multiply_path(label, ctx, seed: int, smi: str, needed, absent):
@@ -509,6 +583,126 @@ def gated_path(label, settings, ctx, inputs, want, smi: str, needed,
     return launches, per_op
 
 
+PBS_REPS = 3                 # PBS timing: median of 3 calls
+
+
+def _median_s(fn, reps: int) -> float:
+    """Median wall seconds of `reps` synchronized calls, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[reps // 2]
+
+
+def pbs_keys(seed: int) -> dict:
+    """Path 7's set-up on the card: binary LWE_512_80 and GLWE_1_1024_80
+    keys, the bootstrap key and its NTT form, the keyswitch key, the
+    benchmark's test polynomial and BATCH encrypted bits."""
+    import torch
+    from sunscreen_tpu_torch.tfhe import (GLWE_1_1024_80, LWE_512_80,
+                                          RadixDecomposition, ops, torus)
+
+    lwe, glwe = LWE_512_80, GLWE_1_1024_80
+    pbs_radix = RadixDecomposition(count=3, radix_log=4)
+    ks_radix = RadixDecomposition(count=8, radix_log=6)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.perf_counter()
+    lwe_sk = ops.generate_binary_lwe_sk(lwe, gen, DEV)
+    glwe_sk = ops.generate_binary_glwe_sk(glwe, gen, DEV)
+    bsk = ops.generate_bootstrap_key(lwe_sk, glwe_sk, lwe, glwe, pbs_radix,
+                                     gen)
+    ksk = ops.generate_keyswitch_key(ops.flatten_glwe_sk(glwe_sk), lwe_sk,
+                                     lwe, ks_radix, gen)
+    nbk = ops.bootstrap_key_to_ntt(bsk, glwe, pbs_radix)
+    torch.cuda.synchronize()
+    print(f"pbs keygen: {time.perf_counter() - t0:.2f} s on the card; "
+          f"bootstrap key {tuple(bsk.shape)}, NTT form "
+          f"{tuple(nbk.rows.shape)} ({nbk.rows.numel() * 8 / 1e6:.1f} MB), "
+          f"keyswitch key {tuple(ksk.shape)}", flush=True)
+    msgs = torch.arange(BATCH, device=DEV) % 2
+    cts = ops.encrypt_lwe(torus.encode(msgs, 2), lwe_sk, lwe, gen)
+    tp = ops.test_polynomial_for(lambda m: (m + 1) % 2, 2, glwe,
+                                 output_bits=1, device=DEV)
+    return {"lwe": lwe, "glwe": glwe, "pbs_radix": pbs_radix,
+            "ks_radix": ks_radix, "lwe_sk": lwe_sk, "nbk": nbk, "ksk": ksk,
+            "msgs": msgs, "cts": cts, "tp": tp}
+
+
+def _pbs(s: dict, cts, nbk=None, ksk=None, tp=None):
+    from sunscreen_tpu_torch.tfhe import ops
+    return ops.programmable_bootstrap_univariate(
+        cts, s["tp"] if tp is None else tp, s["nbk"] if nbk is None else nbk,
+        s["ksk"] if ksk is None else ksk, s["lwe"], s["glwe"],
+        s["pbs_radix"], s["ks_radix"])
+
+
+def pbs_path(label, smi: str, needed, absent, s=None, want=None):
+    """The univariate PBS of BATCH LWE_512_80 ciphertexts through
+    GLWE_1_1024_80 with the NTT-domain bootstrap key, after keygen
+    (`pbs_keys`) unless given path 7's keys `s`: the decrypt gate
+    ((m + 1) mod 2 on every row), a card-vs-CPU bit-exact PBS of one
+    ciphertext (or, given `want`, equality with path 7's batch output),
+    then PBS/s at batch BATCH, single-PBS latency, launches per PBS and
+    per blind-rotation step, the profile and peak memory. Returns the
+    keys, the batch output, the path's launches and the launches of one
+    PBS."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.tfhe import ops
+
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    if s is None:
+        s = pbs_keys(7)
+    out = _pbs(s, s["cts"])
+    dec = ops.decrypt_lwe(out, s["lwe_sk"], 1)
+    if not torch.equal(dec, (s["msgs"] + 1) % 2):
+        bad = int((dec != (s["msgs"] + 1) % 2).nonzero()[0, 0])
+        raise SystemExit(f"{label} decrypt gate FAILED at batch row {bad}")
+    print(f"{label} decrypt gate: {BATCH} PBS outputs decrypt to "
+          f"(m + 1) mod 2", flush=True)
+    if want is None:
+        nbk_cpu = ops.NttBootstrapKey(s["nbk"].rows.cpu(), s["glwe"],
+                                      s["pbs_radix"])
+        one = _pbs(s, s["cts"][:1].cpu(), nbk_cpu, s["ksk"].cpu(),
+                   s["tp"].cpu())
+        if not torch.equal(one, out[:1].cpu()):
+            raise SystemExit(f"{label} on the card differs from the CPU")
+        print(f"{label}: card kernels == CPU plain path, bit for bit "
+              f"(one ciphertext, 512 blind-rotation steps)", flush=True)
+    else:
+        if not torch.equal(out, want):
+            raise SystemExit(f"{label}: PBS differs from path 7's output")
+        print(f"{label}: {BATCH} PBS outputs == path 7's, bit for bit",
+              flush=True)
+    batch_s = _median_s(lambda: _pbs(s, s["cts"]), PBS_REPS)
+    one_s = _median_s(lambda: _pbs(s, s["cts"][:1]), PBS_REPS)
+    per_pbs = _per_op(lambda: _pbs(s, s["cts"]))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    steps = s["lwe"].dim
+    print(f"{label}: {BATCH / batch_s:.1f} PBS/s (batch {BATCH}, "
+          f"{batch_s * 1e3:.2f} ms per batch), latency "
+          f"{one_s * 1e3:.2f} ms for one PBS (medians of {PBS_REPS}) on "
+          f"{smi}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    _path_counts(label, launches, needed, absent)
+    print(f"launches per {label}: {json.dumps(per_pbs)}; per "
+          f"blind-rotation step: "
+          f"{json.dumps({k: v / steps for k, v in per_pbs.items() if v})}",
+          flush=True)
+    prof = profile_breakdown(label, lambda: _pbs(s, s["cts"]), batches=1)
+    print(f"{label}: {prof['ops'] / steps:.1f} device ops per blind-rotation "
+          f"step", flush=True)
+    return s, out, launches, per_pbs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -594,7 +788,7 @@ def main() -> int:
         f"multiply_relin@{WIDE_N}", wide, 3, smi,
         ("tensor3", "fwd", "fwd_broadcast", "inv", "inv_ks", "convert",
          "scale_convert", "mod_down"),
-        ("fwd_tensor3", "scale", "ks_inner", "inv_tensor3"))
+        ("fwd_tensor3", "scale", "ks_inner", "inv_tensor3") + MEGAKERNELS)
     paths[f"multiply_relin@{WIDE_N}"] = (launches, per_op)
 
     # --- paths 4 and 5: path 1's multiply under other settings -----------
@@ -602,12 +796,32 @@ def main() -> int:
         "unfused", UNFUSED, ctx, inputs, prod, smi,
         ("scale", "tensor3", "ks_inner", "convert", "fwd", "fwd_broadcast",
          "inv", "mod_down"),
-        ("fwd_tensor3", "scale_convert", "inv_ks", "inv_tensor3"))
+        ("fwd_tensor3", "scale_convert", "inv_ks", "inv_tensor3")
+        + MEGAKERNELS)
     paths["t3"] = gated_path(
         "t3", T3, ctx, inputs, prod, smi,
         ("inv_tensor3", "fwd", "convert", "scale_convert", "fwd_broadcast",
          "inv_ks", "mod_down"),
-        ("fwd_tensor3", "tensor3", "scale", "ks_inner"))
+        ("fwd_tensor3", "tensor3", "scale", "ks_inner") + MEGAKERNELS)
+
+    # --- path 6: path 1's multiply under FUSE_KSFULL=1 (B14) -------------
+    paths["ksfull"] = gated_path(
+        "ksfull", KSFULL, ctx, inputs, prod, smi,
+        ("ks_full", "fwd_tensor3", "inv", "convert", "scale_convert",
+         "mod_down"),
+        ("fwd_broadcast", "inv_ks", "ks_inner", "ks_full_limbs"))
+
+    # --- paths 7 and 8: TFHE PBS, then under TFHE_KSFULL=1 (B15) ---------
+    s, out, launches, per_pbs = pbs_path(
+        "pbs", smi, ("fwd", "inv_ks"),
+        ("ks_full", "ks_full_limbs", "fwd_broadcast", "inv", "ks_inner"))
+    paths["pbs"] = (launches, per_pbs)
+    with _gates({"SUNSCREEN_TPU_TFHE_KSFULL": "1"}):
+        *_, launches, per_pbs = pbs_path(
+            "pbs_ksfull", smi, ("ks_full_limbs",),
+            ("fwd", "inv_ks", "ks_full", "fwd_broadcast", "inv"), s=s,
+            want=out)
+    paths["pbs_ksfull"] = (launches, per_pbs)
 
     for row in table:
         name = row["name"]

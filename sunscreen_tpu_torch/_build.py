@@ -11,7 +11,7 @@ the port (`math/pmntt.py`, `math/prns.py`); the plain twins never count.
 Keys name the entry points: "fwd", "fwd_broadcast", "inv" (B1-B3),
 "fwd_tensor3" (B4), "inv_ks" (B5), "convert" (B6), "scale_convert" (B7),
 "mod_down" (B8), "scale" (B9), "tensor3" (B10), "ks_inner" (B11),
-"inv_tensor3" (B12).
+"inv_tensor3" (B12), "ks_full" (B14), "ks_full_limbs" (B15).
 """
 
 from __future__ import annotations
@@ -39,12 +39,14 @@ SIGNATURES = {
             "scale_convert": "pppppppiiiiip", "mod_down": "ppppiiiiiiip"},
     "pointwise": {"tensor3_pointwise": "ppppiiiiip",
                   "ks_inner": "pppppiiiip"},
+    "ks_full": {"ks_full": "ppppppiiiiip"},
 }
 
 LAUNCHES = dict.fromkeys(
     ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks",
      "convert", "scale_convert", "mod_down",
-     "scale", "tensor3", "ks_inner", "inv_tensor3"), 0)
+     "scale", "tensor3", "ks_inner", "inv_tensor3",
+     "ks_full", "ks_full_limbs"), 0)
 
 
 def reset_launches() -> None:

@@ -15,10 +15,11 @@ deployment's settings carry over (every route gives the same bits):
   product of `multiply` (`multiply_route`);
 * `SUNSCREEN_TPU_FUSE_SC` (default on): the scale back to Q
   (`scale_convert_route`);
-* `SUNSCREEN_TPU_FUSE_KS` (default on) and `SUNSCREEN_TPU_FUSE_INV`: the
-  keyswitch contraction (`keyswitch_route`);
-* `SUNSCREEN_TPU_FUSE_TFULL=1` and `SUNSCREEN_TPU_FUSE_KSFULL=1` ask for
-  kernels B13 and B14, which are not ported: they raise;
+* `SUNSCREEN_TPU_FUSE_KSFULL` (default off), `SUNSCREEN_TPU_FUSE_KS`
+  (default on) and `SUNSCREEN_TPU_FUSE_INV`: the keyswitch
+  (`keyswitch_route`); `FUSE_KSFULL=1` runs the megakernel B14;
+* `SUNSCREEN_TPU_FUSE_TFULL=1` asks for kernel B13, which is not ported:
+  it raises;
 * `SUNSCREEN_TPU_FUSED_RNS=0` asks for the reference's plain glue, which
   the port runs only on the CPU: it raises for CUDA tensors and changes
   nothing on the CPU, whose path is always the plain twins.
@@ -181,12 +182,12 @@ def scale_convert_route(device_type: str) -> str:
 
 
 def keyswitch_route(device_type: str) -> str:
-    """"inv_ks" (B2, B5) unless FUSE_KS or FUSE_INV is off, then
-    "ks_inner" (B2, B11, B3)."""
+    """"ks_full" (B14 alone) under FUSE_KSFULL=1 unless FUSE_INV is off,
+    as the reference checks it first; else "inv_ks" (B2, B5) unless
+    FUSE_KS or FUSE_INV is off, then "ks_inner" (B2, B11, B3)."""
     fused = _plan_fused(device_type)
     if fused and _env_on("SUNSCREEN_TPU_FUSE_KSFULL", default="0"):
-        raise _unported("SUNSCREEN_TPU_FUSE_KSFULL=1",
-                        "B14 (ks_full, pmntt.py:620)")
+        return "ks_full"
     return ("inv_ks" if fused and _env_on("SUNSCREEN_TPU_FUSE_KS")
             else "ks_inner")
 
@@ -233,10 +234,15 @@ def keyswitch(ctx: BfvContext, d, ksw: KswKey):
     (u0, u1) over Q after the special-prime mod-down. The k raw digits
     are transformed under every key modulus (exact for any u32, and the
     NTT is linear mod each modulus), contracted against the key and
-    inverse-transformed, in one kernel on the "inv_ks" route. The
+    inverse-transformed, in one kernel on the "inv_ks" route; on the
+    "ks_full" route one kernel does all of it from the raw digits. The
     mod-down reads the Q limbs and the special limb of that output in
     place."""
     route = keyswitch_route(d.device.type)
+    if route == "ks_full":
+        both = ctx.plan_key.ks_full(d, ksw.k0, ksw.k1)
+        u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
+        return u[..., 0, :, :], u[..., 1, :, :]
     d_hat = ctx.plan_key.fwd_broadcast(d)      # [..., k(digit), k+1, N]
     if route == "inv_ks":
         both = ctx.plan_key.inv_ks(d_hat, ksw.k0, ksw.k1)

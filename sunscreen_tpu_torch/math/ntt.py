@@ -1,19 +1,29 @@
-"""NTT plan selection (port of `sunscreen_tpu/math/ntt.py::get_plan`).
+"""NTT plan selection (port of `sunscreen_tpu/math/ntt.py`).
 
-Only the u32 plan (`pmntt.NttPlanU32`, the port of the reference's mode
-"pallas") is ported: 17-30-bit moduli and 256 <= N <= 16384. Other
-envelopes raise; the u64 and unrolled plans are not ported yet.
+Two plans are ported:
+
+* `get_plan`: the u32 plan (`pmntt.NttPlanU32`, the port of the
+  reference's mode "pallas") for 17-30-bit moduli and 256 <= N <= 16384,
+  whose transforms are CUDA kernels on the card; other envelopes raise.
+* `get_plan_u64`: `NttPlan`, the port of the reference's u64 `NttPlan`
+  in mode "unrolled" (natural order in, bit-reversed order out) for
+  moduli below 2^62, in plain PyTorch on every device. TFHE's 62-bit
+  `TorusNttPlan` runs on it.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from sunscreen_tpu_torch import resolve_device
 from sunscreen_tpu_torch.errors import Unsupported
-from sunscreen_tpu_torch.math.pmntt import NttPlanU32
+from sunscreen_tpu_torch.math import modular as m
+from sunscreen_tpu_torch.math import primes
+from sunscreen_tpu_torch.math.pmntt import NttPlanU32, _bitrev, _powers
+from sunscreen_tpu_torch.math.rns import _col
 
 
 @lru_cache(maxsize=64)
@@ -32,3 +42,101 @@ def get_plan(n: int, moduli: tuple[int, ...],
             f"256 <= N <= 16384 (got N={n}, bits {min(bits)}-{max(bits)})")
     return _plan_cached(n, tuple(int(q) for q in moduli),
                         resolve_device(device))
+
+
+def _shoup_mul(x, w, w_sh, q):
+    """(x w) mod q for u64 x < 2^62, w < q < 2^62 and
+    w_sh = floor(w 2^64 / q): the wrapped difference lies in [0, 2q)."""
+    r = w * x - m.mul_hi(x, w_sh) * q
+    return torch.where(r >= q, r - q, r)
+
+
+class NttPlan:
+    """u64 negacyclic NTT tables for a stack of moduli below 2^62:
+    decimation-in-time Cooley-Tukey with psi folded into the twiddles,
+    natural order in and bit-reversed order out, the Gentleman-Sande
+    mirror with 1/N for the inverse; Shoup twiddle multiplies. The same
+    stages, hence the same NTT-domain arrays, as the reference's mode
+    "unrolled". Tensors are int64 [..., k, N] (values < q) on the plan's
+    device."""
+
+    def __init__(self, n: int, moduli: tuple[int, ...], device):
+        assert n & (n - 1) == 0, "N must be a power of two"
+        assert max(q.bit_length() for q in moduli) <= 62
+        self.n = n
+        self.log_n = n.bit_length() - 1
+        self.moduli = tuple(int(q) for q in moduli)
+        self.k = len(self.moduli)
+        rev = _bitrev(n)
+        fw, iw, fw_sh, iw_sh = [], [], [], []
+        for q in self.moduli:
+            assert q % (2 * n) == 1, f"q={q} is not NTT-friendly for N={n}"
+            psi = primes.min_root_of_unity(2 * n, q)
+            f = [int(v) for v in _powers(psi, n, q)[rev]]
+            i = [int(v) for v in _powers(pow(psi, -1, q), n, q)[rev]]
+            fw.append(f)
+            iw.append(i)
+            fw_sh.append([m.s64((w << 64) // q) for w in f])
+            iw_sh.append([m.s64((w << 64) // q) for w in i])
+
+        def dev(a):
+            return torch.as_tensor(np.array(a, dtype=np.int64),
+                                   device=device)
+
+        self.q = _col(self.moduli, device)                 # [k, 1]
+        self.device = self.q.device
+        self.psi_rev, self.psi_rev_sh = dev(fw), dev(fw_sh)  # [k, N]
+        self.ipsi_rev, self.ipsi_rev_sh = dev(iw), dev(iw_sh)
+        ninv = [pow(n, -1, q) for q in self.moduli]
+        self.n_inv = _col(ninv, device)
+        self.n_inv_sh = _col([(v << 64) // q for v, q in
+                              zip(ninv, self.moduli)], device)
+        ratios = [m.barrett_ratio(q) for q in self.moduli]
+        self.r_hi = _col([r[0] for r in ratios], device)
+        self.r_lo = _col([r[1] for r in ratios], device)
+
+    def fwd(self, x):
+        """[..., k, N] natural order -> bit-reversed NTT domain."""
+        n, k = self.n, self.k
+        batch = x.shape[:-2]
+        q3 = self.q.view(k, 1, 1)
+        for s in range(self.log_n):
+            mm, t = 1 << s, n >> (s + 1)
+            xv = x.reshape(*batch, k, mm, 2, t)
+            u, v0 = xv[..., 0, :], xv[..., 1, :]
+            v = _shoup_mul(v0, self.psi_rev[:, mm:2 * mm].view(k, mm, 1),
+                           self.psi_rev_sh[:, mm:2 * mm].view(k, mm, 1), q3)
+            x = torch.stack((m.add_mod(u, v, q3), m.sub_mod(u, v, q3)),
+                            -2).reshape(*batch, k, n)
+        return x
+
+    def inv(self, x):
+        """Bit-reversed NTT domain -> [..., k, N] natural order."""
+        n, k = self.n, self.k
+        batch = x.shape[:-2]
+        q3 = self.q.view(k, 1, 1)
+        for s in reversed(range(self.log_n)):
+            mm, t = 1 << s, n >> (s + 1)
+            xv = x.reshape(*batch, k, mm, 2, t)
+            y0, y1 = xv[..., 0, :], xv[..., 1, :]
+            v = _shoup_mul(m.sub_mod(y0, y1, q3),
+                           self.ipsi_rev[:, mm:2 * mm].view(k, mm, 1),
+                           self.ipsi_rev_sh[:, mm:2 * mm].view(k, mm, 1), q3)
+            x = torch.stack((m.add_mod(y0, y1, q3), v),
+                            -2).reshape(*batch, k, n)
+        return _shoup_mul(x, self.n_inv, self.n_inv_sh, self.q)
+
+    def pointwise_mul(self, a, b):
+        """Exact (a * b) mod q per limb on NTT-domain arrays [..., k, N]."""
+        return m.mul_mod(a, b, self.q, self.r_hi, self.r_lo)
+
+
+@lru_cache(maxsize=16)
+def _plan_u64_cached(n: int, moduli: tuple[int, ...], device: torch.device):
+    return NttPlan(n, moduli, device)
+
+
+def get_plan_u64(n: int, moduli: tuple[int, ...], device=None) -> NttPlan:
+    """Shared cache of u64 plans; `device` None means CUDA."""
+    return _plan_u64_cached(n, tuple(int(q) for q in moduli),
+                            resolve_device(device))

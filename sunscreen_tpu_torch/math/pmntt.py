@@ -10,11 +10,11 @@ with 1/N folded in.
 
 Each transform entry point has two implementations with identical
 results. On a CUDA tensor it launches a hand-written kernel
-(`csrc/ntt.cu`, `csrc/tensor3.cu`, `csrc/inv_ks.cu`, `csrc/inv_tensor3.cu`)
-and counts the launch in `_build.LAUNCHES`; on a CPU tensor it runs the
-plain PyTorch twin (`*_plain`), a vectorized radix-2 transform in int64
-that also serves as the kernels' oracle on the card. There is no fallback from one to
-the other.
+(`csrc/ntt.cu`, `csrc/tensor3.cu`, `csrc/inv_ks.cu`, `csrc/inv_tensor3.cu`,
+`csrc/ks_full.cu`) and counts the launch in `_build.LAUNCHES`; on a CPU
+tensor it runs the plain PyTorch twin (`*_plain`), a vectorized radix-2
+transform in int64 that also serves as the kernels' oracle on the card.
+There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -161,6 +161,18 @@ class NttPlanU32:
         values < q) -> [..., 2, k, N] = INTT(sum_i d_i key_i mod q)."""
         return self.inv_plain(m.ks_inner_mod(d_hat, k0, k1, self.q))
 
+    def ks_full_plain(self, d, k0, k1):
+        """d [..., kdig, N] raw u32 digits, keys [kdig, k, N] (flat NTT
+        domain) -> [..., 2, k, N] = INTT(sum_i NTT(d_i) key_i mod q) per
+        limb: B14's twin, `fwd_broadcast_plain` then `inv_ks_plain`."""
+        return self.inv_ks_plain(self.fwd_broadcast_plain(d), k0, k1)
+
+    def ks_full_limbs_plain(self, d, k0, k1):
+        """d [..., kdig, k, N] coefficient-domain residues, keys
+        [kdig, k, N] -> [..., 2, k, N]: B15's twin, `fwd_plain` then
+        `inv_ks_plain`."""
+        return self.inv_ks_plain(self.fwd_plain(d), k0, k1)
+
     # -- kernel entry points -------------------------------------------------
 
     def _prep(self, x, tail: tuple[int, ...]):
@@ -267,6 +279,47 @@ class NttPlanU32:
                           self.consts, rows, kdig, self.k, self.logn)
             _build.LAUNCHES["inv_ks"] += 1
         return out
+
+    def _ks_full_launch(self, d, k0, k1, tail, per_limb: int, name: str):
+        kdig = d.shape[-len(tail)]
+        d, rows = self._prep(d, tail)
+        keys = []
+        for key in (k0, k1):
+            key, _ = self._prep(key, (kdig, self.k, self.n))
+            if key.dim() != 3:
+                raise ValueError("keys must be [kdig, k, N]")
+            keys.append(key)
+        out = torch.empty(*d.shape[:-len(tail)], 2, self.k, self.n,
+                          dtype=torch.int64, device=d.device)
+        if rows:
+            _build.launch("ks_full", "ks_full", d, *keys, out, self.tw,
+                          self.consts, rows, kdig, self.k, self.logn,
+                          per_limb)
+            _build.LAUNCHES[name] += 1
+        return out
+
+    def ks_full(self, d, k0, k1):
+        """d [..., kdig, N] raw coefficient-domain u32 digits (any value),
+        keys k0/k1 [kdig, k, N] (flat NTT domain) -> [..., 2, k, N]
+        coefficient domain: each digit transformed under every limb, the
+        contraction with both key components and the two inverse
+        transforms in one kernel (the reference's `ks_full`, B14). Neither
+        the broadcast digits nor their NTT image reach device memory."""
+        if self._cpu(d):
+            return self.ks_full_plain(d, k0, k1)
+        return self._ks_full_launch(d, k0, k1, (d.shape[-2], self.n), 0,
+                                    "ks_full")
+
+    def ks_full_limbs(self, d, k0, k1):
+        """d [..., kdig, k, N] coefficient-domain residues, one per limb
+        (TFHE's signed digits), keys [kdig, k, N] -> [..., 2, k, N]: B14
+        reading each limb's own digit residues (the reference's
+        `ks_full_limbs`, B15)."""
+        if self._cpu(d):
+            return self.ks_full_limbs_plain(d, k0, k1)
+        return self._ks_full_launch(d, k0, k1,
+                                    (d.shape[-3], self.k, self.n), 1,
+                                    "ks_full_limbs")
 
     def inv_tensor3(self, a_hat, b_hat):
         """a_hat, b_hat [..., 2, k, N] (flat NTT domain, values < q) ->

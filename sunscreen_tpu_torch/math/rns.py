@@ -54,9 +54,24 @@ class RnsBase:
         fr = [((1 << 128) + q - 1) // q for q in self.moduli]
         self.inv_q_fp_hi = _col([v >> 64 for v in fr], device)
         self.inv_q_fp_lo = _col([v for v in fr], device)
+        # floor(2^128 / q) for the Barrett reductions of full u64 words
+        ratios = [m.barrett_ratio(q) for q in self.moduli]
+        self.ratio_hi = _col([r[0] for r in ratios], device)
+        self.ratio_lo = _col([r[1] for r in ratios], device)
+        self.wide = max(q.bit_length() for q in self.moduli) > 31
+
+    def reduce_u64(self, x):
+        """Full u64 words [..., N] -> residues [..., k, N]."""
+        return m.barrett_reduce_64(x.unsqueeze(-2), self.q, self.ratio_hi,
+                                   self.ratio_lo)
 
     def normalize_digits(self, x):
-        """y_i = [x_i * (C/c_i)^{-1}]_{c_i} for x of shape [..., k, N]."""
+        """y_i = [x_i * (C/c_i)^{-1}]_{c_i} for x of shape [..., k, N]:
+        an int64 product below 2^62 for moduli under 2^31, else the
+        128-bit product and Barrett reduction of `modular.mul_mod`."""
+        if self.wide:
+            return m.mul_mod(x, self.inv_punc, self.q, self.ratio_hi,
+                             self.ratio_lo)
         return x * self.inv_punc % self.q
 
 

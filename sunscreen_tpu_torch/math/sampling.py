@@ -1,5 +1,6 @@
 """Randomness for the lattice schemes: uniform mod q, ternary and CBD
-noise, drawn from an explicit `torch.Generator`.
+noise for BFV; uniform 64-bit words, binary keys and rounded torus
+Gaussians for TFHE; all drawn from an explicit `torch.Generator`.
 
 Same distributions as `sunscreen_tpu/math/sampling.py`; the bits differ
 (threefry there, the generator's own stream here), so tests that need
@@ -53,6 +54,28 @@ def cbd(gen: torch.Generator, shape, device,
     a = _draw(gen, 1 << weight, shape, device)
     b = _draw(gen, 1 << weight, shape, device)
     return (_popcount(a) - _popcount(b)).to(torch.int32)
+
+
+def uniform_u64(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniform 64-bit words as int64 bit patterns, from two 32-bit draws
+    (the torus masks of TFHE)."""
+    hi = _draw(gen, 1 << 32, shape, device)
+    lo = _draw(gen, 1 << 32, shape, device)
+    return (hi << 32) | lo
+
+
+def binary(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniform bits {0, 1} as int64 (TFHE binary secret keys)."""
+    return _draw(gen, 2, shape, device)
+
+
+def torus_gaussian(gen: torch.Generator, shape, std: float,
+                   device) -> torch.Tensor:
+    """round(N(0, 1) * std * 2^64) as int64 torus words, drawn in
+    float64 as the reference draws under x64."""
+    e = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                    dtype=torch.float64) * (std * 2.0 ** 64)
+    return torch.round(e).to(torch.int64).to(device)
 
 
 def signed_to_rns(x, q) -> torch.Tensor:

@@ -122,6 +122,7 @@ GATES = {
     "ft3_sc_ks_off": {"SUNSCREEN_TPU_FUSE_FT3": "0",
                       "SUNSCREEN_TPU_FUSE_SC": "0",
                       "SUNSCREEN_TPU_FUSE_KS": "0"},
+    "ksfull": {"SUNSCREEN_TPU_FUSE_KSFULL": "1"},
 }
 
 
@@ -143,6 +144,7 @@ def test_gates_match_golden(golden, port, monkeypatch, gate):
         "ks_off": ("fwd_tensor3", "scale_convert", "ks_inner"),
         "inv_off": ("tensor3", "scale_convert", "ks_inner"),
         "ft3_sc_ks_off": ("tensor3", "scale", "ks_inner"),
+        "ksfull": ("fwd_tensor3", "scale_convert", "ks_full"),
     }[gate]
     for device_type in ("cpu", "cuda"):
         assert (ops.multiply_route(ctx.n, 2, 2, device_type),
@@ -175,8 +177,6 @@ def test_routes_by_size_and_device(monkeypatch):
 @pytest.mark.parametrize("name, value, call, kernel", [
     ("SUNSCREEN_TPU_FUSE_TFULL", "1",
      lambda: ops.multiply_route(8192, 2, 2, "cuda"), "B13"),
-    ("SUNSCREEN_TPU_FUSE_KSFULL", "1",
-     lambda: ops.keyswitch_route("cuda"), "B14"),
     ("SUNSCREEN_TPU_FUSED_RNS", "0",
      lambda: ops.multiply_route(8192, 2, 2, "cuda"), "FUSED_RNS=0"),
     ("SUNSCREEN_TPU_FUSED_RNS", "0",
