@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc`, holds
-each of the fourteen kernel entry points bit for bit against its plain
+each of the eighteen kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
 `BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
-`ks_full_limbs`) and again at the `default_u32(16384)` shapes (batch 2),
-then drives eight paths, each with the launch counts set to 0 just
-before it and read just after:
+`ks_full_limbs`; the "pallas_vpu" plan's multiply and encryption shapes
+for B16 and B17) and again at the `default_u32(16384)` shapes (batch 2;
+B16 also at N=128 and on the encoder's (t,) plan, B17 with broadcast
+operands), then drives eleven paths, each with the launch counts set to
+0 just before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
    batch 64, under the default fusion settings;
@@ -26,19 +28,30 @@ before it and read just after:
 7. TFHE: keygen at LWE_512_80 -> GLWE_1_1024_80, the NTT-domain bootstrap
    key, and the univariate programmable bootstrap of 64 ciphertexts
    (512 blind-rotation steps of B1 + B5, sample extraction, keyswitch);
-8. path 7's PBS under `SUNSCREEN_TPU_TFHE_KSFULL=1` (B15 per step).
+8. path 7's PBS under `SUNSCREEN_TPU_TFHE_KSFULL=1` (B15 per step);
+9. `SUNSCREEN_TPU_NTT=pallas_vpu` with `SUNSCREEN_TPU_FUSE_FT3=0` (the
+   only setting under which the reference's plan multiplies), batch 64:
+   keygen, BatchEncoder, encryption, the 3-component `multiply` and
+   `multiply_plain` (B16, B17, no B1-B5); `relinearize` must raise;
+10. path 1's `multiply_relin` under `SUNSCREEN_TPU_FUSE_TFULL=1` (B13);
+11. the BFV user flow at batch 8 under the default settings: encode,
+    encrypt, the plain ops, `exponentiate`, `multiply_many`,
+    `rotate_rows`, `mod_switch_to_next`, decode.
 
 Paths 1-3 and 7 pass a decrypt gate and a card-vs-CPU bit-exact check
-on one ciphertext; paths 4-6 must give path 1's output and path 8 path
-7's, bit for bit. Each path is then timed and profiled. Prints the
-card, each kernel's times and launch counts as one JSON line, the rates,
-and as the last line {"ok": true, "device": {...}}. Exits non-zero,
-printing no result, when no GPU is visible or any check fails.
+on one ciphertext; paths 4-6 and 10 must give path 1's output and path
+8 path 7's, bit for bit; path 9 passes a slot-wise gate on every row and
+a card-vs-CPU multiply; path 11 a slot-wise gate on every output. Paths
+1-10 are then timed and profiled. Prints the card, each kernel's times
+and launch counts as one JSON line, the rates, and as the last line
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, when
+no GPU is visible or any check fails.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -56,7 +69,8 @@ GATES = ("SUNSCREEN_TPU_FUSED_RNS", "SUNSCREEN_TPU_FUSE_INV",
          "SUNSCREEN_TPU_FUSE_FT3", "SUNSCREEN_TPU_FUSE_T3",
          "SUNSCREEN_TPU_FUSE_TFULL", "SUNSCREEN_TPU_FUSE_SC",
          "SUNSCREEN_TPU_FUSE_KS", "SUNSCREEN_TPU_FUSE_KSFULL",
-         "SUNSCREEN_TPU_TFHE_KSFULL")
+         "SUNSCREEN_TPU_TFHE_KSFULL", "SUNSCREEN_TPU_NTT",
+         "SUNSCREEN_TPU_COMPACT_NTT")
 UNFUSED = {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_SC": "0",
            "SUNSCREEN_TPU_FUSE_KS": "0"}
 T3 = {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_T3": "1"}
@@ -254,14 +268,90 @@ def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
     ]
     if n <= pmntt.TENSOR3_MAX_N:
         x_t3 = _uniform(gen, (batch, 4, km, n), pm.q)
-        cases.append(
+        cases += [
             ("fwd_tensor3", pm.fwd_tensor3, pm.fwd_tensor3_plain, (x_t3,),
              "sunscreen_tpu_torch/csrc/tensor3.cu",
              "sunscreen_tpu/math/pmntt.py:715",
              (4 + 3) * cols_pm * WORD,
              # 4 transforms + 4 products of 32x32 -> 64 bits (2 each)
-             batch * km * (4 * ntt_muls + 8 * n)))
+             batch * km * (4 * ntt_muls + 8 * n)),
+            ("fwd_tensor3_full", lambda x: pm.fwd_tensor3(x, full=True),
+             pm.fwd_tensor3_full_plain, (x_t3,),
+             "sunscreen_tpu_torch/csrc/tensor3.cu",
+             "sunscreen_tpu/math/pmntt.py:715",
+             (4 + 3) * cols_pm * WORD,
+             # B4's work + 3 inverse transforms with the 1/N scaling
+             batch * km * (4 * ntt_muls + 8 * n + 3 * (ntt_muls + 3 * n)))]
     return cases
+
+
+SRC_PNTT = "sunscreen_tpu_torch/csrc/pntt.cu"
+
+
+def pntt_checks(plan, gen, rows: int) -> list[tuple]:
+    """B16 forward and inverse on [rows, k, N] of a pallas_vpu plan, with
+    their bounds: (name, kernel, plain twin, args, source, replaces,
+    bytes, 32-bit multiplies)."""
+    n, k = plan.n, plan.k
+    ntt_muls = 3 * (n // 2) * plan.logn
+    x = _max_residues(_uniform(gen, (rows, k, n), plan.q), plan.q)
+    nbytes = 2 * rows * k * n * WORD
+    return [("pntt_fwd", plan.fwd, plan.fwd_plain, (x,), SRC_PNTT,
+             "sunscreen_tpu/math/pntt.py:395", nbytes, rows * k * ntt_muls),
+            ("pntt_inv", plan.inv, plan.inv_plain, (x,), SRC_PNTT,
+             "sunscreen_tpu/math/pntt.py:395", nbytes,
+             rows * k * (ntt_muls + 3 * n))]
+
+
+def vpu_kernel_cases(params, gen, batch: int) -> list[tuple]:
+    """B16 at the pallas_vpu multiply's [4 batch, 15, 8192] and B17 at the
+    encryption's [batch, 15, 8192] against a full operand, with `a * b % q`
+    on the same tensors as its library call."""
+    from sunscreen_tpu_torch.bfv import get_context
+    from sunscreen_tpu_torch.math import ntt
+
+    plan = ntt.get_plan(params.poly_degree,
+                        get_context(params, DEV).mul_base.moduli, DEV,
+                        "pallas_vpu")
+    n, k = plan.n, plan.k
+    a = _max_residues(_uniform(gen, (batch, k, n), plan.q), plan.q)
+    b = _max_residues(_uniform(gen, (batch, k, n), plan.q), plan.q)
+    return pntt_checks(plan, gen, 4 * batch) + [
+        ("pntt_pmul", plan.pointwise_mul, plan.pointwise_mul_plain, (a, b),
+         SRC_PNTT, "sunscreen_tpu/math/pntt.py:452", 3 * batch * k * n * WORD,
+         # one 32x32 -> 64-bit product (2) per residue
+         2 * batch * k * n, lambda x, y: x * y % plan.q)]
+
+
+def vpu_extra_checks(params, gen, batch: int) -> None:
+    """B16 at the widest and the smallest plans and at the encoder's
+    [batch, 1, 8192] over (t,); B17 with a broadcast [k, N] operand (the
+    public key against every row) and [batch, 1, k, N] against
+    [batch, 3, k, N] (the plaintext against every component)."""
+    from sunscreen_tpu_torch.bfv import BfvParams, get_context
+    from sunscreen_tpu_torch.math import ntt, primes
+
+    wide = BfvParams.default_u32(WIDE_N)
+    plans = [
+        (ntt.get_plan(WIDE_N, get_context(wide, DEV).mul_base.moduli, DEV,
+                      "pallas_vpu"), batch),
+        (ntt.get_plan(128, tuple(primes.gen_ntt_primes(30, 2, 128)), DEV,
+                      "pallas_vpu"), 8),
+        (ntt.get_plan(params.poly_degree, (params.plain_modulus,), DEV,
+                      "pallas_vpu"), batch)]
+    for plan, rows in plans:
+        for name, kern, plain, args, *_ in pntt_checks(plan, gen, rows):
+            _held(f"{name}@[{rows},{plan.k},{plan.n}]", kern, plain, args)
+    plan = ntt.get_plan(params.poly_degree,
+                        get_context(params, DEV).mul_base.moduli, DEV,
+                        "pallas_vpu")
+    n, k = plan.n, plan.k
+    x = _max_residues(_uniform(gen, (batch, 3, k, n), plan.q), plan.q)
+    key = _max_residues(_uniform(gen, (k, n), plan.q), plan.q)
+    _held(f"pntt_pmul(broadcast [{k},{n}])", plan.pointwise_mul,
+          plan.pointwise_mul_plain, (x, key))
+    _held("pntt_pmul(broadcast components)", plan.pointwise_mul,
+          plan.pointwise_mul_plain, (x, x[:, :1]))
 
 
 SRC_KS_FULL = "sunscreen_tpu_torch/csrc/ks_full.cu"
@@ -342,14 +432,18 @@ def extra_checks(ctx, gen, batch: int) -> None:
 
 def check_kernels(ctx, gen) -> list[dict]:
     """Each kernel entry point against its plain twin at the main-path
-    shapes, bit for bit, with both times and the bound."""
+    shapes, bit for bit, with both times, the bound and, where one
+    PyTorch expression computes the same function, its time."""
     rows = []
-    for (name, kern, plain, args, src, repl, nbytes,
-         muls) in kernel_cases(ctx, gen, BATCH) + [pbs_kernel_case(gen,
-                                                                  BATCH)]:
+    for (name, kern, plain, args, src, repl, nbytes, muls,
+         *library) in (kernel_cases(ctx, gen, BATCH)
+                       + [pbs_kernel_case(gen, BATCH)]
+                       + vpu_kernel_cases(ctx.params, gen, BATCH)):
         err = _held(name, kern, plain, args)
         ms = _median_ms(lambda: kern(*args), reps=5, iters=10)
         plain_ms = _median_ms(lambda: plain(*args), reps=3, iters=2)
+        library_ms = (_median_ms(lambda: library[0](*args), reps=5, iters=10)
+                      if library else None)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = muls / PEAK_INT_MULS_PER_S * 1e3
         rows.append({
@@ -357,13 +451,16 @@ def check_kernels(ctx, gen) -> list[dict]:
             "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "library_ms": library_ms})
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB "
               f"= {t_bytes:.4f} ms, {muls / 1e9:.4f} G 32-bit multiplies "
-              f"= {t_ops:.4f} ms)", flush=True)
+              f"= {t_ops:.4f} ms)"
+              + (f", library {library_ms:.4f} ms" if library else ""),
+              flush=True)
     extra_checks(ctx, gen, BATCH)
     ks_full_extremes(_pbs_plan(), gen, 2)
+    vpu_extra_checks(ctx.params, gen, BATCH)
     return rows
 
 
@@ -385,7 +482,8 @@ def check_wide(gen) -> None:
 PORT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel", "fwd_tensor3_kernel",
                 "inv_ks_kernel", "rns_convert_kernel", "scale_convert_kernel",
                 "mod_down_kernel", "rns_scale_kernel", "tensor3_kernel",
-                "ks_inner_kernel", "inv_tensor3_kernel", "ks_full_kernel")
+                "ks_inner_kernel", "inv_tensor3_kernel", "ks_full_kernel",
+                "pntt_fwd_kernel", "pntt_inv_kernel", "pntt_pmul_kernel")
 
 
 def profile_breakdown(label, step, batches: int = 3) -> dict:
@@ -703,6 +801,167 @@ def pbs_path(label, smi: str, needed, absent, s=None, want=None):
     return s, out, launches, per_pbs
 
 
+VPU = {"SUNSCREEN_TPU_NTT": "pallas_vpu", "SUNSCREEN_TPU_FUSE_FT3": "0"}
+U32_PLAN = ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks")  # B1-B5
+
+
+def _slot_gate(label, enc, sk, ctx, ct, want) -> None:
+    """Decrypts and decodes every row of `ct`; exits unless each equals
+    the numpy slot vector of `want`."""
+    from sunscreen_tpu_torch.bfv import ops
+    got = enc.decode(ops.decrypt(ctx, sk, ct)).cpu().numpy()
+    for r in range(want.shape[0]):
+        if not np.array_equal(got[r], want[r]):
+            raise SystemExit(f"{label}: slot gate FAILED at batch row {r}")
+
+
+def vpu_path(params, smi: str):
+    """Path 9, under SUNSCREEN_TPU_NTT=pallas_vpu (with FUSE_FT3=0, the
+    one setting under which the reference's plan multiplies): keygen,
+    BatchEncoder encode, encryption of BATCH slot vectors twice, the
+    3-component `multiply` and `multiply_plain`, both decrypted and
+    decoded against numpy slot-wise products mod t; `multiply` on the
+    card against the CPU, bit for bit; `relinearize` must raise the
+    port's error. Then both rates, launch counts and profiles."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.bfv import BatchEncoder, get_context, keys, ops
+
+    t = params.plain_modulus
+    with _gates(VPU):
+        ctx = get_context(params, DEV)
+        if ctx.mode != "pallas_vpu":
+            raise SystemExit(f"vpu path got NTT mode {ctx.mode}")
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=DEV).manual_seed(9)
+        sk = keys.gen_secret_key(ctx, gen)
+        pk = keys.gen_public_key(ctx, sk, gen)
+        rlk = keys.gen_relin_key(ctx, sk, gen)
+        enc = BatchEncoder(ctx)
+        slots = np.random.default_rng(9).integers(0, t, (2, BATCH, N))
+        pts = enc.encode(slots)
+        cta = ops.encrypt(ctx, pk, pts[0], gen)
+        ctb = ops.encrypt(ctx, pk, pts[1], gen)
+        want = slots[0] * slots[1] % t
+        prod = ops.multiply(ctx, cta, ctb)
+        _slot_gate("vpu multiply", enc, sk, ctx, prod, want)
+        mp = ops.multiply_plain(ctx, cta, pts[1])
+        _slot_gate("vpu multiply_plain", enc, sk, ctx, mp, want)
+        print(f"vpu decrypt gate: {BATCH} multiply and {BATCH} "
+              f"multiply_plain results decode to the numpy slot-wise "
+              f"products mod t", flush=True)
+        ctx_cpu = get_context(params, "cpu")
+        if not torch.equal(ops.multiply(ctx, cta[:1], ctb[:1]).cpu(),
+                           ops.multiply(ctx_cpu, cta[:1].cpu(),
+                                        ctb[:1].cpu())):
+            raise SystemExit("vpu multiply on the card differs from the CPU")
+        print("vpu multiply: card kernels == CPU plain path, bit for bit",
+              flush=True)
+        try:
+            ops.relinearize(ctx, prod, rlk)
+        except NotImplementedError as e:
+            if "pntt.py:222" not in str(e):
+                raise SystemExit(f"vpu relinearize raised the wrong error: "
+                                 f"{e}") from e
+            print(f"vpu relinearize raises as the reference does: "
+                  f"{str(e)[:72]}...", flush=True)
+        else:
+            raise SystemExit("vpu relinearize did not raise")
+
+        def mul_step():
+            ops.multiply(ctx, cta, ctb)
+
+        def mp_step():
+            ops.multiply_plain(ctx, cta, pts[1])
+
+        mul_rate, mp_rate = _rate(mul_step), _rate(mp_step)
+        per_op = _per_op(mul_step)
+        per_mp = _per_op(mp_step)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        print(f"vpu multiply: {mul_rate:.1f} ops/s, multiply_plain: "
+              f"{mp_rate:.1f} ops/s (N={N}, batch {BATCH}, median of "
+              f"{REPS} x {ITERS}) on {smi}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        _path_counts("vpu", launches,
+                     ("pntt_fwd", "pntt_inv", "pntt_pmul", "convert",
+                      "tensor3", "scale_convert"),
+                     U32_PLAN + ("fwd_tensor3_full", "inv_tensor3", "mod_down")
+                     + MEGAKERNELS)
+        print(f"launches per vpu multiply: {json.dumps(per_op)}; per "
+              f"multiply_plain: {json.dumps(per_mp)}", flush=True)
+        profile_breakdown("vpu multiply", mul_step)
+        profile_breakdown("vpu multiply_plain", mp_step)
+    return launches, per_op
+
+
+def flow_path(ctx, smi: str, batch: int = 8):
+    """Path 11, the BFV user flow under the default settings at batch 8:
+    encode, encrypt, add_plain, sub, negate, multiply_plain,
+    exponentiate(ct, 3), multiply_many of 4, rotate_rows(ct, 1),
+    mod_switch_to_next and decryption under mod_switch_context, each
+    decoded and held slot-wise against numpy; every noise budget > 0.
+    The encoder's (t,) plan must run B1/B3. A correctness path: no
+    rate."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.bfv import BatchEncoder, keys, ops
+
+    t, half = ctx.t, N // 2
+    _build.reset_launches()
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    sk = keys.gen_secret_key(ctx, gen)
+    pk = keys.gen_public_key(ctx, sk, gen)
+    rlk = keys.gen_relin_key(ctx, sk, gen)
+    gks = keys.gen_galois_keys(ctx, sk, gen, (ctx.rotate_rows_element(1),))
+    enc = BatchEncoder(ctx)
+    slots = np.random.default_rng(11).integers(0, t, (4, batch, N))
+    codec = _per_op(lambda: enc.decode(enc.encode(slots)))
+    if codec["fwd"] == 0 or codec["inv"] == 0:
+        raise SystemExit(f"encoder launched no B1/B3: {codec}")
+    pts = enc.encode(slots)
+    cts = ops.encrypt(ctx, pk, pts.reshape(4 * batch, N),
+                      gen).reshape(4, batch, 2, ctx.k, N)
+    x, y = slots[0], slots[1]
+    many = ops.multiply_many(ctx, list(cts), rlk)
+    checks = [
+        ("add_plain", ops.add_plain(ctx, cts[0], pts[1]), x + y),
+        ("sub", ops.sub(ctx, cts[0], cts[1]), x - y),
+        ("negate", ops.negate(ctx, cts[0]), -x),
+        ("multiply_plain", ops.multiply_plain(ctx, cts[0], pts[1]), x * y),
+        ("exponentiate(3)", ops.exponentiate(ctx, cts[0], 3, rlk), x ** 3),
+        ("multiply_many(4)", many,
+         functools.reduce(lambda a, b: a * b % t, slots)),
+        ("rotate_rows(1)", ops.rotate_rows(ctx, cts[0], 1, gks),
+         np.concatenate([np.roll(x[:, :half], -1, 1),
+                         np.roll(x[:, half:], -1, 1)], 1))]
+    for label, ct, want in checks:
+        _slot_gate(f"flow {label}", enc, sk, ctx, ct, np.mod(want, t))
+    ctx2 = ops.mod_switch_context(ctx)
+    sk2, _, _ = keys.from_reference(ctx2, s=sk.s.cpu().numpy())
+    _slot_gate("flow mod_switch_to_next", enc, sk2, ctx2,
+               ops.mod_switch_to_next(ctx, cts[0]), x)
+    budgets = ops.invariant_noise_budget(ctx, sk, many)
+    if not (budgets > 0).all():
+        raise SystemExit(f"flow noise budget exhausted: {budgets}")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"flow gate: {batch} rows of add_plain, sub, negate, "
+          f"multiply_plain, exponentiate(3), multiply_many(4), "
+          f"rotate_rows(1) and mod_switch_to_next ({ctx.k} -> {ctx2.k} "
+          f"limbs) decode to numpy; noise budgets after multiply_many "
+          f"{sorted(set(budgets.tolist()))} bits; encoder round trip "
+          f"launched B1 {codec['fwd']}x, B3 {codec['inv']}x; on {smi}",
+          flush=True)
+    _path_counts("flow", launches,
+                 ("fwd", "inv", "fwd_tensor3", "convert", "scale_convert",
+                  "fwd_broadcast", "inv_ks", "mod_down"),
+                 ("pntt_fwd", "pntt_inv", "pntt_pmul", "fwd_tensor3_full"))
+    return launches, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -711,7 +970,7 @@ def main() -> int:
     from sunscreen_tpu_torch import _build
     from sunscreen_tpu_torch.bfv import BfvParams, get_context, keys, ops
 
-    for name in GATES:                 # paths 1-3 run the default settings
+    for name in GATES:                 # each path sets only its own
         os.environ.pop(name, None)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -822,6 +1081,20 @@ def main() -> int:
             ("fwd", "inv_ks", "ks_full", "fwd_broadcast", "inv"), s=s,
             want=out)
     paths["pbs_ksfull"] = (launches, per_pbs)
+
+    # --- path 9: the pallas_vpu NTT plan (B16, B17) ----------------------
+    paths["vpu"] = vpu_path(params, smi)
+
+    # --- path 10: path 1's multiply under FUSE_TFULL=1 (B13) -------------
+    paths["tfull"] = gated_path(
+        "tfull", {"SUNSCREEN_TPU_FUSE_TFULL": "1"}, ctx, inputs, prod, smi,
+        ("fwd_tensor3_full", "convert", "scale_convert", "fwd_broadcast",
+         "inv_ks", "mod_down"),
+        ("fwd_tensor3", "inv", "fwd", "tensor3", "inv_tensor3", "scale",
+         "ks_inner", "pntt_fwd", "pntt_inv", "pntt_pmul") + MEGAKERNELS)
+
+    # --- path 11: the BFV user flow, default settings, batch 8 ----------
+    paths["flow"] = flow_path(ctx, smi)
 
     for row in table:
         name = row["name"]

@@ -11,7 +11,9 @@ the port (`math/pmntt.py`, `math/prns.py`); the plain twins never count.
 Keys name the entry points: "fwd", "fwd_broadcast", "inv" (B1-B3),
 "fwd_tensor3" (B4), "inv_ks" (B5), "convert" (B6), "scale_convert" (B7),
 "mod_down" (B8), "scale" (B9), "tensor3" (B10), "ks_inner" (B11),
-"inv_tensor3" (B12), "ks_full" (B14), "ks_full_limbs" (B15).
+"inv_tensor3" (B12), "fwd_tensor3_full" (B13), "ks_full" (B14),
+"ks_full_limbs" (B15), "pntt_fwd" and "pntt_inv" (B16), "pntt_pmul"
+(B17).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Every entry returns its cudaGetLastError() as an int.
 SIGNATURES = {
     "ntt": {"ntt_fwd": "ppppiiiip", "ntt_inv": "ppppiiip"},
-    "tensor3": {"fwd_tensor3": "ppppiiip"},
+    "tensor3": {"fwd_tensor3": "ppppiiiip"},
     "inv_ks": {"inv_ks": "ppppppiiiip"},
     "inv_tensor3": {"inv_tensor3": "pppppiiiiip"},
     "rns": {"rns_convert": "pppppiiiiiip", "rns_scale": "pppppiiiip",
@@ -40,13 +42,15 @@ SIGNATURES = {
     "pointwise": {"tensor3_pointwise": "ppppiiiiip",
                   "ks_inner": "pppppiiiip"},
     "ks_full": {"ks_full": "ppppppiiiiip"},
+    "pntt": {"pntt_fwd": "pppppiiip", "pntt_inv": "pppppiiip",
+             "pntt_pmul": "pppp" + "i" * 15 + "p"},
 }
 
 LAUNCHES = dict.fromkeys(
     ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks",
      "convert", "scale_convert", "mod_down",
-     "scale", "tensor3", "ks_inner", "inv_tensor3",
-     "ks_full", "ks_full_limbs"), 0)
+     "scale", "tensor3", "ks_inner", "inv_tensor3", "fwd_tensor3_full",
+     "ks_full", "ks_full_limbs", "pntt_fwd", "pntt_inv", "pntt_pmul"), 0)
 
 
 def reset_launches() -> None:

@@ -1,6 +1,13 @@
 """BfvContext: the bases, NTT plans, converters, scalers, Galois and Δ
-tables of one parameter set on one device (port of
+tables of one parameter set on one device under one NTT mode (port of
 `sunscreen_tpu/bfv/context.py`).
+
+The NTT mode is "pallas" (`pmntt.NttPlanU32`) or "pallas_vpu"
+(`pntt.PallasNttPlan`), resolved by `ntt.resolve_mode` when the context
+is requested. The port caches contexts by (params, device, mode), so a
+mode set after a context was built is honoured; the reference caches by
+params alone (`sunscreen_tpu/bfv/context.py:165`), so there a later mode
+changes nothing.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import torch
 
 from sunscreen_tpu_torch import resolve_device
 from sunscreen_tpu_torch.bfv.params import BfvParams
+from sunscreen_tpu_torch.errors import Unsupported
 from sunscreen_tpu_torch.math import ntt, primes, prns, rns
 from sunscreen_tpu_torch.math.modular import U32_MAX_MODULUS_BITS, s64
 
@@ -30,7 +38,7 @@ def _aux_base_size(params: BfvParams, aux_bits: int) -> int:
 
 
 class BfvContext:
-    def __init__(self, params: BfvParams, device):
+    def __init__(self, params: BfvParams, device, mode: str = "pallas"):
         self.params = params
         n, t, q_mods = (params.poly_degree, params.plain_modulus,
                         params.coeff_modulus)
@@ -52,9 +60,16 @@ class BfvContext:
         self.key_base = rns.RnsBase(mods, device)
 
         # --- NTT plans -------------------------------------------------------
-        self.plan_q = ntt.get_plan(n, q_mods, self.device)
-        self.plan_mul = ntt.get_plan(n, self.mul_base.moduli, self.device)
-        self.plan_key = ntt.get_plan(n, self.key_mods, self.device)
+        self.plan_q = ntt.get_plan(n, q_mods, self.device, mode)
+        self.plan_mul = ntt.get_plan(n, self.mul_base.moduli, self.device,
+                                     mode)
+        self.plan_key = ntt.get_plan(n, self.key_mods, self.device, mode)
+        self.mode = self.plan_q.mode
+        if self.mode not in ("pallas", "pallas_vpu"):
+            raise Unsupported(
+                f"BFV runs on the u32 NTT plans (modes 'pallas' and "
+                f"'pallas_vpu'); NTT mode {mode!r} at N={n} gives "
+                f"{self.mode!r}")
 
         # --- converters / scalers -------------------------------------------
         self.conv_q_to_aux = rns.BaseConverter(self.q_base, self.aux_base)
@@ -63,6 +78,10 @@ class BfvContext:
             self.mul_base, self.q_base, self.aux_base, t)
         self.decrypt_scaler = rns.DecryptScaler(self.q_base, t)
         self.mod_down = rns.ModDown(self.q_base, params.special_modulus)
+        # drop-last-limb rescale of mod_switch_to_next (B8 on CUDA)
+        self.mod_switch_down = (
+            rns.ModDown(rns.RnsBase(q_mods[:-1], device), q_mods[-1])
+            if self.k >= 2 else None)
         self._fused_ops: dict[str, object] = {}    # see fused_op()
 
         # --- Δ = round(Q*m/t) tables (see ops.scale_plain) ------------------
@@ -137,10 +156,14 @@ class BfvContext:
 
 
 @lru_cache(maxsize=16)
-def _context_cached(params: BfvParams, device: torch.device) -> BfvContext:
-    return BfvContext(params, device)
+def _context_cached(params: BfvParams, device: torch.device,
+                    mode: str) -> BfvContext:
+    return BfvContext(params, device, mode)
 
 
-def get_context(params: BfvParams, device=None) -> BfvContext:
-    """Cached context; `device` None means CUDA."""
-    return _context_cached(params, resolve_device(device))
+def get_context(params: BfvParams, device=None,
+                mode: str | None = None) -> BfvContext:
+    """Cached context; `device` None means CUDA, `mode` None means
+    `ntt.resolve_mode()` (SUNSCREEN_TPU_NTT, default "pallas")."""
+    return _context_cached(params, resolve_device(device),
+                           ntt.resolve_mode(mode))

@@ -3,8 +3,11 @@ public, relinearization and Galois keys, stored in the NTT domain, plus
 `from_reference` / `galois_from_reference` to carry the JAX package's
 key material over.
 
-Keys are sampled from an explicit `torch.Generator`. The NTT domain is
-the reference's, so `from_reference` is only a dtype and device move.
+Keys are sampled from an explicit `torch.Generator` through the
+context's plans. Each NTT mode's domain is the reference's for that mode
+("pallas": the flat j2 n1 + j1 order; "pallas_vpu": the [t', s'] order),
+so `from_reference` is only a dtype and device move from a reference
+context of the same mode.
 """
 
 from __future__ import annotations

@@ -12,17 +12,24 @@ deployment's settings carry over (every route gives the same bits):
 
 * `SUNSCREEN_TPU_FUSE_FT3` (default on), `SUNSCREEN_TPU_FUSE_T3`
   (default off), `SUNSCREEN_TPU_FUSE_INV` (default on): the tensor
-  product of `multiply` (`multiply_route`);
+  product of `multiply` (`multiply_route`); `SUNSCREEN_TPU_FUSE_TFULL=1`
+  runs the inverse transforms inside the FT3 kernel (B13);
 * `SUNSCREEN_TPU_FUSE_SC` (default on): the scale back to Q
   (`scale_convert_route`);
 * `SUNSCREEN_TPU_FUSE_KSFULL` (default off), `SUNSCREEN_TPU_FUSE_KS`
   (default on) and `SUNSCREEN_TPU_FUSE_INV`: the keyswitch
   (`keyswitch_route`); `FUSE_KSFULL=1` runs the megakernel B14;
-* `SUNSCREEN_TPU_FUSE_TFULL=1` asks for kernel B13, which is not ported:
-  it raises;
 * `SUNSCREEN_TPU_FUSED_RNS=0` asks for the reference's plain glue, which
   the port runs only on the CPU: it raises for CUDA tensors and changes
   nothing on the CPU, whose path is always the plain twins.
+
+Under the NTT mode "pallas_vpu" (`SUNSCREEN_TPU_NTT`, the context's
+`mode`) the routes follow the reference's own behaviour: its
+`PallasNttPlan` reports mode "pallas" (`sunscreen_tpu/math/pntt.py:222`)
+but lacks the fused methods that mode implies, so its `multiply` works
+only under `FUSE_FT3=0` or `FUSE_INV=0` and its keyswitch never does.
+The port runs those same routes and raises `NotImplementedError` where
+the reference raises `AttributeError`.
 """
 
 from __future__ import annotations
@@ -32,9 +39,10 @@ import os
 import numpy as np
 import torch
 
-from sunscreen_tpu_torch.bfv.context import BfvContext
+from sunscreen_tpu_torch.bfv.context import BfvContext, get_context
 from sunscreen_tpu_torch.bfv.keys import (GaloisKeys, KswKey, PublicKey,
                                           SecretKey)
+from sunscreen_tpu_torch.bfv.params import BfvParams
 from sunscreen_tpu_torch.errors import InvalidArgument
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math import pmntt, rns, sampling
@@ -56,20 +64,68 @@ def scale_plain(ctx: BfvContext, pt):
     return m.add_mod(base, m.reduce_2q(r_lo.unsqueeze(-2), q), q)
 
 
+def _encrypt_noise(ctx: BfvContext, shape, gen: torch.Generator):
+    """Fresh (u, e0, e1) small polys of `shape`: ternary, CBD, CBD."""
+    return (sampling.ternary(gen, shape, ctx.device),
+            sampling.cbd(gen, shape, ctx.device),
+            sampling.cbd(gen, shape, ctx.device))
+
+
+def _encrypt_parts(ctx: BfvContext, pk: PublicKey, pt, u, e0, e1):
+    """c = (pk0*u + e0 + Δm, pk1*u + e1) from the small polys."""
+    q = _q(ctx)
+    u_hat = ctx.plan_q.fwd(sampling.signed_to_rns(u, q))
+    c0 = ctx.plan_q.inv(ctx.plan_q.pointwise_mul(pk.p0, u_hat))
+    c1 = ctx.plan_q.inv(ctx.plan_q.pointwise_mul(pk.p1, u_hat))
+    c0 = m.add_mod(m.add_mod(c0, sampling.signed_to_rns(e0, q), q),
+                   scale_plain(ctx, pt), q)
+    c1 = m.add_mod(c1, sampling.signed_to_rns(e1, q), q)
+    return torch.stack([c0, c1], dim=-3)
+
+
 def encrypt(ctx: BfvContext, pk: PublicKey, pt, gen: torch.Generator):
     """c = (pk0*u + e1 + Δm, pk1*u + e2) for every plaintext row of
     `pt` [..., N]; fresh u, e1, e2 per row."""
     pt = pt.to(device=ctx.device, dtype=torch.int64)
-    shape, q = tuple(pt.shape), _q(ctx)
-    u = ctx.plan_q.fwd(sampling.signed_to_rns(
-        sampling.ternary(gen, shape, ctx.device), q))
-    c0 = ctx.plan_q.inv(ctx.plan_q.pointwise_mul(pk.p0, u))
-    c1 = ctx.plan_q.inv(ctx.plan_q.pointwise_mul(pk.p1, u))
-    e1 = sampling.signed_to_rns(sampling.cbd(gen, shape, ctx.device), q)
-    e2 = sampling.signed_to_rns(sampling.cbd(gen, shape, ctx.device), q)
-    c0 = m.add_mod(m.add_mod(c0, e1, q), scale_plain(ctx, pt), q)
-    c1 = m.add_mod(c1, e2, q)
-    return torch.stack([c0, c1], dim=-3)
+    return _encrypt_parts(ctx, pk, pt, *_encrypt_noise(ctx, pt.shape, gen))
+
+
+def encrypt_return_components(ctx: BfvContext, pk: PublicKey, pt,
+                              gen: torch.Generator):
+    """`encrypt`, also returning its randomness (u, e0, e1) as small
+    signed int64 polys (SEAL: `Encryptor::encrypt_return_components`)."""
+    pt = pt.to(device=ctx.device, dtype=torch.int64)
+    noise = _encrypt_noise(ctx, pt.shape, gen)
+    return (_encrypt_parts(ctx, pk, pt, *noise),
+            tuple(v.to(torch.int64) for v in noise))
+
+
+def _encrypt_symmetric_parts(ctx: BfvContext, sk: SecretKey, pt, a, e):
+    """c = (-(a*s + e) + Δm, a) from the mask a [..., k, N] and the
+    small noise e [..., N]."""
+    q = _q(ctx)
+    as_ = ctx.plan_q.inv(ctx.plan_q.pointwise_mul(ctx.plan_q.fwd(a),
+                                                  sk.s_ntt_q))
+    c0 = m.add_mod(m.neg_mod(m.add_mod(as_, sampling.signed_to_rns(e, q),
+                                       q), q),
+                   scale_plain(ctx, pt), q)
+    return torch.stack([c0, a], dim=-3)
+
+
+def encrypt_symmetric_return_components(ctx: BfvContext, sk: SecretKey,
+                                        pt, gen: torch.Generator):
+    """Symmetric encryption c = (-(a*s + e) + Δm, a) with a fresh mask
+    and noise per plaintext row; returns (ct, e as int64)."""
+    pt = pt.to(device=ctx.device, dtype=torch.int64)
+    a = sampling.uniform_mod_q(gen, pt.shape, ctx.q_base)
+    e = sampling.cbd(gen, pt.shape, ctx.device)
+    return _encrypt_symmetric_parts(ctx, sk, pt, a, e), e.to(torch.int64)
+
+
+def encrypt_symmetric(ctx: BfvContext, sk: SecretKey, pt,
+                      gen: torch.Generator):
+    """c = (-(a*s + e) + Δm, a). SEAL: `Encryptor::encrypt_symmetric`."""
+    return encrypt_symmetric_return_components(ctx, sk, pt, gen)[0]
 
 
 def _ct_dot_s(ctx: BfvContext, ct, sk: SecretKey):
@@ -88,6 +144,31 @@ def decrypt(ctx: BfvContext, sk: SecretKey, ct):
     """[..., n_comp, k, N] -> [..., N] plaintext coefficients in [0, t)."""
     msg, _ = ctx.decrypt_scaler.apply(_ct_dot_s(ctx, ct, sk))
     return msg
+
+
+_SIGN = -(1 << 63)
+
+
+def _umax(x, dim: int):
+    """Max of u64 bit patterns in int64 along `dim`."""
+    return (x ^ _SIGN).amax(dim) ^ _SIGN
+
+
+def noise_distance_words(ctx: BfvContext, sk: SecretKey, ct):
+    """Max over coefficients of min(f, 1 - f), f the exact 128-bit
+    fractional part of t c(s) / Q, as (hi, lo) u64 bit patterns of the
+    2^-128-scaled distance, per ciphertext."""
+    _, (f_hi, f_lo) = ctx.decrypt_scaler.apply(_ct_dot_s(ctx, ct, sk))
+    neg_lo = ~f_lo + 1                           # 2^128 - f, wrapping
+    neg_hi = ~f_hi + (f_lo == 0).to(torch.int64)
+    f_smaller = m.ult(f_hi, neg_hi) | ((f_hi == neg_hi)
+                                       & ~m.ult(neg_lo, f_lo))
+    d_hi = torch.where(f_smaller, f_hi, neg_hi)
+    d_lo = torch.where(f_smaller, f_lo, neg_lo)
+    m_hi = _umax(d_hi, -1)
+    m_lo = _umax(torch.where(d_hi == m_hi.unsqueeze(-1), d_lo,
+                             torch.zeros_like(d_lo)), -1)
+    return m_hi, m_lo
 
 
 def invariant_noise_budget(ctx: BfvContext, sk: SecretKey, ct):
@@ -125,6 +206,40 @@ def add(ctx: BfvContext, a, b):
                      _q(ctx))
 
 
+def sub(ctx: BfvContext, a, b):
+    n_comp = max(a.shape[-3], b.shape[-3])
+    return m.sub_mod(_pad_components(a, n_comp), _pad_components(b, n_comp),
+                     _q(ctx))
+
+
+def negate(ctx: BfvContext, a):
+    return m.neg_mod(a, _q(ctx))
+
+
+def _plain_c0(ctx: BfvContext, ct, pt, op):
+    delta = scale_plain(ctx, pt.to(device=ctx.device, dtype=torch.int64))
+    c0 = op(ct[..., 0, :, :], delta, _q(ctx))
+    return torch.cat([c0.unsqueeze(-3), ct[..., 1:, :, :]], dim=-3)
+
+
+def add_plain(ctx: BfvContext, ct, pt):
+    return _plain_c0(ctx, ct, pt, m.add_mod)
+
+
+def sub_plain(ctx: BfvContext, ct, pt):
+    return _plain_c0(ctx, ct, pt, m.sub_mod)
+
+
+def multiply_plain(ctx: BfvContext, ct, pt):
+    """ct * pt, the plaintext lifted verbatim (t < min q_i) and multiplied
+    in the NTT domain (SEAL: `Evaluator::multiply_plain`)."""
+    pt = pt.to(device=ctx.device, dtype=torch.int64)
+    pt_hat = ctx.plan_q.fwd(pt.unsqueeze(-2).expand(*pt.shape[:-1], ctx.k,
+                                                    ctx.n))
+    out = ctx.plan_q.pointwise_mul(ctx.plan_q.fwd(ct), pt_hat.unsqueeze(-3))
+    return ctx.plan_q.inv(out)
+
+
 def _env_on(name: str, default: str = "1") -> bool:
     return os.environ.get(name, default) != "0"
 
@@ -147,26 +262,44 @@ def _plan_fused(device_type: str) -> bool:
     return _env_on("SUNSCREEN_TPU_FUSE_INV")
 
 
-def _unported(setting: str, kernel: str):
+def _vpu_missing(method: str, kernels: str, hint: str):
     return NotImplementedError(
-        f"{setting} asks for kernel {kernel}, which sunscreen_tpu_torch "
-        f"does not port yet")
+        f"the pallas_vpu NTT plan has no {method} ({kernels}): the "
+        f"reference's PallasNttPlan reports mode 'pallas' "
+        f"(sunscreen_tpu/math/pntt.py:222), so its BFV ops call {method} "
+        f"and raise AttributeError, and the port raises here; {hint}")
 
 
-def multiply_route(n: int, na: int, nb: int, device_type: str) -> str:
+def multiply_route(n: int, na: int, nb: int, device_type: str,
+                   mode: str = "pallas") -> str:
     """How `multiply` forms the tensor product, in the reference's order:
     "fwd_tensor3" (B4, then B3) unless FUSE_INV or FUSE_FT3 is off or,
-    on CUDA, N > pmntt.TENSOR3_MAX_N; else "inv_tensor3" (B1, then B12)
+    on CUDA, N > pmntt.TENSOR3_MAX_N, "fwd_tensor3_full" (B13 alone) in
+    its place under FUSE_TFULL=1; else "inv_tensor3" (B1, then B12)
     under FUSE_T3=1; else "tensor3" (B1, B10, B3) for 2 x 2 components;
-    else "loop" (B1, plain products per component, B3)."""
+    else "loop" (B1, plain products per component, B3).
+
+    Under mode "pallas_vpu" a 2 x 2 multiply raises unless FUSE_FT3=0 or
+    FUSE_INV=0, and also under FUSE_T3=1, as the reference does; else it
+    takes "tensor3" (B16, B10, B16) on CUDA, as the reference does on its
+    accelerator, and "loop" (B17's twin per product) on the CPU."""
     fused = _plan_fused(device_type)
-    if na != 2 or nb != 2:
+    pair = na == 2 and nb == 2
+    if mode == "pallas_vpu":
+        if pair and fused and _env_on("SUNSCREEN_TPU_FUSE_FT3"):
+            raise _vpu_missing(
+                "fwd_tensor3", "kernels B4/B13",
+                "set SUNSCREEN_TPU_FUSE_FT3=0 to multiply")
+        if pair and fused and _env_on("SUNSCREEN_TPU_FUSE_T3", default="0"):
+            raise _vpu_missing("inv_tensor3", "kernel B12",
+                               "leave SUNSCREEN_TPU_FUSE_T3 unset")
+        return "tensor3" if pair and device_type != "cpu" else "loop"
+    if not pair:
         return "loop"
     if (fused and _env_on("SUNSCREEN_TPU_FUSE_FT3")
             and (device_type == "cpu" or n <= pmntt.TENSOR3_MAX_N)):
         if _env_on("SUNSCREEN_TPU_FUSE_TFULL", default="0"):
-            raise _unported("SUNSCREEN_TPU_FUSE_TFULL=1", "B13 "
-                            "(fwd_tensor3(full=True), pmntt.py:715)")
+            return "fwd_tensor3_full"
         return "fwd_tensor3"
     if fused and _env_on("SUNSCREEN_TPU_FUSE_T3", default="0"):
         return "inv_tensor3"
@@ -181,12 +314,20 @@ def scale_convert_route(device_type: str) -> str:
             else "scale")
 
 
-def keyswitch_route(device_type: str) -> str:
+def keyswitch_route(device_type: str, mode: str = "pallas") -> str:
     """"ks_full" (B14 alone) under FUSE_KSFULL=1 unless FUSE_INV is off,
     as the reference checks it first; else "inv_ks" (B2, B5) unless
-    FUSE_KS or FUSE_INV is off, then "ks_inner" (B2, B11, B3)."""
+    FUSE_KS or FUSE_INV is off, then "ks_inner" (B2, B11, B3). Under mode
+    "pallas_vpu" it raises, as the reference's keyswitch calls the plan's
+    missing `ks_full` or `fwd_broadcast` under every setting."""
     fused = _plan_fused(device_type)
-    if fused and _env_on("SUNSCREEN_TPU_FUSE_KSFULL", default="0"):
+    ksfull = fused and _env_on("SUNSCREEN_TPU_FUSE_KSFULL", default="0")
+    if mode == "pallas_vpu":
+        raise _vpu_missing(
+            "ks_full" if ksfull else "fwd_broadcast",
+            "kernel B14" if ksfull else "kernel B2",
+            "relinearize and the rotations need NTT mode 'pallas'")
+    if ksfull:
         return "ks_full"
     return ("inv_ks" if fused and _env_on("SUNSCREEN_TPU_FUSE_KS")
             else "ks_inner")
@@ -207,11 +348,13 @@ def multiply(ctx: BfvContext, a, b):
     then exact scale-and-round back to Q along `scale_convert_route`.
     Output has n_a + n_b - 1 components."""
     na, nb = a.shape[-3], b.shape[-3]
-    route = multiply_route(ctx.n, na, nb, a.device.type)
+    route = multiply_route(ctx.n, na, nb, a.device.type, ctx.mode)
     plan = ctx.plan_mul
     ext = ctx.conv_q_to_aux.extend(torch.cat([a, b], dim=-3), centered=True)
     if route == "fwd_tensor3":
         return _scale_convert(ctx, plan.inv(plan.fwd_tensor3(ext)))
+    if route == "fwd_tensor3_full":
+        return _scale_convert(ctx, plan.fwd_tensor3(ext, full=True))
     both = plan.fwd(ext)
     a_hat, b_hat = both[..., :na, :, :], both[..., na:, :, :]
     if route == "inv_tensor3":
@@ -238,7 +381,7 @@ def keyswitch(ctx: BfvContext, d, ksw: KswKey):
     "ks_full" route one kernel does all of it from the raw digits. The
     mod-down reads the Q limbs and the special limb of that output in
     place."""
-    route = keyswitch_route(d.device.type)
+    route = keyswitch_route(d.device.type, ctx.mode)
     if route == "ks_full":
         both = ctx.plan_key.ks_full(d, ksw.k0, ksw.k1)
         u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
@@ -266,6 +409,10 @@ def relinearize(ctx: BfvContext, ct, rlk: KswKey):
 
 def multiply_relin(ctx: BfvContext, a, b, rlk: KswKey):
     return relinearize(ctx, multiply(ctx, a, b), rlk)
+
+
+def square(ctx: BfvContext, a):
+    return multiply(ctx, a, a)
 
 
 # --------------------------------------------------------------------------
@@ -316,3 +463,69 @@ def rotate_rows(ctx: BfvContext, ct, steps: int, gks: GaloisKeys):
 def rotate_columns(ctx: BfvContext, ct, gks: GaloisKeys):
     """Swap the two batching rows (SEAL: `Evaluator::rotate_columns`)."""
     return apply_galois(ctx, ct, ctx.rotate_columns_element, gks)
+
+
+# --------------------------------------------------------------------------
+# modulus switching, powers and sums
+# --------------------------------------------------------------------------
+
+def mod_switch_to_next(ctx: BfvContext, ct):
+    """Drop the last ciphertext modulus: round(c Q'/Q) per component with
+    Q' = Q / q_last (SEAL: `Evaluator::mod_switch_to_next`), B8 on CUDA.
+    The result lives over k-1 limbs, in `mod_switch_context(ctx)`."""
+    if ctx.k < 2:
+        raise InvalidArgument("cannot mod-switch below one modulus")
+    return ctx.mod_switch_down.apply(ct[..., :ctx.k - 1, :],
+                                     ct[..., ctx.k - 1, :])
+
+
+def mod_switch_context(ctx: BfvContext) -> BfvContext:
+    """Context for ciphertexts after one `mod_switch_to_next`: the same
+    device and NTT mode."""
+    p = ctx.params
+    return get_context(BfvParams(p.poly_degree, p.plain_modulus,
+                                 p.coeff_modulus[:-1], p.special_modulus,
+                                 p.security_level), ctx.device, ctx.mode)
+
+
+def exponentiate(ctx: BfvContext, ct, power: int, rlk: KswKey):
+    """ct^power by square-and-multiply with a relinearization after each
+    multiply (SEAL: `Evaluator::exponentiate`)."""
+    if power < 1:
+        raise InvalidArgument("exponentiate requires power >= 1")
+    result, base = None, ct
+    while power:
+        if power & 1:
+            result = base if result is None else multiply_relin(
+                ctx, result, base, rlk)
+        power >>= 1
+        if power:
+            base = multiply_relin(ctx, base, base, rlk)
+    return result
+
+
+def add_many(ctx: BfvContext, cts):
+    """Sum of a sequence of ciphertexts (SEAL: `Evaluator::add_many`)."""
+    cts = list(cts)
+    if not cts:
+        raise InvalidArgument("add_many requires at least one ciphertext")
+    acc = cts[0]
+    for c in cts[1:]:
+        acc = m.add_mod(acc, c, _q(ctx))
+    return acc
+
+
+def multiply_many(ctx: BfvContext, cts, rlk: KswKey):
+    """Product of a sequence of ciphertexts as a balanced tree of
+    multiply_relin (SEAL: `Evaluator::multiply_many`)."""
+    level = list(cts)
+    if not level:
+        raise InvalidArgument(
+            "multiply_many requires at least one ciphertext")
+    while len(level) > 1:
+        nxt = [multiply_relin(ctx, level[i], level[i + 1], rlk)
+               for i in range(0, len(level) - 1, 2)]
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+    return level[0]

@@ -127,3 +127,9 @@ class BfvParams:
         for q in self.coeff_modulus:
             out *= q
         return out
+
+    @property
+    def supports_batching(self) -> bool:
+        """A prime plain modulus t = 1 mod 2N (`bfv/encoder.py`)."""
+        t, n = self.plain_modulus, self.poly_degree
+        return t % (2 * n) == 1 and primes.is_prime(t)

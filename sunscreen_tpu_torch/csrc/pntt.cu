@@ -1,0 +1,161 @@
+// The u32 NTT plan of SUNSCREEN_TPU_NTT=pallas_vpu: forward and inverse
+// negacyclic transforms in the plan's own [t', s'] NTT domain (B16) and the
+// exact pointwise product a b mod q per limb (B17).
+//
+// Replaces the Pallas kernels of sunscreen_tpu/math/pntt.py::PallasNttPlan:
+// _transform (pallas_call at pntt.py:395; .fwd and .inv) and _pmul
+// (pallas_call at pntt.py:452; .pointwise_mul).
+//
+// B16. The TPU kernel runs a four-step transform, [R, C = 128] rows NTT, mid
+// twiddle, transpose, column NTT, because that keeps every slice a contiguous
+// sublane half on the TPU's vector unit. Its output position p = t' R + s'
+// holds the evaluation at psi^(2J + 1) with J = brev(s') + R brev(t') (bit
+// reversal over log2 R and log2 C bits). The card needs no four-step: one
+// thread block per (row, limb) loads the polynomial into shared memory (32 KB
+// at N = 8192, 64 KB at N = 16384), reducing every input mod q, runs the log2
+// N radix-2 stages with Shoup twiddles (fwd_smem / inv_smem, the same as
+// ntt.cu), and stores once, coalesced, through `pos`, a host-built table of the
+// bit-reversed butterfly slot brev(J(p)) of every output position. The inverse
+// scatters through the same table at load and folds 1/N into its store. One
+// launch does the whole transform, the permutation included.
+//
+// B17. One pass over the broadcast shape [rows, k, N]: each block takes one row
+// and a stretch of its k N residues (8 per thread, so the row's offsets are
+// worked out once per 8), reduces the u64 product with floor(2^64 / q) and
+// writes the output once. The operands are read through
+// their own strides over up to four merged leading dims, so a broadcast
+// operand (the public key against a batch of u, the secret key against
+// every component) is read in place and never materialized.
+//
+// Bounds on the H100 (int64 residues in and out): B16 on [256, 15, 8192] moves
+// 2 * 252 MB, about 0.15 ms at 3.35 TB/s, against 0.61 G 32-bit multiplies,
+// 0.04 ms at 16.7 T/s: bound by bytes. B17 on [64, 15, 8192] reads 126 MB per
+// full operand and writes 63 MB, 2 multiplies per residue: bound by bytes.
+
+#include "common.cuh"
+
+__global__ void pntt_fwd_kernel(const long long* __restrict__ x,
+                                long long* __restrict__ out,
+                                const u32* __restrict__ tw,
+                                const long long* __restrict__ consts,
+                                const int* __restrict__ pos, int k,
+                                int logn) {
+  extern __shared__ u32 sm[];
+  const int n = 1 << logn;
+  const int limb = blockIdx.x % k;
+  const Limb L = load_limb(consts, limb);
+  const long long* src = x + (size_t)blockIdx.x * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    sm[i] = reduce64((u64)src[i], L.q, L.m);
+  __syncthreads();
+  const u32* t = tw + (size_t)limb * 4 * n;
+  fwd_smem(sm, 1, logn, t, t + n, L.q);
+  long long* dst = out + (size_t)blockIdx.x * n;
+  for (int p = threadIdx.x; p < n; p += blockDim.x) dst[p] = sm[__ldg(pos + p)];
+}
+
+__global__ void pntt_inv_kernel(const long long* __restrict__ x,
+                                long long* __restrict__ out,
+                                const u32* __restrict__ tw,
+                                const long long* __restrict__ consts,
+                                const int* __restrict__ pos, int k,
+                                int logn) {
+  extern __shared__ u32 sm[];
+  const int n = 1 << logn;
+  const int limb = blockIdx.x % k;
+  const Limb L = load_limb(consts, limb);
+  const long long* src = x + (size_t)blockIdx.x * n;
+  for (int p = threadIdx.x; p < n; p += blockDim.x)
+    sm[__ldg(pos + p)] = reduce64((u64)src[p], L.q, L.m);
+  __syncthreads();
+  const u32* t = tw + (size_t)limb * 4 * n;
+  inv_smem(sm, 1, logn, t + 2 * n, t + 3 * n, L.q);
+  long long* dst = out + (size_t)blockIdx.x * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = mul_shoup(sm[i], L.ninv, L.ninv_sh, L.q);
+}
+
+// Leading dims of the broadcast shape, outermost first, and each operand's
+// strides over them in elements (0 where it is broadcast).
+struct Lead {
+  int size[4];
+  long long sa[4], sb[4];
+};
+
+__global__ void pntt_pmul_kernel(const long long* __restrict__ a,
+                                 const long long* __restrict__ b,
+                                 long long* __restrict__ out,
+                                 const long long* __restrict__ consts, int k,
+                                 int logn, int rows, Lead lead) {
+  const int kn = k << logn;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    long long oa = 0, ob = 0;
+    int r = row;
+    for (int d = 3; d >= 0; --d) {
+      const int i = r % lead.size[d];
+      r /= lead.size[d];
+      oa += i * lead.sa[d];
+      ob += i * lead.sb[d];
+    }
+    const long long* ar = a + oa;
+    const long long* br = b + ob;
+    long long* dst = out + (size_t)row * kn;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < kn;
+         i += gridDim.x * blockDim.x) {
+      const int limb = i >> logn;
+      const u32 q = (u32)__ldg(consts + 4 * limb);
+      const u64 m = (u64)__ldg(consts + 4 * limb + 1);
+      // residues are below 2^32: one 32 x 32 -> 64-bit multiply
+      dst[i] = reduce64((u64)(u32)__ldg(ar + i) * (u32)__ldg(br + i), q, m);
+    }
+  }
+}
+
+// x [rows, k, N] coefficients -> out [rows, k, N] in the [t', s'] domain
+extern "C" int pntt_fwd(const void* x, void* out, const void* tw,
+                        const void* consts, const void* pos, int rows, int k,
+                        int logn, void* stream) {
+  const int smem = (int)(sizeof(u32) << logn);
+  cudaFuncSetAttribute(pntt_fwd_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  pntt_fwd_kernel<<<rows * k, ntt_threads(logn), smem,
+                    (cudaStream_t)stream>>>(
+      (const long long*)x, (long long*)out, (const u32*)tw,
+      (const long long*)consts, (const int*)pos, k, logn);
+  return (int)cudaGetLastError();
+}
+
+// x [rows, k, N] in the [t', s'] domain -> out [rows, k, N] coefficients
+extern "C" int pntt_inv(const void* x, void* out, const void* tw,
+                        const void* consts, const void* pos, int rows, int k,
+                        int logn, void* stream) {
+  const int smem = (int)(sizeof(u32) << logn);
+  cudaFuncSetAttribute(pntt_inv_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  pntt_inv_kernel<<<rows * k, ntt_threads(logn), smem,
+                    (cudaStream_t)stream>>>(
+      (const long long*)x, (long long*)out, (const u32*)tw,
+      (const long long*)consts, (const int*)pos, k, logn);
+  return (int)cudaGetLastError();
+}
+
+// out [rows, k, N] = a b mod q, a and b read at row offsets given by the
+// leading sizes d0..d3 and their strides (elements) sa0..sa3, sb0..sb3
+extern "C" int pntt_pmul(const void* a, const void* b, void* out,
+                         const void* consts, int k, int logn, int rows, int d0,
+                         int d1, int d2, int d3, int sa0, int sa1, int sa2,
+                         int sa3, int sb0, int sb1, int sb2, int sb3,
+                         void* stream) {
+  const Lead lead = {{d0, d1, d2, d3},
+                     {sa0, sa1, sa2, sa3},
+                     {sb0, sb1, sb2, sb3}};
+  // 8 residues per thread: the row offsets are worked out once per 8
+  const int threads = 256, per_thread = 8;
+  const int kn = k << logn;
+  const dim3 grid((kn + threads * per_thread - 1) / (threads * per_thread),
+                  rows < 65535 ? rows : 65535);
+  pntt_pmul_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const long long*)a, (const long long*)b, (long long*)out,
+      (const long long*)consts, k, logn, rows, lead);
+  return (int)cudaGetLastError();
+}

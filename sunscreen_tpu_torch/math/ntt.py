@@ -1,18 +1,26 @@
 """NTT plan selection (port of `sunscreen_tpu/math/ntt.py`).
 
-Two plans are ported:
+`get_plan` resolves a mode as the reference does (`resolve_mode`: the
+argument, else `SUNSCREEN_TPU_NTT`, else the legacy
+`SUNSCREEN_TPU_COMPACT_NTT=1` for "compact"), applies the reference's
+degrade rules in its order, and returns one of the ported plans:
 
-* `get_plan`: the u32 plan (`pmntt.NttPlanU32`, the port of the
-  reference's mode "pallas") for 17-30-bit moduli and 256 <= N <= 16384,
-  whose transforms are CUDA kernels on the card; other envelopes raise.
-* `get_plan_u64`: `NttPlan`, the port of the reference's u64 `NttPlan`
-  in mode "unrolled" (natural order in, bit-reversed order out) for
-  moduli below 2^62, in plain PyTorch on every device. TFHE's 62-bit
-  `TorusNttPlan` runs on it.
+* "pallas" (the port's default on every device, since its CPU path is
+  the twin of its card path): `pmntt.NttPlanU32`, kernels B1-B5, B12-B15;
+* "pallas_vpu": `pntt.PallasNttPlan`, kernels B16 and B17;
+* "unrolled": `NttPlan`, the port of the reference's u64 `NttPlan` in
+  that mode (natural order in, bit-reversed order out) for moduli below
+  2^62, in plain PyTorch on every device, as the reference's unrolled
+  plan is plain XLA; TFHE's 62-bit `TorusNttPlan` and the plain-ring
+  plans of small t run on it (`get_plan_u64` builds it directly).
+
+"matmul" and "compact" are the u64 engine's modes (ROADMAP A7) and raise
+`Unsupported`.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -23,25 +31,71 @@ from sunscreen_tpu_torch.errors import Unsupported
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math import primes
 from sunscreen_tpu_torch.math.pmntt import NttPlanU32, _bitrev, _powers
+from sunscreen_tpu_torch.math.pntt import MAX_N, PallasNttPlan
 from sunscreen_tpu_torch.math.rns import _col
 
 
+def resolve_mode(mode: str | None = None) -> str:
+    """The NTT mode to use: `mode`, else SUNSCREEN_TPU_NTT, else
+    "compact" under SUNSCREEN_TPU_COMPACT_NTT=1, else "pallas". The
+    reference reads the legacy setting once at import; this reads both
+    settings on every call."""
+    if mode:
+        return mode
+    env = os.environ.get("SUNSCREEN_TPU_NTT", "")
+    if env:
+        return env
+    if os.environ.get("SUNSCREEN_TPU_COMPACT_NTT", "") == "1":
+        return "compact"
+    return "pallas"
+
+
+def degrade(n: int, moduli: tuple[int, ...], mode: str) -> str:
+    """The reference's fallbacks for moduli or N outside a mode's
+    envelope (`ntt.py:324-334`), in its order."""
+    hi = max(q.bit_length() for q in moduli)
+    lo = min(q.bit_length() for q in moduli)
+    if mode == "pallas" and (hi > 30 or n < 256):
+        mode = "matmul"
+    if mode == "pallas_vpu" and (hi > 30 or n < 128):
+        mode = "matmul"
+    if mode == "pallas_vpu" and lo < 17:
+        mode = "unrolled"
+    if mode == "pallas" and lo < 17:
+        mode = "unrolled"
+    if mode == "matmul" and hi > 57:
+        mode = "compact"
+    return mode
+
+
 @lru_cache(maxsize=64)
-def _plan_cached(n: int, moduli: tuple[int, ...], device: torch.device):
-    return NttPlanU32(n, moduli, device)
-
-
-def get_plan(n: int, moduli: tuple[int, ...],
-             device=None) -> NttPlanU32:
-    """Shared plan cache; `device` None means CUDA."""
-    bits = [int(q).bit_length() for q in moduli]
-    if not (n & (n - 1) == 0 and 256 <= n <= 16384
-            and max(bits) <= 30 and min(bits) >= 17):
+def _plan_cached(n: int, moduli: tuple[int, ...], device: torch.device,
+                 mode: str):
+    if mode in ("pallas", "pallas_vpu") and n > MAX_N:
+        raise Unsupported(f"the u32 NTT kernels hold N <= {MAX_N}, got {n}")
+    if mode == "pallas":
+        return NttPlanU32(n, moduli, device)
+    if mode == "pallas_vpu":
+        return PallasNttPlan(n, moduli, device)
+    if mode == "unrolled":
+        return NttPlan(n, moduli, device)
+    if mode in ("matmul", "compact"):
         raise Unsupported(
-            f"only the u32 NTT plan is ported: needs 17-30-bit moduli and "
-            f"256 <= N <= 16384 (got N={n}, bits {min(bits)}-{max(bits)})")
-    return _plan_cached(n, tuple(int(q) for q in moduli),
-                        resolve_device(device))
+            f"NTT mode {mode!r} belongs to the u64 engine, which is not "
+            f"ported yet (ROADMAP A7); N={n}, moduli of "
+            f"{min(q.bit_length() for q in moduli)}-"
+            f"{max(q.bit_length() for q in moduli)} bits")
+    raise ValueError(f"unknown NTT mode {mode!r}")
+
+
+def get_plan(n: int, moduli: tuple[int, ...], device=None,
+             mode: str | None = None):
+    """Shared plan cache; `device` None means CUDA, `mode` None means
+    `resolve_mode()`, degraded outside its envelope as the reference
+    does."""
+    moduli = tuple(int(q) for q in moduli)
+    return _plan_cached(n, moduli, resolve_device(device),
+                        degrade(n, moduli, resolve_mode(mode)))
 
 
 def _shoup_mul(x, w, w_sh, q):
@@ -67,6 +121,7 @@ class NttPlan:
         self.log_n = n.bit_length() - 1
         self.moduli = tuple(int(q) for q in moduli)
         self.k = len(self.moduli)
+        self.mode = "unrolled"
         rev = _bitrev(n)
         fw, iw, fw_sh, iw_sh = [], [], [], []
         for q in self.moduli:

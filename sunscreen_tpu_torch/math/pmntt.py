@@ -51,6 +51,30 @@ def _powers(base: int, n: int, q: int) -> np.ndarray:
     return out
 
 
+def kernel_tables(n: int, moduli: tuple[int, ...]):
+    """The radix-2 tables of every u32 transform kernel (`csrc/common.cuh`)
+    for N = 2^logn and 17-30-bit moduli q = 1 mod 2N: psi_rev and
+    ipsi_rev [k, N] int64 (psi^brev(i), psi the minimal primitive 2N-th
+    root of unity mod q), tw [k, 4, N] int32 (the u32 bits of psi_rev,
+    its Shoup ratios, ipsi_rev and its Shoup ratios) and consts [k, 4]
+    int64 (q, floor(2^64 / q), N^-1 mod q and its Shoup ratio)."""
+    rev = _bitrev(n)
+    psi_rev, ipsi_rev, consts = [], [], []
+    for q in moduli:
+        assert q % (2 * n) == 1, f"q={q} not NTT-friendly for N={n}"
+        psi = primes.min_root_of_unity(2 * n, q)
+        psi_rev.append(_powers(psi, n, q)[rev])
+        ipsi_rev.append(_powers(pow(psi, -1, q), n, q)[rev])
+        ninv = pow(n, -1, q)
+        consts.append((q, (1 << 64) // q, ninv, m.shoup_ratio32(ninv, q)))
+    psi_rev, ipsi_rev = np.stack(psi_rev), np.stack(ipsi_rev)
+    qs = np.array(moduli, dtype=np.int64)[:, None]
+    tw = np.stack([psi_rev, (psi_rev << 32) // qs,
+                   ipsi_rev, (ipsi_rev << 32) // qs], axis=1)
+    return (psi_rev, ipsi_rev, tw.astype(np.uint32).view(np.int32),
+            np.array(consts, dtype=np.int64))
+
+
 class NttPlanU32:
     """u32-engine negacyclic NTT plan for 17-30-bit NTT-friendly moduli
     and 256 <= N <= 16384, with the reference plan's call surface.
@@ -64,6 +88,7 @@ class NttPlanU32:
         self.logn = n.bit_length() - 1
         self.moduli = tuple(int(q) for q in moduli)
         self.k = len(self.moduli)
+        self.mode = "pallas"
         n1 = n // LANES
         rev = _bitrev(n)
         # flat position p -> natural index J -> bit-reversed slot
@@ -72,35 +97,22 @@ class NttPlanU32:
         fwd_gather = rev[nat]                      # out[p] = a[rev[J(p)]]
         inv_gather = np.empty(n, dtype=np.int64)
         inv_gather[fwd_gather] = p                 # a[rev[J(p)]] = y[p]
-        psi_rev, ipsi_rev, consts = [], [], []
-        for q in self.moduli:
-            assert q % (2 * n) == 1, f"q={q} not NTT-friendly for N={n}"
-            psi = primes.min_root_of_unity(2 * n, q)
-            psi_rev.append(_powers(psi, n, q)[rev])
-            ipsi_rev.append(_powers(pow(psi, -1, q), n, q)[rev])
-            ninv = pow(n, -1, q)
-            consts.append((q, (1 << 64) // q, ninv,
-                           m.shoup_ratio32(ninv, q)))
-        psi_rev, ipsi_rev = np.stack(psi_rev), np.stack(ipsi_rev)
-        qs = np.array(self.moduli, dtype=np.int64)[:, None]
+        psi_rev, ipsi_rev, tw, consts = kernel_tables(n, self.moduli)
 
         def dev(a):
             return torch.as_tensor(a, dtype=torch.int64, device=device)
 
         # plain-twin tables
-        self.q = dev(qs)                           # [k, 1]
+        self.q = dev(np.array(self.moduli, dtype=np.int64)[:, None])  # [k, 1]
         self.device = self.q.device                # "cuda" -> "cuda:0"
         self.psi_rev = dev(psi_rev)                # [k, N]
         self.ipsi_rev = dev(ipsi_rev)
-        self.ninv = dev(np.array([c[2] for c in consts])[:, None])
+        self.ninv = dev(consts[:, 2:3])
         self.fwd_gather = dev(fwd_gather)
         self.inv_gather = dev(inv_gather)
         # kernel tables: [k, 4, N] u32 (bits in int32) and [k, 4] int64
-        tw = np.stack([psi_rev, (psi_rev << 32) // qs,
-                       ipsi_rev, (ipsi_rev << 32) // qs], axis=1)
-        self.tw = torch.as_tensor(tw.astype(np.uint32).view(np.int32),
-                                  device=self.device)
-        self.consts = dev(np.array(consts, dtype=np.int64))
+        self.tw = torch.as_tensor(tw, device=self.device)
+        self.consts = dev(consts)
 
     # -- plain PyTorch twins (any device) -----------------------------------
 
@@ -149,6 +161,12 @@ class NttPlanU32:
         (a0 b0, a0 b1 + a1 b0, a1 b1) mod q."""
         both = self.fwd_plain(ext)
         return m.tensor3_mod(both[..., :2, :, :], both[..., 2:, :, :], self.q)
+
+    def fwd_tensor3_full_plain(self, ext):
+        """[..., 4, k, N] (a0, a1, b0, b1) -> [..., 3, k, N]
+        coefficient-domain tensor: B13's twin, `fwd_tensor3_plain` then
+        `inv_plain`."""
+        return self.inv_plain(self.fwd_tensor3_plain(ext))
 
     def inv_tensor3_plain(self, a_hat, b_hat):
         """a_hat, b_hat [..., 2, k, N] (flat NTT domain, values < q) ->
@@ -237,13 +255,15 @@ class NttPlanU32:
             _build.LAUNCHES["inv"] += 1
         return out
 
-    def fwd_tensor3(self, ext):
+    def fwd_tensor3(self, ext, full: bool = False):
         """ext [..., 4, k, N] coefficient-domain (a0, a1, b0, b1) ->
-        [..., 3, k, N] NTT-domain BFV tensor (the reference's
-        `fwd_tensor3(full=False)`); the operands' NTT image never exists
-        in device memory."""
+        [..., 3, k, N] BFV tensor: NTT domain (B4), or with full=True the
+        coefficient domain, the three inverse transforms run in the same
+        kernel (B13). The operands' NTT image never exists in device
+        memory, nor, with full=True, the tensor's."""
         if self._cpu(ext):
-            return self.fwd_tensor3_plain(ext)
+            return (self.fwd_tensor3_full_plain(ext) if full
+                    else self.fwd_tensor3_plain(ext))
         if self.n > TENSOR3_MAX_N:
             raise ValueError(f"fwd_tensor3 kernel holds N <= "
                              f"{TENSOR3_MAX_N}, got {self.n}")
@@ -252,8 +272,9 @@ class NttPlanU32:
                           dtype=torch.int64, device=ext.device)
         if rows:
             _build.launch("tensor3", "fwd_tensor3", ext, out, self.tw,
-                          self.consts, rows, self.k, self.logn)
-            _build.LAUNCHES["fwd_tensor3"] += 1
+                          self.consts, rows, self.k, self.logn, int(full))
+            _build.LAUNCHES["fwd_tensor3_full" if full
+                            else "fwd_tensor3"] += 1
         return out
 
     def inv_ks(self, d_hat, k0, k1):

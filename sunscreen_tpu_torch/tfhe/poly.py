@@ -90,7 +90,8 @@ class TorusNttPlanU32:
         self.n = n
         self.base = rns.RnsBase(mods, device)
         self.device = self.base.device
-        self.plan = ntt.get_plan(n, mods, self.device)
+        # the reference pins PallasMatmulNttPlan whatever SUNSCREEN_TPU_NTT
+        self.plan = ntt.get_plan(n, mods, self.device, "pallas")
         self.theta = rns._col(self.base.punctured, self.device)
         self.c_mod = s64(self.base.product)
         self.g60 = rns._col([((1 << 60) + q - 1) // q for q in mods],

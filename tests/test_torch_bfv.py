@@ -176,7 +176,7 @@ def test_routes_by_size_and_device(monkeypatch):
 
 @pytest.mark.parametrize("name, value, call, kernel", [
     ("SUNSCREEN_TPU_FUSE_TFULL", "1",
-     lambda: ops.multiply_route(8192, 2, 2, "cuda"), "B13"),
+     lambda: ops.multiply_route(8192, 2, 2, "cuda", "pallas_vpu"), "B13"),
     ("SUNSCREEN_TPU_FUSED_RNS", "0",
      lambda: ops.multiply_route(8192, 2, 2, "cuda"), "FUSED_RNS=0"),
     ("SUNSCREEN_TPU_FUSED_RNS", "0",
@@ -185,8 +185,9 @@ def test_routes_by_size_and_device(monkeypatch):
      lambda: ops.scale_convert_route("cuda"), "FUSED_RNS=0"),
 ])
 def test_unported_settings_raise(monkeypatch, name, value, call, kernel):
-    """A setting that asks for a kernel the port does not have, or for
-    the plain glue on the card, raises instead of being ignored."""
+    """A setting that asks for a kernel the port does not have (B4/B13
+    under the "pallas_vpu" NTT mode, whose reference plan lacks them), or
+    for the plain glue on the card, raises instead of being ignored."""
     monkeypatch.setenv(name, value)
     with pytest.raises(NotImplementedError, match=kernel):
         call()
