@@ -4,14 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc`, holds
-each of the eighteen kernel entry points bit for bit against its plain
+each of the twenty-one kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
 `BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
 `ks_full_limbs`; the "pallas_vpu" plan's multiply and encryption shapes
-for B16 and B17) and again at the `default_u32(16384)` shapes (batch 2;
-B16 also at N=128 and on the encoder's (t,) plan, B17 with broadcast
-operands), then drives eleven paths, each with the launch counts set to
-0 just before it and read just after:
+for B16 and B17; [512, 8192] u64 words under a 54-bit limb of
+`BfvParams.default(8192)` for B18 and B19) and again at the
+`default_u32(16384)` shapes (batch 2; B16 also at N=128 and on the
+encoder's (t,) plan, B17 with broadcast operands; B18 and B19 under the
+moduli of tests/test_pallas_mod.py and a 61-bit prime, edge values and
+broadcast tables included, also against a big-int oracle), then drives
+fourteen paths, each with the launch counts set to 0 just before it and
+read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
    batch 64, under the default fusion settings;
@@ -36,13 +40,30 @@ operands), then drives eleven paths, each with the launch counts set to
 10. path 1's `multiply_relin` under `SUNSCREEN_TPU_FUSE_TFULL=1` (B13);
 11. the BFV user flow at batch 8 under the default settings: encode,
     encrypt, the plain ops, `exponentiate`, `multiply_many`,
-    `rotate_rows`, `mod_switch_to_next`, decode.
+    `rotate_rows`, `mod_switch_to_next`, decode;
+12. B18 and B19 through `pallas_mod.shoup_mul_mod`, `pallas_mod.mul_mod`
+    and `pallas_kernels.make_pointwise_mul_mod` on [512, 8192] under
+    `default(8192)`'s four moduli, full and broadcast tables, against
+    the twins and a big-int oracle, with their rates;
+13. the u64 engine: `multiply_relin` at `BfvParams.default(8192)`, batch
+    64, default settings (mode "pallas", degraded to "matmul" as the
+    reference degrades it), plain PyTorch on the card with no kernel
+    launch, and `rotate_rows`;
+14. golden_v1.npz's `bfv_*` vectors decrypted on the card under
+    `SUNSCREEN_TPU_NTT=unrolled` and `=compact`, then path 13's
+    `multiply_relin` under "unrolled".
 
 Paths 1-3 and 7 pass a decrypt gate and a card-vs-CPU bit-exact check
 on one ciphertext; paths 4-6 and 10 must give path 1's output and path
 8 path 7's, bit for bit; path 9 passes a slot-wise gate on every row and
-a card-vs-CPU multiply; path 11 a slot-wise gate on every output. Paths
-1-10 are then timed and profiled. Prints the card, each kernel's times
+a card-vs-CPU multiply; path 11 a slot-wise gate on every output; paths
+13 and 14 the decrypt gate, a card-vs-CPU check and the rotation or
+golden gates. Paths 1-10 and 12-14 are then timed and profiled; a
+profile window, bounded on the device clock by two marker spins, whose
+kernel events differ from the launch counts is taken again, and the run
+fails if three retries differ too. Kernel times are device times: each
+timed run is queued behind a spin that outlasts the host's launches.
+Prints the card, each kernel's times
 and launch counts as one JSON line, the rates, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no GPU is visible or any check fails.
@@ -85,19 +106,49 @@ PEAK_INT_MULS_PER_S = 16.75e12
 WORD = 8                     # residues are int64 in and out
 
 
+# The H100 SXM's top SM clock: a spin of c cycles (torch.cuda._sleep) lasts
+# at least c / SPIN_HZ seconds.
+SPIN_HZ = 1.98e9
+SPIN_DOUBLINGS = 4
+KERNEL_ITERS = 20            # calls per timed run in the kernel phase
+
+
 def _median_ms(fn, reps: int, iters: int) -> float:
+    """Device time of one call of fn in ms: the median over `reps` runs of
+    `iters` calls back to back, between two CUDA events. Each run is
+    queued behind a spin kernel sized to outlast the host's queueing of
+    the run, so the events time the device's work and not the launch
+    cost of the wrappers. A run whose spin ended before the host had
+    queued it all (the start event already passed) is taken again with
+    a spin twice as long, up to SPIN_DOUBLINGS times; after that the
+    remaining runs are kept as they are and the line says so."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2 * iters * host_s * SPIN_HZ) + 1
+    doublings = 0
     times = []
-    for _ in range(reps):
+    while len(times) < reps:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(iters):
             fn()
         end.record()
+        covered = not start.query()
         torch.cuda.synchronize()
+        if not covered and doublings < SPIN_DOUBLINGS:
+            cycles *= 2
+            doublings += 1
+            continue
+        if not covered:
+            print(f"timing: the host outran a {cycles / SPIN_HZ * 1e3:.1f} "
+                  f"ms spin; this run includes launch gaps", flush=True)
         times.append(start.elapsed_time(end) / iters)
     return sorted(times)[len(times) // 2]
 
@@ -146,6 +197,8 @@ def _held(name, kern, plain, args) -> int:
     got = kern(*args)
     torch.cuda.synchronize()
     want = plain(*args)
+    if isinstance(got, tuple):          # B19's (hi, lo) halves
+        got, want = torch.stack(got), torch.stack(want)
     err = int((got - want).abs().max().item())
     exact = torch.equal(got, want)
     print(f"check {name}: shape {tuple(got.shape)} bit-exact={exact} "
@@ -430,20 +483,172 @@ def extra_checks(ctx, gen, batch: int) -> None:
     ks_full_extremes(pk, gen, 2)
 
 
+SRC_U64 = "sunscreen_tpu_torch/csrc/u64mod.cu"
+U64_ROWS = 512               # B18/B19 operands [512, 8192]
+# tests/test_pallas_mod.py's moduli (2^31 - 1 also serves the library
+# comparison: its products fit int64)
+EDGE_MODULI = ((1 << 31) - 1, (1 << 50) - 27, (1 << 56) - 5,
+               0x3FFFFFFFFFFFFFE3)
+# 32-bit multiplies per element: a 64-bit low product 4, a high product 8
+SHOUP_MULS = 16              # lo(w x), hi(x w_sh), lo(hi q)
+BARRETT_MULS = 40            # the 128-bit product 8, Barrett-128 32
+ORACLE_SAMPLES = 4096
+
+
+def _shoup_table(w, q: int):
+    """floor(w 2^64 / q) for residues w < q, on w's device: r = w 2^64
+    mod q by the 128-bit Barrett reduction, then the exact quotient
+    (w 2^64 - r) / q as -r q^-1 mod 2^64 (q is odd)."""
+    import torch
+    from sunscreen_tpu_torch.math import modular as m
+    r_hi, r_lo = m.barrett_ratio(q)
+    r = m.barrett_reduce_128(w, torch.zeros_like(w), q, m.s64(r_hi),
+                             m.s64(r_lo))
+    return -r * m.s64(pow(q, -1, 1 << 64))
+
+
+def _u64_operands(gen, q: int, rows: int, n: int):
+    """x in [0, 2q) and a, w in [0, q), each [rows, n], with the edge
+    values x = 2q - 1, a = w = q - 1 and 0 in row 0."""
+    import torch
+    top = min(2 * q, 1 << 62)
+
+    def draw(high):
+        return torch.randint(0, 1 << 62, (rows, n), generator=gen,
+                             device=DEV, dtype=torch.int64) % high
+
+    x, a, w = draw(top), draw(q), draw(q)
+    x[0, :2] = torch.tensor([2 * q - 1, 0], device=DEV)
+    a[0, :2] = torch.tensor([q - 1, 0], device=DEV)
+    w[0, :3] = torch.tensor([q - 1, q - 1, 0], device=DEV)
+    return x, a, w
+
+
+def _oracle(label, got, x, w, q: int) -> None:
+    """got == x w mod q with python ints on ORACLE_SAMPLES elements
+    (the first two and a fixed random sample); exits otherwise."""
+    flat = got.numel()
+    idx = np.concatenate([[0, 1], np.random.default_rng(12).integers(
+        0, flat, ORACLE_SAMPLES - 2)])
+    xs, ws, gs = (np.asarray(v.reshape(-1).cpu().numpy()[idx])
+                  .view(np.uint64).astype(object)
+                  for v in (x.expand_as(got), w.expand_as(got), got))
+    if not np.array_equal(gs, xs * ws % q):
+        raise SystemExit(f"{label}: differs from the big-int oracle")
+
+
+def _b19(q: int):
+    """B19's entry point and its plain twin, each fn(a_hi, a_lo, b_hi,
+    b_lo) -> (hi, lo) on halves."""
+    from sunscreen_tpu_torch.math import pallas_kernels as pk
+    return (pk.make_pointwise_mul_mod(q, DEV),
+            lambda *h: pk.mul_mod_kernel(*h, q))
+
+
+def _halves(a, b) -> tuple:
+    """(a_hi, a_lo, b_hi, b_lo) of u64 words a, b: B19's inputs."""
+    from sunscreen_tpu_torch.math import pallas_kernels as pk
+    return (*pk.split_u64(a), *pk.split_u64(b))
+
+
+def u64_kernel_cases(params, gen) -> list[tuple]:
+    """B18 and B19 on [512, 8192] under the first 54-bit limb of
+    `default(8192)` with full tables: (name, kernel, plain twin, args,
+    source, replaces, bytes, 32-bit multiplies). No PyTorch call forms
+    the 128-bit product of 54-bit residues, so none has a library call
+    here (`u64_checks` times one at 31 bits)."""
+    from sunscreen_tpu_torch.math import pallas_mod as pm
+
+    q = params.coeff_modulus[0]
+    x, a, w = _u64_operands(gen, q, U64_ROWS, params.poly_degree)
+    w_sh = _shoup_table(w, q)
+    e = x.numel()
+    return [
+        ("shoup_mul_mod", lambda *v: pm.shoup_mul_mod(*v, q),
+         lambda *v: pm.shoup_mul_mod_plain(*v, q), (x, w, w_sh), SRC_U64,
+         "sunscreen_tpu/math/pallas_mod.py:209", 4 * e * WORD,
+         SHOUP_MULS * e),
+        ("mul_mod", lambda *v: pm.mul_mod(*v, q),
+         lambda *v: pm.mul_mod_plain(*v, q), (a, w), SRC_U64,
+         "sunscreen_tpu/math/pallas_mod.py:237", 3 * e * WORD,
+         BARRETT_MULS * e),
+        ("pointwise_mul_mod", *_b19(q), _halves(a, w), SRC_U64,
+         "sunscreen_tpu/math/pallas_kernels.py:152", 6 * e * WORD,
+         BARRETT_MULS * e)]
+
+
+def u64_checks(gen) -> dict[str, dict]:
+    """B18 and B19 on every modulus of EDGE_MODULI and the 61-bit NTT prime
+    of tests/test_pallas.py, [64, 8192] with the edge values, full and
+    broadcast [8192] tables, against the twins and the big-int oracle;
+    then each entry point's device time at 2^31 - 1 beside the same
+    function as a PyTorch expression on the same words (`x * w % q`,
+    `a * w % q`: exact there, products below 2^62). B19 takes halves,
+    which no PyTorch call does: its line shows `a * w % q` on the words,
+    which moves half its bytes."""
+    from sunscreen_tpu_torch.math import pallas_mod as pm
+    from sunscreen_tpu_torch.math import primes
+
+    for q in EDGE_MODULI + (primes.gen_ntt_primes(61, 1, 128)[0],):
+        x, a, w = _u64_operands(gen, q, 64, N)
+        for tag, wt in (("full", w), ("broadcast", w[1])):
+            ws = _shoup_table(wt, q)
+            label = f"@{q.bit_length()}b {tag}"
+            got = pm.shoup_mul_mod(x, wt, ws, q)
+            _held(f"shoup_mul_mod{label}", lambda *v: pm.shoup_mul_mod(*v, q),
+                  lambda *v: pm.shoup_mul_mod_plain(*v, q), (x, wt, ws))
+            _oracle(f"shoup_mul_mod{label}", got, x, wt, q)
+            got = pm.mul_mod(a, wt, q)
+            _held(f"mul_mod{label}", lambda *v: pm.mul_mod(*v, q),
+                  lambda *v: pm.mul_mod_plain(*v, q), (a, wt))
+            _oracle(f"mul_mod{label}", got, a, wt, q)
+        halves = _halves(a, w)
+        _held(f"pointwise_mul_mod@{q.bit_length()}b", *_b19(q), halves)
+        hi, lo = _b19(q)[0](*halves)
+        _oracle(f"pointwise_mul_mod@{q.bit_length()}b", hi * (1 << 32) + lo,
+                a, w, q)
+    q = EDGE_MODULI[0]
+    x, a, w = _u64_operands(gen, q, U64_ROWS, N)
+    w_sh = _shoup_table(w, q)
+    fn, halves = _b19(q)[0], _halves(a, w)
+    # (kernel call, the same function as one PyTorch expression on words,
+    # or None where the kernel's operands are halves)
+    at31 = {"shoup_mul_mod": (lambda: pm.shoup_mul_mod(x, w, w_sh, q),
+                              lambda: x * w % q),
+            "mul_mod": (lambda: pm.mul_mod(a, w, q), lambda: a * w % q),
+            "pointwise_mul_mod": (lambda: fn(*halves), None)}
+    out = {}
+    for name, (kern, lib) in at31.items():
+        ms = _median_ms(kern, reps=5, iters=KERNEL_ITERS)
+        lib_ms = (_median_ms(lib, reps=5, iters=KERNEL_ITERS)
+                  if lib else None)
+        print(f"time {name} at q = 2^31 - 1 [{U64_ROWS}, {N}]: kernel "
+              f"{ms:.4f} ms, "
+              + (f"library {lib_ms:.4f} ms" if lib else
+                 f"no library call on halves (a * b % q on words, half "
+                 f"the bytes: {out['mul_mod']['library_ms']:.4f} ms)"),
+              flush=True)
+        out[name] = {"ms": ms, "library_ms": lib_ms}
+    return out
+
+
 def check_kernels(ctx, gen) -> list[dict]:
     """Each kernel entry point against its plain twin at the main-path
     shapes, bit for bit, with both times, the bound and, where one
     PyTorch expression computes the same function, its time."""
     rows = []
+    from sunscreen_tpu_torch.bfv import BfvParams
+
     for (name, kern, plain, args, src, repl, nbytes, muls,
          *library) in (kernel_cases(ctx, gen, BATCH)
                        + [pbs_kernel_case(gen, BATCH)]
-                       + vpu_kernel_cases(ctx.params, gen, BATCH)):
+                       + vpu_kernel_cases(ctx.params, gen, BATCH)
+                       + u64_kernel_cases(BfvParams.default(N), gen)):
         err = _held(name, kern, plain, args)
-        ms = _median_ms(lambda: kern(*args), reps=5, iters=10)
+        ms = _median_ms(lambda: kern(*args), reps=5, iters=KERNEL_ITERS)
         plain_ms = _median_ms(lambda: plain(*args), reps=3, iters=2)
-        library_ms = (_median_ms(lambda: library[0](*args), reps=5, iters=10)
-                      if library else None)
+        library_ms = (_median_ms(lambda: library[0](*args), reps=5,
+                                 iters=KERNEL_ITERS) if library else None)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = muls / PEAK_INT_MULS_PER_S * 1e3
         rows.append({
@@ -461,6 +666,10 @@ def check_kernels(ctx, gen) -> list[dict]:
     extra_checks(ctx, gen, BATCH)
     ks_full_extremes(_pbs_plan(), gen, 2)
     vpu_extra_checks(ctx.params, gen, BATCH)
+    at31 = u64_checks(gen)
+    for row in rows:
+        if row["name"] in at31:
+            row["at_q_2_31_minus_1"] = at31[row["name"]]
     return rows
 
 
@@ -479,45 +688,158 @@ def check_wide(gen) -> None:
     extra_checks(ctx, gen, WIDE_BATCH)
 
 
-PORT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel", "fwd_tensor3_kernel",
-                "inv_ks_kernel", "rns_convert_kernel", "scale_convert_kernel",
-                "mod_down_kernel", "rns_scale_kernel", "tensor3_kernel",
-                "ks_inner_kernel", "inv_tensor3_kernel", "ks_full_kernel",
-                "pntt_fwd_kernel", "pntt_inv_kernel", "pntt_pmul_kernel")
+# Each CUDA kernel function of the port and the `_build.LAUNCHES` keys whose
+# wrappers launch it, once per count.
+KERNEL_KEYS = {
+    "ntt_fwd_kernel": ("fwd", "fwd_broadcast"), "ntt_inv_kernel": ("inv",),
+    "fwd_tensor3_kernel": ("fwd_tensor3", "fwd_tensor3_full"),
+    "inv_ks_kernel": ("inv_ks",), "rns_convert_kernel": ("convert",),
+    "scale_convert_kernel": ("scale_convert",),
+    "mod_down_kernel": ("mod_down",), "rns_scale_kernel": ("scale",),
+    "tensor3_kernel": ("tensor3",), "ks_inner_kernel": ("ks_inner",),
+    "inv_tensor3_kernel": ("inv_tensor3",),
+    "ks_full_kernel": ("ks_full", "ks_full_limbs"),
+    "pntt_fwd_kernel": ("pntt_fwd",), "pntt_inv_kernel": ("pntt_inv",),
+    "pntt_pmul_kernel": ("pntt_pmul",),
+    "u64_shoup_kernel": ("shoup_mul_mod",),
+    "u64_mul_mod_kernel": ("mul_mod",),
+    "pointwise_mul_mod_kernel": ("pointwise_mul_mod",)}
+PROFILE_RETRIES = 3
+MARK_CYCLES = 200_000        # a 0.1 ms spin marks each end of a profile window
+WARMUP_SPINS, WARMUP_STEPS = 4, 2   # traced ahead of the window, not counted
+# Host wait after a trace starts: the events of a fresh trace's first
+# milliseconds can be lost (up to the first 16 spins, 1.6 ms, in one run).
+TRACE_SETTLE_S = 0.3
+
+
+def _kernel_fn(event_name: str) -> str:
+    """The function name of a device event ("void f<...>(...)" -> "f")."""
+    name = event_name.strip()
+    if name.startswith("void "):
+        name = name[5:]
+    end = len(name)
+    for c in "<( ":
+        i = name.find(c)
+        if i != -1:
+            end = min(end, i)
+    return name[:end]
+
+
+@functools.cache
+def _spin_name() -> str:
+    """The device event name of a `torch.cuda._sleep` spin, read from a
+    trace of spins alone (taken again, up to PROFILE_RETRIES times, if
+    it records none)."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_RETRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_SETTLE_S)
+            for _ in range(WARMUP_SPINS):
+                torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+        names = collections.Counter(ev.name for ev in prof.events()
+                                    if ev.device_type == DeviceType.CUDA)
+        if names:
+            return names.most_common(1)[0][0]
+    raise SystemExit("profile: no trace of spins held a device event")
+
+
+def _window(events, mark: str):
+    """The device events strictly between the last two spins named
+    `mark`, by the device clock, and those spins (those of the warm-up
+    come earlier)."""
+    marks = sorted((ev for ev in events if ev.name == mark),
+                   key=lambda ev: ev.time_range.start)[-2:]
+    if len(marks) != 2:
+        return [], marks
+    lo, hi = marks[0].time_range.end, marks[1].time_range.start
+    return [ev for ev in events if ev is not marks[0] and ev is not marks[1]
+            and lo <= ev.time_range.start and ev.time_range.end <= hi], marks
 
 
 def profile_breakdown(label, step, batches: int = 3) -> dict:
     """Device time per kernel name over a few batches of `step`
     (torch.profiler), the device's busy share of the wall time and the
-    device operations (kernels, copies, fills) per batch."""
+    device operations (kernels, copies, fills) per batch. The window is
+    bounded on the device clock by two spin kernels queued with the
+    stream idle on each side, after a host wait and a traced warm-up (a
+    fresh trace can lose the events of its first milliseconds), so no
+    event of the warm-up or of the trace's end is counted in it. The
+    window must hold one event per launch that `_build.LAUNCHES` counted
+    in it, for every port kernel: a window that differs is profiled
+    again, up to PROFILE_RETRIES times, and then the run fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from sunscreen_tpu_torch import _build
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(batches):
-            step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    per_name: dict[str, float] = {}
-    count = 0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            count += 1
+    mark = _spin_name()
+    for attempt in range(PROFILE_RETRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_SETTLE_S)
+            for _ in range(WARMUP_SPINS):
+                torch.cuda._sleep(MARK_CYCLES)
+            for _ in range(WARMUP_STEPS):
+                step()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            for _ in range(batches):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+            time.sleep(0.2)      # the trace's end stays clear of the window
+        launched = {fn: sum(_build.LAUNCHES[k] - before[k] for k in keys)
+                    for fn, keys in KERNEL_KEYS.items()}
+        device = [ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA]
+        window, marks = _window(device, mark)
+        per_name: dict[str, float] = {}
+        events = dict.fromkeys(KERNEL_KEYS, 0)
+        for ev in window:
             per_name[ev.name] = (per_name.get(ev.name, 0.0)
                                  + ev.time_range.elapsed_us())
+            fn = _kernel_fn(ev.name)
+            if fn in events:
+                events[fn] += 1
+        count = len(window)
+        lost = {fn: (events[fn], n) for fn, n in launched.items()
+                if events[fn] != n}
+        if len(marks) == 2 and not lost:
+            break
+        spins = sum(ev.name == mark for ev in device)
+        print(f"profile {label}: window {attempt + 1} discarded: "
+              f"{spins} of {WARMUP_SPINS + 2} spins found, kernel events "
+              f"against launches {json.dumps(lost)} (events, launches), "
+              f"device busy "
+              f"{sum(per_name.values()) / batches / 1e3:.3f} ms per "
+              f"batch", flush=True)
+    else:
+        raise SystemExit(f"profile {label}: no window of "
+                         f"{PROFILE_RETRIES + 1} held one kernel event per "
+                         f"launch")
     busy = sum(per_name.values())
     if busy == 0:
         raise SystemExit(f"profile {label}: no device time recorded")
-    ours = sum(v for k, v in per_name.items()
-               if any(p in k for p in PORT_KERNELS))
+    ours = sum(v for k, v in per_name.items() if _kernel_fn(k) in events)
     print(f"profile {label}: per batch {wall_us / batches / 1e3:.3f} ms "
           f"wall, device busy {busy / batches / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f}% of wall), port kernels "
           f"{ours / batches / 1e3:.3f} ms ({100 * ours / busy:.1f}% of "
-          f"device time), {count / batches:.0f} device ops", flush=True)
+          f"device time), {count / batches:.0f} device ops; kernel events "
+          f"{sum(events.values())} == launches {sum(launched.values())} "
+          f"over {batches} batches (window {attempt + 1})", flush=True)
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"profile {label}:   {us / batches / 1e3:8.3f} ms  "
               f"{100 * us / busy:5.1f}%  {name[:110]}", flush=True)
@@ -614,14 +936,13 @@ def multiply_path(label, ctx, seed: int, smi: str, needed, absent):
 
     # the same multiply_relin through the kernels and on the CPU
     one = ops.multiply_relin(ctx, cts[0], cts[0], rlk).cpu()
-    ctx_cpu = get_context(ctx.params, "cpu")
+    ctx_cpu = get_context(ctx.params, "cpu", ctx.requested_mode)
     rlk_cpu = keys.KswKey(rlk.k0.cpu(), rlk.k1.cpu())
     ct_cpu = cts[0].cpu()
     want = ops.multiply_relin(ctx_cpu, ct_cpu, ct_cpu, rlk_cpu)
     if not torch.equal(one, want):
         raise SystemExit(f"{label} on the card differs from the CPU")
-    print(f"{label}: card kernels == CPU plain path, bit for bit",
-          flush=True)
+    print(f"{label}: card == CPU plain path, bit for bit", flush=True)
 
     state = {"out": ops.multiply_relin(ctx, cts, cts, rlk)}
 
@@ -962,6 +1283,192 @@ def flow_path(ctx, smi: str, batch: int = 8):
     return launches, launches
 
 
+U64_KERNELS = ("shoup_mul_mod", "mul_mod", "pointwise_mul_mod")
+
+
+def u64_mulmod_path(params, smi: str):
+    """Path 12: B18 (both entry points) and B19 through
+    `pallas_mod.shoup_mul_mod`, `pallas_mod.mul_mod` and
+    `pallas_kernels.make_pointwise_mul_mod`, the counterparts of the
+    reference's only callers (its tests), on [512, 8192] under each of
+    `default(8192)`'s 54-bit limbs and its 56-bit special prime, with full
+    and broadcast [8192] tables. Each result equals its plain twin and the
+    big-int oracle; then each entry point's rate at the first limb and the
+    profile of one call of each."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.math import pallas_mod as pm
+
+    n = params.poly_degree
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    _build.reset_launches()
+    timed = None
+    for q in params.coeff_modulus + (params.special_modulus,):
+        x, a, w = _u64_operands(gen, q, U64_ROWS, n)
+        fn, twin = _b19(q)
+        for tag, wt in (("full", w), ("broadcast", w[1])):
+            ws = _shoup_table(wt, q)
+            outs = (pm.shoup_mul_mod(x, wt, ws, q), pm.mul_mod(a, wt, q))
+            torch.cuda.synchronize()
+            for name, got, want, lhs in (
+                    ("shoup_mul_mod", outs[0],
+                     pm.shoup_mul_mod_plain(x, wt, ws, q), x),
+                    ("mul_mod", outs[1], pm.mul_mod_plain(a, wt, q), a)):
+                label = f"u64_mulmod {name}@{q.bit_length()}b {tag}"
+                if not torch.equal(got, want):
+                    raise SystemExit(f"{label}: differs from its plain twin")
+                _oracle(label, got, lhs, wt, q)
+        halves = _halves(a, w)
+        hi, lo = fn(*halves)
+        if not torch.equal(torch.stack((hi, lo)), torch.stack(twin(*halves))):
+            raise SystemExit(f"u64_mulmod pointwise_mul_mod@"
+                             f"{q.bit_length()}b: differs from its twin")
+        _oracle(f"u64_mulmod pointwise_mul_mod@{q.bit_length()}b",
+                hi * (1 << 32) + lo, a, w, q)
+        if timed is None:
+            timed = (q, x, a, w, _shoup_table(w, q), fn, halves)
+    print(f"u64_mulmod gate: shoup_mul_mod and mul_mod (full and broadcast "
+          f"tables) and pointwise_mul_mod on [{U64_ROWS}, {n}] under "
+          f"{len(params.coeff_modulus) + 1} moduli of 54-56 bits equal "
+          f"their twins and the big-int oracle on {ORACLE_SAMPLES} "
+          f"elements each", flush=True)
+    q, x, a, w, w_sh, fn, halves = timed
+    steps = {"shoup_mul_mod": lambda: pm.shoup_mul_mod(x, w, w_sh, q),
+             "mul_mod": lambda: pm.mul_mod(a, w, q),
+             "pointwise_mul_mod": lambda: fn(*halves)}
+    for name, step in steps.items():
+        ms = _median_ms(step, reps=REPS, iters=ITERS)
+        print(f"u64_mulmod {name}: {x.numel() / ms * 1e3:.4g} elements/s, "
+              f"{ms:.4f} ms of device time per [{U64_ROWS}, {n}] call at "
+              f"{q.bit_length()} bits on {smi}", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    _path_counts("u64_mulmod", launches, U64_KERNELS,
+                 [k for k in launches if k not in U64_KERNELS])
+    profile_breakdown("u64_mulmod",
+                      lambda: [step() for step in steps.values()])
+    return launches, {k: int(k in U64_KERNELS) for k in launches}
+
+
+def _assert_modes(ctx, mode: str, limbs: tuple[int, int, int]) -> None:
+    got = [(p.mode, p.k) for p in (ctx.plan_q, ctx.plan_mul, ctx.plan_key)]
+    if got != [(mode, k) for k in limbs]:
+        raise SystemExit(f"u64 context plans {got}, expected mode {mode} "
+                         f"with {limbs} limbs")
+
+
+def u64_rotation_gate(label, ctx, inputs) -> None:
+    """rotate_rows(ct, 1) of the path's ciphertexts decrypts to the numpy
+    automorphism."""
+    from sunscreen_tpu_torch.bfv import keys, ops
+
+    g = ctx.rotate_rows_element(1)
+    gks = keys.gen_galois_keys(ctx, inputs["sk"], inputs["gen"], (g,))
+    dec = ops.decrypt(ctx, inputs["sk"], ops.rotate_rows(
+        ctx, inputs["cts"], 1, gks)).cpu().numpy()
+    if not np.array_equal(dec, _automorphism(inputs["pts_np"], g, ctx.t)):
+        raise SystemExit(f"{label}: rotation decrypt gate FAILED")
+    print(f"{label}: {BATCH} rotate_rows(1) results decrypt to the numpy "
+          f"automorphism", flush=True)
+
+
+def u64_multiply_path(params, smi: str):
+    """Path 13: `default(8192)` (three 54-bit limbs, a 56-bit special
+    prime) at batch 64 under the default settings on CUDA, "pallas"
+    degraded to "matmul" as in the reference: plain PyTorch on the card,
+    as the reference's u64 engine is plain XLA, so no kernel launches.
+    Keygen, encryption, the decrypt gate and a card-vs-CPU check of
+    `multiply_relin` (`multiply_path`), then `rotate_rows` behind the
+    automorphism gate."""
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.bfv import get_context
+
+    ctx = get_context(params, DEV)
+    _assert_modes(ctx, "matmul", (3, 7, 4))
+    plans = (ctx.plan_q, ctx.plan_mul, ctx.plan_key)
+    print(f"u64 params: N={ctx.n} t={ctx.t} limbs "
+          f"{[q.bit_length() for q in params.coeff_modulus]} bits, special "
+          f"{params.special_modulus.bit_length()} bits; plans (mode, limbs) "
+          f"{[(p.mode, p.k) for p in plans]}", flush=True)
+    inputs, _, launches, per_op = multiply_path(
+        "multiply_relin_u64", ctx, 13, smi, (), tuple(_build.LAUNCHES))
+    u64_rotation_gate("multiply_relin_u64", ctx, inputs)
+    if any(_build.LAUNCHES.values()):
+        raise SystemExit(f"u64 path launched kernels: {_build.LAUNCHES}")
+    return launches, per_op
+
+
+def golden_u64_path(params, smi: str):
+    """Path 14: under SUNSCREEN_TPU_NTT=unrolled and again =compact,
+    `insecure(1024, limbs=2)` on the card decrypts golden_v1.npz's
+    bfv_mul_relin to bfv_dec_mul and bfv_rot1 and bfv_swap to the
+    automorphisms of the decrypted bfv_ct, with bfv_noise_budget; then
+    `default(8192)` multiply_relin at batch 64 under "unrolled" (gates,
+    rate, profile), and "compact" and "unrolled" forward transforms equal
+    on [64, 4, 8192]."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.bfv import BfvParams, get_context, keys, ops
+    from sunscreen_tpu_torch.math import ntt
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(here, "tests", "golden_v1.npz"))
+
+    def dev(name):
+        return torch.from_numpy(golden[name].view(np.int64)).to(DEV)
+
+    _build.reset_launches()
+    small = BfvParams.insecure(1024, limbs=2)
+    if [small.poly_degree, small.plain_modulus, *small.coeff_modulus,
+            small.special_modulus] != golden["bfv_params"].tolist():
+        raise SystemExit("golden_u64: parameters differ from bfv_params")
+    for mode in ("unrolled", "compact"):
+        with _gates({"SUNSCREEN_TPU_NTT": mode}):
+            ctx = get_context(small, DEV)
+            if ctx.mode != mode:
+                raise SystemExit(f"golden_u64 got NTT mode {ctx.mode}")
+            sk, _, _ = keys.from_reference(ctx, s=golden["bfv_sk"])
+            dec = ops.decrypt(ctx, sk, dev("bfv_mul_relin")).cpu().numpy()
+            pts = ops.decrypt(ctx, sk, dev("bfv_ct")).cpu().numpy()
+            checks = [
+                ("bfv_dec_mul", dec, golden["bfv_dec_mul"].astype(np.int64)),
+                ("bfv_rot1",
+                 ops.decrypt(ctx, sk, dev("bfv_rot1")).cpu().numpy(),
+                 _automorphism(pts, ctx.rotate_rows_element(1), ctx.t)),
+                ("bfv_swap",
+                 ops.decrypt(ctx, sk, dev("bfv_swap")).cpu().numpy(),
+                 _automorphism(pts, ctx.rotate_columns_element, ctx.t))]
+            for name, got, want in checks:
+                if not np.array_equal(got, want):
+                    raise SystemExit(f"golden_u64 ({mode}): {name} FAILED")
+            budget = ops.invariant_noise_budget(ctx, sk,
+                                                dev("bfv_mul_relin"))
+            if budget != float(golden["bfv_noise_budget"][0]):
+                raise SystemExit(f"golden_u64 ({mode}): noise budget "
+                                 f"{budget} != {golden['bfv_noise_budget']}")
+        print(f"golden_u64 ({mode}): bfv_mul_relin decrypts to bfv_dec_mul, "
+              f"bfv_rot1 and bfv_swap to the automorphisms of bfv_ct, noise "
+              f"budget {budget} bits == bfv_noise_budget", flush=True)
+    key_mods = params.coeff_modulus + (params.special_modulus,)
+    x = _uniform(torch.Generator(device=DEV).manual_seed(14),
+                 (BATCH, len(key_mods), params.poly_degree),
+                 ntt.get_plan(params.poly_degree, key_mods, DEV,
+                              "unrolled").q)
+    fwd = {mode: ntt.get_plan(params.poly_degree, key_mods, DEV,
+                              mode).fwd(x) for mode in ("unrolled", "compact")}
+    if not torch.equal(fwd["unrolled"], fwd["compact"]):
+        raise SystemExit("golden_u64: compact and unrolled fwd differ")
+    print(f"golden_u64: compact fwd == unrolled fwd on {tuple(x.shape)}",
+          flush=True)
+    with _gates({"SUNSCREEN_TPU_NTT": "unrolled"}):
+        ctx = get_context(params, DEV)
+        _assert_modes(ctx, "unrolled", (3, 7, 4))
+        _, _, launches, per_op = multiply_path(
+            "multiply_relin_u64_unrolled", ctx, 14, smi, (),
+            tuple(_build.LAUNCHES))
+    return launches, per_op
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1095,6 +1602,12 @@ def main() -> int:
 
     # --- path 11: the BFV user flow, default settings, batch 8 ----------
     paths["flow"] = flow_path(ctx, smi)
+
+    # --- paths 12-14: the u64 engine (B18, B19, BfvParams.default) -------
+    u64 = BfvParams.default(N)
+    paths["u64_mulmod"] = u64_mulmod_path(u64, smi)
+    paths["multiply_relin_u64"] = u64_multiply_path(u64, smi)
+    paths["golden_u64"] = golden_u64_path(u64, smi)
 
     for row in table:
         name = row["name"]

@@ -1,9 +1,10 @@
 """sunscreen_tpu_torch — the PyTorch / CUDA port of `sunscreen_tpu`.
 
 Same data layouts and the same bits as the JAX package, on an NVIDIA
-Hopper card. Residues are `torch.int64` tensors holding values below
-2^32; the NTT kernels are hand-written CUDA C++ under `csrc/`, and each
-has a plain PyTorch twin that runs when the tensor lies on the CPU.
+Hopper card. Residues are `torch.int64` tensors: values below 2^32 on the
+u32 engine, u64 bit patterns on the u64 engine; the kernels are
+hand-written CUDA C++ under `csrc/`, and each has a plain PyTorch twin
+that runs when the tensor lies on the CPU.
 
 Every entry point takes an explicit `device`. It runs on CUDA unless the
 caller passes `device="cpu"`, and raises when no card is present rather

@@ -13,7 +13,7 @@ Keys name the entry points: "fwd", "fwd_broadcast", "inv" (B1-B3),
 "mod_down" (B8), "scale" (B9), "tensor3" (B10), "ks_inner" (B11),
 "inv_tensor3" (B12), "fwd_tensor3_full" (B13), "ks_full" (B14),
 "ks_full_limbs" (B15), "pntt_fwd" and "pntt_inv" (B16), "pntt_pmul"
-(B17).
+(B17), "shoup_mul_mod" and "mul_mod" (B18), "pointwise_mul_mod" (B19).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ BUILD_ROOT = os.path.join(_HERE, "_kbuild")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
-# C entry points per source: "p" = pointer or stream, "i" = int.
+# C entry points per source: "p" = pointer or stream, "i" = int,
+# "l" = int64, "u" = uint64.
 # Every entry returns its cudaGetLastError() as an int.
 SIGNATURES = {
     "ntt": {"ntt_fwd": "ppppiiiip", "ntt_inv": "ppppiiip"},
@@ -44,13 +45,17 @@ SIGNATURES = {
     "ks_full": {"ks_full": "ppppppiiiiip"},
     "pntt": {"pntt_fwd": "pppppiiip", "pntt_inv": "pppppiiip",
              "pntt_pmul": "pppp" + "i" * 15 + "p"},
+    "u64mod": {"u64_shoup_mul_mod": "ppppppiiup",
+               "u64_mul_mod": "pppppiiuuup",
+               "pointwise_mul_mod": "ppppppluuup"},
 }
 
 LAUNCHES = dict.fromkeys(
     ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks",
      "convert", "scale_convert", "mod_down",
      "scale", "tensor3", "ks_inner", "inv_tensor3", "fwd_tensor3_full",
-     "ks_full", "ks_full_limbs", "pntt_fwd", "pntt_inv", "pntt_pmul"), 0)
+     "ks_full", "ks_full_limbs", "pntt_fwd", "pntt_inv", "pntt_pmul",
+     "shoup_mul_mod", "mul_mod", "pointwise_mul_mod"), 0)
 
 
 def reset_launches() -> None:
@@ -59,6 +64,8 @@ def reset_launches() -> None:
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64,
+           "u": ctypes.c_uint64}
 
 
 def _nvcc() -> str:
@@ -115,8 +122,7 @@ def lib(name: str) -> ctypes.CDLL:
         so = ctypes.CDLL(build_all()[name])
         for fn, sig in SIGNATURES[name].items():
             f = getattr(so, fn)
-            f.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                          for c in sig]
+            f.argtypes = [_CTYPES[c] for c in sig]
             f.restype = ctypes.c_int
         _LIBS[name] = so
     return _LIBS[name]

@@ -2,12 +2,18 @@
 tables of one parameter set on one device under one NTT mode (port of
 `sunscreen_tpu/bfv/context.py`).
 
-The NTT mode is "pallas" (`pmntt.NttPlanU32`) or "pallas_vpu"
-(`pntt.PallasNttPlan`), resolved by `ntt.resolve_mode` when the context
-is requested. The port caches contexts by (params, device, mode), so a
-mode set after a context was built is honoured; the reference caches by
-params alone (`sunscreen_tpu/bfv/context.py:165`), so there a later mode
-changes nothing.
+The engine word follows the moduli, as in the reference: the u32 engine
+when every modulus is below 2^30 (30-bit aux primes), else the u64
+engine (56-bit aux primes). The NTT mode is resolved by
+`ntt.resolve_mode` when the context is requested and degraded per plan
+by `ntt.get_plan`: the u32 engine's default "pallas"
+(`pmntt.NttPlanU32`) or "pallas_vpu" (`pntt.PallasNttPlan`); on the u64
+engine "pallas" degrades to "matmul" (`mntt.MatmulNttPlan`), and
+"unrolled" and "compact" are `ntt.NttPlan` (the CPU default there). The
+port caches contexts by (params, device, mode), so a mode set after a
+context was built is honoured; the reference caches by params alone
+(`sunscreen_tpu/bfv/context.py:165`), so there a later mode changes
+nothing.
 """
 
 from __future__ import annotations
@@ -20,11 +26,12 @@ import torch
 
 from sunscreen_tpu_torch import resolve_device
 from sunscreen_tpu_torch.bfv.params import BfvParams
-from sunscreen_tpu_torch.errors import Unsupported
+from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math import ntt, primes, prns, rns
-from sunscreen_tpu_torch.math.modular import U32_MAX_MODULUS_BITS, s64
+from sunscreen_tpu_torch.math.modular import s64
 
-AUX_PRIME_BITS_U32 = 30
+AUX_PRIME_BITS = 56      # u64 engine: the reference's matmul-NTT bound
+AUX_PRIME_BITS_U32 = 30  # u32 engine: every modulus < 2^30
 
 
 def _aux_base_size(params: BfvParams, aux_bits: int) -> int:
@@ -39,21 +46,24 @@ def _aux_base_size(params: BfvParams, aux_bits: int) -> int:
 
 class BfvContext:
     def __init__(self, params: BfvParams, device, mode: str = "pallas"):
+        """`mode` is an NTT mode; each plan degrades it for its moduli."""
         self.params = params
         n, t, q_mods = (params.poly_degree, params.plain_modulus,
                         params.coeff_modulus)
         self.n, self.t, self.k = n, t, len(q_mods)
         mods = q_mods + (params.special_modulus,)
-        if max(q.bit_length() for q in mods) > U32_MAX_MODULUS_BITS:
-            raise ValueError("only the u32 engine (every modulus < 2^30) "
-                             "is ported")
 
         # --- bases ---------------------------------------------------------
         self.q_base = rns.RnsBase(q_mods, device)
         self.device = self.q_base.device
+        self.word = self.q_base.word
+        if self.word == m.U32 and params.special_modulus >= 1 << 30:
+            raise ValueError("the u32 engine needs the special modulus "
+                             "< 2^30 too")
+        aux_bits = (AUX_PRIME_BITS_U32 if self.word == m.U32
+                    else AUX_PRIME_BITS)
         aux = tuple(primes.gen_ntt_primes(
-            AUX_PRIME_BITS_U32, _aux_base_size(params, AUX_PRIME_BITS_U32),
-            n, skip=mods))
+            aux_bits, _aux_base_size(params, aux_bits), n, skip=mods))
         self.aux_base = rns.RnsBase(aux, device)
         self.mul_base = rns.RnsBase(q_mods + aux, device)    # Q ∪ B
         self.key_mods = mods                                 # Q ∪ {p}
@@ -64,12 +74,10 @@ class BfvContext:
         self.plan_mul = ntt.get_plan(n, self.mul_base.moduli, self.device,
                                      mode)
         self.plan_key = ntt.get_plan(n, self.key_mods, self.device, mode)
+        # the mode asked for (the plain ring's plan of the encoder and
+        # the mod-switched context take it) and the plans' own
+        self.requested_mode = mode
         self.mode = self.plan_q.mode
-        if self.mode not in ("pallas", "pallas_vpu"):
-            raise Unsupported(
-                f"BFV runs on the u32 NTT plans (modes 'pallas' and "
-                f"'pallas_vpu'); NTT mode {mode!r} at N={n} gives "
-                f"{self.mode!r}")
 
         # --- converters / scalers -------------------------------------------
         self.conv_q_to_aux = rns.BaseConverter(self.q_base, self.aux_base)
@@ -93,6 +101,8 @@ class BfvContext:
                                 device=self.device).reshape(-1, 1)
 
         self.delta_mod_q = col([w % q for q in q_mods])
+        self.delta_mod_q_sh = col([s64(m.shoup_ratio(w % q, q))
+                                   for q in q_mods])
         fr = (((Q % t) << 128) + t - 1) // t  # ceil; error positive
         self.delta_frac_hi = col([s64(fr >> 64)])
         self.delta_frac_lo = col([s64(fr)])
@@ -164,6 +174,8 @@ def _context_cached(params: BfvParams, device: torch.device,
 def get_context(params: BfvParams, device=None,
                 mode: str | None = None) -> BfvContext:
     """Cached context; `device` None means CUDA, `mode` None means
-    `ntt.resolve_mode()` (SUNSCREEN_TPU_NTT, default "pallas")."""
-    return _context_cached(params, resolve_device(device),
-                           ntt.resolve_mode(mode))
+    `ntt.resolve_mode()` (SUNSCREEN_TPU_NTT, else the device's default
+    for these moduli)."""
+    dev = resolve_device(device)
+    mods = params.coeff_modulus + (params.special_modulus,)
+    return _context_cached(params, dev, ntt.resolve_mode(mode, dev, mods))

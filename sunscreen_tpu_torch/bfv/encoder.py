@@ -6,9 +6,11 @@ matrix: slot j of row 0 holds the plaintext's evaluation at
 zeta^(3^j), of row 1 at zeta^(-3^j), zeta a primitive 2N-th root of
 unity mod t, so row rotations are the Galois elements 3^steps and the
 row swap 2N-1. The evaluations come from a small NTT plan over (t,)
-in the context's mode and on its device: kernels B1/B3 under "pallas",
-B16 under "pallas_vpu", the plain u64 plan below 17-bit t; the slot
-scatter and gather are torch indexing.
+in the mode the context was asked for, on its device, degraded for t as
+the reference degrades it: kernels B1/B3 under "pallas" (also for a u64
+context, whose own plans degrade to "matmul", since t < 2^30), B16
+under "pallas_vpu", the plain plans below 17-bit t or under the u64
+modes; the slot scatter and gather are torch indexing.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ class BatchEncoder:
             raise ParamsError(
                 "batching requires a prime plain modulus = 1 mod 2N")
         self.t, self.n, self.device = t, n, ctx.device
-        self.plan = ntt.get_plan(n, (t,), ctx.device, ctx.mode)
+        self.plan = ntt.get_plan(n, (t,), ctx.device, ctx.requested_mode)
         # which evaluation point each NTT position holds: transform the
         # monomial x, whose evaluation at psi^e is psi^e
         mono = torch.zeros(1, n, dtype=torch.int64, device=self.device)

@@ -5,9 +5,11 @@ key material over.
 
 Keys are sampled from an explicit `torch.Generator` through the
 context's plans. Each NTT mode's domain is the reference's for that mode
-("pallas": the flat j2 n1 + j1 order; "pallas_vpu": the [t', s'] order),
+("pallas": the flat j2 n1 + j1 order; "pallas_vpu": the [t', s'] order;
+"unrolled" and "compact": bit-reversed order; "matmul": natural order),
 so `from_reference` is only a dtype and device move from a reference
-context of the same mode.
+context of the same mode. It takes that mode and raises
+`InvalidArgument` when it does not give the context's NTT domain.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ import numpy as np
 import torch
 
 from sunscreen_tpu_torch.bfv.context import BfvContext
+from sunscreen_tpu_torch.errors import InvalidArgument
 from sunscreen_tpu_torch.math import modular as m
-from sunscreen_tpu_torch.math import sampling
+from sunscreen_tpu_torch.math import ntt, sampling
 
 
 @dataclass(frozen=True)
@@ -86,7 +89,7 @@ def gen_ksw_key(ctx: BfvContext, sk: SecretKey, w_ntt_key,
     for i in range(ctx.k):
         a = sampling.uniform_mod_q(gen, (ctx.n,), kb)
         e = _noise_ntt(ctx, gen, kb, ctx.plan_key)
-        body = w_ntt_key * ctx.ksk_factor[i].reshape(-1, 1) % q
+        body = kb.mul(w_ntt_key, ctx.ksk_factor[i].reshape(-1, 1))
         mask = m.add_mod(ctx.plan_key.pointwise_mul(a, sk.s_ntt_key), e, q)
         k0s.append(m.sub_mod(body, mask, q))
         k1s.append(a)
@@ -126,17 +129,41 @@ def default_rotation_elements(ctx: BfvContext) -> tuple[int, ...]:
     return tuple(sorted(elems))
 
 
-def from_reference(ctx: BfvContext, *, s=None, s_ntt_q=None, s_ntt_key=None,
-                   p0=None, p1=None, k0=None, k1=None):
+def _check_mode(ctx: BfvContext, mode: str | None) -> None:
+    """Raises unless `mode`, the NTT mode of the reference context that
+    made some NTT-domain arrays, gives this context's NTT domains once
+    degraded for its moduli as the reference degrades it."""
+    if mode is None:
+        raise InvalidArgument(
+            "NTT-domain key material needs the NTT mode of the reference "
+            "context that made it (mode=...)")
+    for plan, mods in ((ctx.plan_q, ctx.q_base.moduli),
+                       (ctx.plan_key, ctx.key_mods)):
+        theirs = ntt.degrade(ctx.n, mods, mode)
+        if not ntt.same_domain(theirs, plan.mode):
+            raise InvalidArgument(
+                f"key material from NTT mode {mode!r} ({theirs!r} for "
+                f"these moduli) is not in this context's NTT domain "
+                f"({plan.mode!r}); build the context under that mode")
+
+
+def from_reference(ctx: BfvContext, *, mode: str | None = None, s=None,
+                   s_ntt_q=None, s_ntt_key=None, p0=None, p1=None, k0=None,
+                   k1=None):
     """Key material of the JAX package, as numpy arrays, moved into the
     port's dataclasses on `ctx.device`. Returns (SecretKey or None,
     PublicKey or None, KswKey or None) for whichever groups were given;
-    a secret key given only as `s` gets its NTT images computed here."""
+    a secret key given only as `s` gets its NTT images computed here.
+    NTT-domain arrays need `mode`, the reference context's NTT mode
+    (its SUNSCREEN_TPU_NTT): a mode whose domain differs from the
+    context's raises `InvalidArgument`."""
 
     def dev(a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a).astype(np.int64),
                                device=ctx.device).to(dtype)
 
+    if any(a is not None for a in (s_ntt_q, s_ntt_key, p0, p1, k0, k1)):
+        _check_mode(ctx, mode)
     sk = pk = rlk = None
     if s is not None:
         s_t = dev(s, torch.int8)
@@ -152,9 +179,12 @@ def from_reference(ctx: BfvContext, *, s=None, s_ntt_q=None, s_ntt_key=None,
     return sk, pk, rlk
 
 
-def galois_from_reference(ctx: BfvContext, keys) -> GaloisKeys:
-    """The reference's Galois keys, {g: (k0, k1)} as numpy arrays, moved
-    onto `ctx.device`."""
+def galois_from_reference(ctx: BfvContext, keys,
+                          mode: str | None = None) -> GaloisKeys:
+    """The reference's Galois keys, {g: (k0, k1)} as numpy arrays, made
+    under NTT mode `mode`, moved onto `ctx.device` (`from_reference`'s
+    mode check)."""
+    _check_mode(ctx, mode)
     return GaloisKeys({
         int(g): KswKey(*(torch.as_tensor(np.asarray(a).astype(np.int64),
                                          device=ctx.device) for a in k))

@@ -30,6 +30,13 @@ but lacks the fused methods that mode implies, so its `multiply` works
 only under `FUSE_FT3=0` or `FUSE_INV=0` and its keyswitch never does.
 The port runs those same routes and raises `NotImplementedError` where
 the reference raises `AttributeError`.
+
+On the u64 engine (a modulus above 2^30: `BfvParams.default`) no fusion
+setting applies, as in the reference, whose fused paths test for the
+u32 dtype: both routes are "pointwise", plain PyTorch on every device
+over the context's u64 plan ("unrolled", "compact" or "matmul"). The
+same routes serve a u32 context under one of those modes, whose plans
+have no fused methods.
 """
 
 from __future__ import annotations
@@ -60,7 +67,11 @@ def scale_plain(ctx: BfvContext, pt):
         pt.unsqueeze(-2), ctx.delta_frac_hi, ctx.delta_frac_lo,
         add_half=True)
     q = _q(ctx)
-    base = pt.unsqueeze(-2) * ctx.delta_mod_q % q
+    if ctx.q_base.u64:
+        base = m.reduce_2q(m.mul_mod_shoup(pt.unsqueeze(-2), ctx.delta_mod_q,
+                                           ctx.delta_mod_q_sh, q), q)
+    else:
+        base = pt.unsqueeze(-2) * ctx.delta_mod_q % q
     return m.add_mod(base, m.reduce_2q(r_lo.unsqueeze(-2), q), q)
 
 
@@ -270,9 +281,15 @@ def _vpu_missing(method: str, kernels: str, hint: str):
         f"and raise AttributeError, and the port raises here; {hint}")
 
 
+PLAIN_MODES = ("unrolled", "compact", "matmul")   # plans with no fusion
+
+
 def multiply_route(n: int, na: int, nb: int, device_type: str,
-                   mode: str = "pallas") -> str:
-    """How `multiply` forms the tensor product, in the reference's order:
+                   mode: str = "pallas", word: str = m.U32) -> str:
+    """How `multiply` forms the tensor product. On the u64 engine, or
+    under a mode in PLAIN_MODES, "pointwise": the plan's forward
+    transform, the cross terms summed per component and reduced once,
+    the inverse transform. Else, in the reference's order:
     "fwd_tensor3" (B4, then B3) unless FUSE_INV or FUSE_FT3 is off or,
     on CUDA, N > pmntt.TENSOR3_MAX_N, "fwd_tensor3_full" (B13 alone) in
     its place under FUSE_TFULL=1; else "inv_tensor3" (B1, then B12)
@@ -283,6 +300,8 @@ def multiply_route(n: int, na: int, nb: int, device_type: str,
     FUSE_INV=0, and also under FUSE_T3=1, as the reference does; else it
     takes "tensor3" (B16, B10, B16) on CUDA, as the reference does on its
     accelerator, and "loop" (B17's twin per product) on the CPU."""
+    if word == m.U64 or mode in PLAIN_MODES:
+        return "pointwise"
     fused = _plan_fused(device_type)
     pair = na == 2 and nb == 2
     if mode == "pallas_vpu":
@@ -306,20 +325,30 @@ def multiply_route(n: int, na: int, nb: int, device_type: str,
     return "tensor3"
 
 
-def scale_convert_route(device_type: str) -> str:
+def scale_convert_route(device_type: str, word: str = m.U32) -> str:
     """"scale_convert" (B7) unless SUNSCREEN_TPU_FUSE_SC=0, then "scale"
-    (B9, then the centered conversion B -> Q through B6)."""
+    (B9, then the centered conversion B -> Q through B6). The u64 engine
+    takes "scale", whose two steps run the plain glue there."""
+    if word == m.U64:
+        return "scale"
     _check_fused_rns(device_type)
     return ("scale_convert" if _env_on("SUNSCREEN_TPU_FUSE_SC")
             else "scale")
 
 
-def keyswitch_route(device_type: str, mode: str = "pallas") -> str:
-    """"ks_full" (B14 alone) under FUSE_KSFULL=1 unless FUSE_INV is off,
+def keyswitch_route(device_type: str, mode: str = "pallas",
+                    word: str = m.U32) -> str:
+    """"pointwise" on the u64 engine or under a mode in PLAIN_MODES: the
+    digits reduced mod every key modulus and transformed, the products
+    with the key summed over the digits and reduced once, the inverse
+    transform. Else "ks_full" (B14 alone) under FUSE_KSFULL=1 unless
+    FUSE_INV is off,
     as the reference checks it first; else "inv_ks" (B2, B5) unless
     FUSE_KS or FUSE_INV is off, then "ks_inner" (B2, B11, B3). Under mode
     "pallas_vpu" it raises, as the reference's keyswitch calls the plan's
     missing `ks_full` or `fwd_broadcast` under every setting."""
+    if word == m.U64 or mode in PLAIN_MODES:
+        return "pointwise"
     fused = _plan_fused(device_type)
     ksfull = fused and _env_on("SUNSCREEN_TPU_FUSE_KSFULL", default="0")
     if mode == "pallas_vpu":
@@ -336,7 +365,7 @@ def keyswitch_route(device_type: str, mode: str = "pallas") -> str:
 def _scale_convert(ctx: BfvContext, tensor):
     """round(t * tensor / Q) mapped into base Q: the chained kernel B7,
     or B9 into B followed by the centered conversion to Q (B6)."""
-    if scale_convert_route(tensor.device.type) == "scale_convert":
+    if scale_convert_route(tensor.device.type, ctx.word) == "scale_convert":
         return ctx.fused_op("scale_convert")(tensor)
     return ctx.conv_aux_to_q.convert(ctx.scale_mul_to_aux.apply(tensor),
                                      centered=True)
@@ -348,9 +377,12 @@ def multiply(ctx: BfvContext, a, b):
     then exact scale-and-round back to Q along `scale_convert_route`.
     Output has n_a + n_b - 1 components."""
     na, nb = a.shape[-3], b.shape[-3]
-    route = multiply_route(ctx.n, na, nb, a.device.type, ctx.mode)
+    route = multiply_route(ctx.n, na, nb, a.device.type, ctx.mode, ctx.word)
     plan = ctx.plan_mul
     ext = ctx.conv_q_to_aux.extend(torch.cat([a, b], dim=-3), centered=True)
+    if route == "pointwise":
+        return _scale_convert(ctx, _tensor_pointwise(ctx, plan.fwd(ext), na,
+                                                     nb))
     if route == "fwd_tensor3":
         return _scale_convert(ctx, plan.inv(plan.fwd_tensor3(ext)))
     if route == "fwd_tensor3_full":
@@ -372,6 +404,38 @@ def multiply(ctx: BfvContext, a, b):
     return _scale_convert(ctx, tensor)
 
 
+def _tensor_pointwise(ctx: BfvContext, both, na: int, nb: int):
+    """The tensor product from the NTT images of both operands' components
+    [..., na + nb, km, N]: per output component the cross terms summed
+    raw (each below q < 2^56, at most na of them, so the u64 sum cannot
+    wrap), one reduction, then the inverse transform."""
+    mb, plan = ctx.mul_base, ctx.plan_mul
+    outs = []
+    for j in range(na + nb - 1):
+        acc = None
+        for ia in range(na):
+            if 0 <= j - ia < nb:
+                term = plan.pointwise_mul(both[..., ia, :, :],
+                                          both[..., na + j - ia, :, :])
+                acc = term if acc is None else acc + term
+        outs.append(m.w_reduce(acc, mb.q, mb.c0, mb.c1, mb.word))
+    return plan.inv(torch.stack(outs, dim=-3))
+
+
+def _keyswitch_pointwise(ctx: BfvContext, d, ksw: KswKey):
+    """The keyswitch inner products of "pointwise": every digit (a Q
+    residue) reduced mod every key modulus, transformed, multiplied with
+    both key components, summed over the digits raw (k terms below
+    q < 2^56 cannot wrap) and reduced once; then the inverse transform."""
+    kb, plan = ctx.key_base, ctx.plan_key
+    d_hat = plan.fwd(m.w_reduce(d.unsqueeze(-2), kb.q, kb.c0, kb.c1,
+                                kb.word))
+    acc = torch.stack([m.w_sum_reduce(plan.pointwise_mul(d_hat, key), kb.q,
+                                      kb.c0, kb.c1, kb.word)
+                       for key in (ksw.k0, ksw.k1)], dim=-3)
+    return plan.inv(acc)
+
+
 def keyswitch(ctx: BfvContext, d, ksw: KswKey):
     """Switch poly d ([..., k, N], coefficient domain) to the target key:
     (u0, u1) over Q after the special-prime mod-down. The k raw digits
@@ -381,7 +445,11 @@ def keyswitch(ctx: BfvContext, d, ksw: KswKey):
     "ks_full" route one kernel does all of it from the raw digits. The
     mod-down reads the Q limbs and the special limb of that output in
     place."""
-    route = keyswitch_route(d.device.type, ctx.mode)
+    route = keyswitch_route(d.device.type, ctx.mode, ctx.word)
+    if route == "pointwise":
+        both = _keyswitch_pointwise(ctx, d, ksw)
+        u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
+        return u[..., 0, :, :], u[..., 1, :, :]
     if route == "ks_full":
         both = ctx.plan_key.ks_full(d, ksw.k0, ksw.k1)
         u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
@@ -485,7 +553,8 @@ def mod_switch_context(ctx: BfvContext) -> BfvContext:
     p = ctx.params
     return get_context(BfvParams(p.poly_degree, p.plain_modulus,
                                  p.coeff_modulus[:-1], p.special_modulus,
-                                 p.security_level), ctx.device, ctx.mode)
+                                 p.security_level), ctx.device,
+                       ctx.requested_mode)
 
 
 def exponentiate(ctx: BfvContext, ct, power: int, rlk: KswKey):

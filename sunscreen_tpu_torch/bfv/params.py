@@ -1,7 +1,8 @@
 """BFV encryption parameters (port of `sunscreen_tpu/bfv/params.py`):
-`BfvParams` with the u32-engine constructors and the tables they need.
-Host Python only; the values equal the reference's for the same
-arguments."""
+`BfvParams` with the u64-engine defaults (`default`: limbs up to 56
+bits), the u32-engine constructors (every modulus below 2^30) and the
+tables they need. Host Python only; the values equal the reference's
+for the same arguments."""
 
 from __future__ import annotations
 
@@ -18,18 +19,22 @@ MAX_LOG_Q = {
     256: {1024: 14, 2048: 29, 4096: 58, 8192: 118, 16384: 237, 32768: 476},
 }
 
+# u64 engine: limbs of at most 56 bits, the reference's cap (its matmul
+# NTT needs n1 q^2 < q 2^64; the port's mode "matmul" keeps the bound).
+SEALISH_MAX_LIMB_BITS = 56
+
 # u32 engine: every modulus < 2^30.
 U32_MAX_LIMB_BITS = 30
 
 
-def default_moduli_u32(poly_degree: int, security: int = 128
-                       ) -> tuple[tuple[int, ...], int]:
-    """30-bit-capped ciphertext primes + one 30-bit-capped special
+def _split_moduli(poly_degree: int, security: int, cap: int
+                  ) -> tuple[tuple[int, ...], int]:
+    """Ciphertext primes of at most `cap` bits plus one special
     keyswitch prime inside the HE-standard budget."""
     total = MAX_LOG_Q[security][poly_degree]
-    special_bits = min(U32_MAX_LIMB_BITS, max(total // 3, 2))
+    special_bits = min(cap, max(total // 3, 2))
     rem = total - special_bits
-    count = max(1, math.ceil(rem / U32_MAX_LIMB_BITS))
+    count = max(1, math.ceil(rem / cap))
     base = rem // count
     sizes = [base + (1 if i < rem - base * count else 0)
              for i in range(count)]
@@ -41,6 +46,31 @@ def default_moduli_u32(poly_degree: int, security: int = 128
                                     skip=tuple([special] + qs))
     assert len(qs) == count
     return tuple(sorted(qs)), special
+
+
+def default_moduli(poly_degree: int, security: int = 128
+                   ) -> tuple[tuple[int, ...], int]:
+    """(ciphertext moduli, special keyswitch prime) of at most 56 bits
+    each inside the HE-standard budget for (N, security) (SEAL's
+    `CoeffModulus::BFVDefault` role)."""
+    return _split_moduli(poly_degree, security, SEALISH_MAX_LIMB_BITS)
+
+
+def coefficient_modulus_create(poly_degree: int,
+                               bit_sizes: list[int]) -> tuple[int, ...]:
+    """SEAL `CoeffModulus::Create`: for each distinct bit size as many
+    NTT-friendly primes as asked for, descending from the top of the
+    range, handed out smallest-first within each size."""
+    by_size = {b: primes.gen_ntt_primes(b, bit_sizes.count(b), poly_degree)
+               for b in set(bit_sizes)}
+    return tuple(by_size[b].pop() for b in bit_sizes)
+
+
+def default_moduli_u32(poly_degree: int, security: int = 128
+                       ) -> tuple[tuple[int, ...], int]:
+    """30-bit-capped ciphertext primes + one 30-bit-capped special
+    keyswitch prime inside the HE-standard budget."""
+    return _split_moduli(poly_degree, security, U32_MAX_LIMB_BITS)
 
 
 def batching_plain_modulus(poly_degree: int, bits: int) -> int:
@@ -59,6 +89,16 @@ class BfvParams:
     coeff_modulus: tuple[int, ...]
     special_modulus: int
     security_level: int = 128
+
+    @staticmethod
+    def default(poly_degree: int, plain_modulus: int | None = None,
+                security: int = 128, batching: bool = True) -> "BfvParams":
+        """u64-engine defaults: limbs of up to 56 bits."""
+        if plain_modulus is None:
+            plain_modulus = (batching_plain_modulus(poly_degree, 20)
+                             if batching else 1 << 18)
+        qs, sp = default_moduli(poly_degree, security)
+        return BfvParams(poly_degree, plain_modulus, qs, sp, security)
 
     @staticmethod
     def default_u32(poly_degree: int, plain_modulus: int | None = None,
@@ -120,6 +160,12 @@ class BfvParams:
                 raise ParamsError(
                     f"log2(Q*P)={total} exceeds {self.security_level}-bit "
                     f"security budget {limit} for N={n}")
+
+    @property
+    def word_bits(self) -> int:
+        """Engine word: 32 iff every modulus < 2^30."""
+        mods = self.coeff_modulus + (self.special_modulus,)
+        return 32 if max(q.bit_length() for q in mods) <= 30 else 64
 
     @property
     def q_product(self) -> int:

@@ -1,7 +1,9 @@
 """Exact modular arithmetic on int64 torch tensors.
 
-Port of `sunscreen_tpu/math/modular.py`: its u32 section (moduli below
-2^30) and the u64 helpers that decryption needs. PyTorch has no add,
+Port of `sunscreen_tpu/math/modular.py`: the u32 section (moduli below
+2^30), the u64 section (moduli below 2^62: 128-bit products, Barrett
+and Shoup reduction) and the word-generic `w_*` wrappers that the RNS,
+NTT and BFV layers call. PyTorch has no add,
 shift or compare for uint32/uint64 on the CPU, so every word lives in an
 int64 tensor:
 
@@ -10,7 +12,13 @@ int64 tensor:
 * int64 multiply and add wrap mod 2^64, so low words come out right;
 * `>>` is arithmetic, so `srl` masks after the shift;
 * an overflow or carry test on u64 words is an unsigned compare: `ult`
-  flips bit 63 of both sides before comparing.
+  flips bit 63 of both sides before comparing. Shoup ratios
+  floor(w 2^64 / q) are often >= 2^63, so they are negative as int64:
+  they only ever enter `mul_hi`, which reads its operands unsigned.
+
+The reference's `w_*` wrappers dispatch on the dtype of q (uint32 or
+uint64). Every word here is an int64 tensor, so they take the engine
+word (`U32` or `U64`, from `word_dtype_for`) as an argument instead.
 """
 
 from __future__ import annotations
@@ -21,6 +29,14 @@ M32 = 0xFFFFFFFF
 _BIT63 = -(1 << 63)
 
 U32_MAX_MODULUS_BITS = 30  # 4q < 2^32 (lazy headroom) and Shoup q < 2^32/4
+MAX_MODULUS_BITS = 62      # u64 engine: lazy [0, 4q) fits a word
+U32, U64 = "u32", "u64"    # engine words
+
+
+def word_dtype_for(moduli) -> str:
+    """Engine word of a modulus set: U32 iff every q < 2^30."""
+    return (U32 if max(int(q).bit_length() for q in moduli)
+            <= U32_MAX_MODULUS_BITS else U64)
 
 
 def s64(v: int) -> int:
@@ -181,3 +197,74 @@ def mul_mod(a, b, q, r_hi, r_lo):
     """(a * b) mod q, exact, for u64 a, b in [0, q)."""
     hi, lo = mul_wide(a, b)
     return barrett_reduce_128(hi, lo, q, r_hi, r_lo)
+
+
+def shoup_ratio(w: int, q: int) -> int:
+    """Host: floor(w 2^64 / q) for a constant w < q (a python int, often
+    >= 2^63; `s64` gives its int64 bit pattern)."""
+    assert 0 <= w < q
+    return (w << 64) // q
+
+
+def mul_mod_shoup(x, w, w_sh, q):
+    """(x w) mod q, lazy, for any u64 x, w < q < 2^62 and
+    w_sh = floor(w 2^64 / q) as a bit pattern: the wrapped difference
+    lies in [0, 2q) (Harvey)."""
+    return w * x - mul_hi(x, w_sh) * q
+
+
+# ---------------------------------------------------------------------------
+# word-generic wrappers (the reference dispatches on q.dtype)
+# ---------------------------------------------------------------------------
+
+
+def w_shoup_host(w: int, q: int, word: str) -> int:
+    return shoup_ratio32(w, q) if word == U32 else shoup_ratio(w, q)
+
+
+def w_consts_host(q: int, word: str) -> tuple[int, int]:
+    """(c0, c1) reduction constants: u32 -> (mu, s1) of
+    `barrett32_consts`; u64 -> `barrett_ratio` (hi, lo)."""
+    return barrett32_consts(q) if word == U32 else barrett_ratio(q)
+
+
+def w_shoup_mul(x, w, w_sh, q, word: str):
+    """Lazy Shoup multiply: x in [0, 2q) -> [0, 2q)."""
+    if word == U32:
+        return mul_mod_shoup32(x, w, w_sh, q)
+    return mul_mod_shoup(x, w, w_sh, q)
+
+
+def w_mul_mod(a, b, q, c0, c1, word: str):
+    """Exact (a b) mod q for a, b in [0, q)."""
+    if word == U32:
+        return mul_mod32(a, b, q, c0, c1)
+    return mul_mod(a, b, q, c0, c1)
+
+
+def w_reduce(x, q, c0, c1, word: str):
+    """A raw word to [0, q): u32 engine, sums and products below
+    2^(2 bits(q)); u64 engine, any u64 bit pattern."""
+    if word == U32:
+        return reduce_long32(x, q, c0, c1)
+    return barrett_reduce_64(x, q, c0, c1)
+
+
+def w_sum_reduce(x, q, c0, c1, word: str, axis: int = -3):
+    """Exact sum of residues along `axis`, then one reduction. The int64
+    sum wraps as the u64 sum does, and k q < 2^64 for every caller, so
+    the u64 sum never wraps."""
+    return w_reduce(x.sum(axis), q, c0, c1, word)
+
+
+# ---------------------------------------------------------------------------
+# host number theory (python ints, plan-build time only)
+# ---------------------------------------------------------------------------
+
+
+def pow_mod_host(base: int, exp: int, q: int) -> int:
+    return pow(base, exp, q)
+
+
+def inv_mod_host(a: int, q: int) -> int:
+    return pow(a, -1, q)

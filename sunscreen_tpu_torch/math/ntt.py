@@ -2,20 +2,28 @@
 
 `get_plan` resolves a mode as the reference does (`resolve_mode`: the
 argument, else `SUNSCREEN_TPU_NTT`, else the legacy
-`SUNSCREEN_TPU_COMPACT_NTT=1` for "compact"), applies the reference's
-degrade rules in its order, and returns one of the ported plans:
+`SUNSCREEN_TPU_COMPACT_NTT=1` for "compact", else the device's default),
+applies the reference's degrade rules in its order, and returns one of
+the ported plans:
 
-* "pallas" (the port's default on every device, since its CPU path is
-  the twin of its card path): `pmntt.NttPlanU32`, kernels B1-B5, B12-B15;
+* "pallas": `pmntt.NttPlanU32`, kernels B1-B5, B12-B15;
 * "pallas_vpu": `pntt.PallasNttPlan`, kernels B16 and B17;
-* "unrolled": `NttPlan`, the port of the reference's u64 `NttPlan` in
-  that mode (natural order in, bit-reversed order out) for moduli below
-  2^62, in plain PyTorch on every device, as the reference's unrolled
-  plan is plain XLA; TFHE's 62-bit `TorusNttPlan` and the plain-ring
-  plans of small t run on it (`get_plan_u64` builds it directly).
+* "unrolled" and "compact": `NttPlan`, the port of the reference's u64
+  `NttPlan` (natural order in, bit-reversed order out) for moduli below
+  2^62, in plain PyTorch on every device, as the reference's plan is
+  plain XLA. The reference's "compact" runs the same butterflies as one
+  constant-geometry loop and gives the same bits, so here it is the
+  same stages under its own label; TFHE's 62-bit `TorusNttPlan` and the
+  plain-ring plans of small t run on it (`get_plan_u64` builds it
+  directly);
+* "matmul": `mntt.MatmulNttPlan`, whose NTT domain is natural order.
 
-"matmul" and "compact" are the u64 engine's modes (ROADMAP A7) and raise
-`Unsupported`.
+The default mode (C2 in ROADMAP): "pallas" on CUDA, degraded as the
+reference degrades it off the CPU; on the CPU "pallas" too while every
+modulus fits the u32 engine, since the port's CPU path is the twin of
+its card path, and the reference's CPU default "unrolled" for the u64
+engine, so that u64 NTT-domain arrays match the reference's under
+default settings on both sides.
 """
 
 from __future__ import annotations
@@ -35,11 +43,14 @@ from sunscreen_tpu_torch.math.pntt import MAX_N, PallasNttPlan
 from sunscreen_tpu_torch.math.rns import _col
 
 
-def resolve_mode(mode: str | None = None) -> str:
+def resolve_mode(mode: str | None = None, device=None,
+                 moduli: tuple[int, ...] = ()) -> str:
     """The NTT mode to use: `mode`, else SUNSCREEN_TPU_NTT, else
-    "compact" under SUNSCREEN_TPU_COMPACT_NTT=1, else "pallas". The
-    reference reads the legacy setting once at import; this reads both
-    settings on every call."""
+    "compact" under SUNSCREEN_TPU_COMPACT_NTT=1, else the default:
+    "unrolled" on the CPU for moduli above the u32 engine's 30 bits,
+    else "pallas" (`device` None means CUDA). The reference reads the
+    legacy setting once at import; this reads both settings on every
+    call."""
     if mode:
         return mode
     env = os.environ.get("SUNSCREEN_TPU_NTT", "")
@@ -47,6 +58,9 @@ def resolve_mode(mode: str | None = None) -> str:
         return env
     if os.environ.get("SUNSCREEN_TPU_COMPACT_NTT", "") == "1":
         return "compact"
+    if (device is not None and torch.device(device).type == "cpu"
+            and moduli and m.word_dtype_for(moduli) == m.U64):
+        return "unrolled"
     return "pallas"
 
 
@@ -77,25 +91,31 @@ def _plan_cached(n: int, moduli: tuple[int, ...], device: torch.device,
         return NttPlanU32(n, moduli, device)
     if mode == "pallas_vpu":
         return PallasNttPlan(n, moduli, device)
-    if mode == "unrolled":
-        return NttPlan(n, moduli, device)
-    if mode in ("matmul", "compact"):
-        raise Unsupported(
-            f"NTT mode {mode!r} belongs to the u64 engine, which is not "
-            f"ported yet (ROADMAP A7); N={n}, moduli of "
-            f"{min(q.bit_length() for q in moduli)}-"
-            f"{max(q.bit_length() for q in moduli)} bits")
+    if mode in ("unrolled", "compact"):
+        return NttPlan(n, moduli, device, mode)
+    if mode == "matmul":
+        from sunscreen_tpu_torch.math.mntt import MatmulNttPlan
+        return MatmulNttPlan(n, moduli, device)
     raise ValueError(f"unknown NTT mode {mode!r}")
 
 
 def get_plan(n: int, moduli: tuple[int, ...], device=None,
              mode: str | None = None):
     """Shared plan cache; `device` None means CUDA, `mode` None means
-    `resolve_mode()`, degraded outside its envelope as the reference
-    does."""
+    `resolve_mode()`'s default for the device and moduli, degraded
+    outside its envelope as the reference does."""
     moduli = tuple(int(q) for q in moduli)
-    return _plan_cached(n, moduli, resolve_device(device),
-                        degrade(n, moduli, resolve_mode(mode)))
+    dev = resolve_device(device)
+    return _plan_cached(n, moduli, dev,
+                        degrade(n, moduli, resolve_mode(mode, dev, moduli)))
+
+
+def same_domain(a: str, b: str) -> bool:
+    """Whether plans of modes a and b share their NTT domain: "compact"
+    gives "unrolled"'s bits."""
+    def dom(x):
+        return "unrolled" if x == "compact" else x
+    return dom(a) == dom(b)
 
 
 def _shoup_mul(x, w, w_sh, q):
@@ -110,18 +130,20 @@ class NttPlan:
     decimation-in-time Cooley-Tukey with psi folded into the twiddles,
     natural order in and bit-reversed order out, the Gentleman-Sande
     mirror with 1/N for the inverse; Shoup twiddle multiplies. The same
-    stages, hence the same NTT-domain arrays, as the reference's mode
-    "unrolled". Tensors are int64 [..., k, N] (values < q) on the plan's
-    device."""
+    stages, hence the same NTT-domain arrays, as the reference's modes
+    "unrolled" and "compact" (`mode`). Tensors are int64 [..., k, N]
+    (values < q) on the plan's device."""
 
-    def __init__(self, n: int, moduli: tuple[int, ...], device):
+    def __init__(self, n: int, moduli: tuple[int, ...], device,
+                 mode: str = "unrolled"):
+        assert mode in ("unrolled", "compact"), mode
         assert n & (n - 1) == 0, "N must be a power of two"
         assert max(q.bit_length() for q in moduli) <= 62
         self.n = n
         self.log_n = n.bit_length() - 1
         self.moduli = tuple(int(q) for q in moduli)
         self.k = len(self.moduli)
-        self.mode = "unrolled"
+        self.mode = mode
         rev = _bitrev(n)
         fw, iw, fw_sh, iw_sh = [], [], [], []
         for q in self.moduli:
@@ -181,9 +203,17 @@ class NttPlan:
                             -2).reshape(*batch, k, n)
         return _shoup_mul(x, self.n_inv, self.n_inv_sh, self.q)
 
+    # the reference's loop form of "compact" gives the same bits
+    fwd_compact = fwd
+    inv_compact = inv
+
     def pointwise_mul(self, a, b):
         """Exact (a * b) mod q per limb on NTT-domain arrays [..., k, N]."""
         return m.mul_mod(a, b, self.q, self.r_hi, self.r_lo)
+
+    def negacyclic_mul(self, a, b):
+        """Negacyclic poly product of coefficient-domain stacks."""
+        return self.inv(self.pointwise_mul(self.fwd(a), self.fwd(b)))
 
 
 @lru_cache(maxsize=16)

@@ -35,6 +35,7 @@ import torch
 
 from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.math import modular as m
+from sunscreen_tpu_torch.math.modular import U32_MAX_MODULUS_BITS
 
 MAX_LIMBS = 32       # register arrays of csrc/rns.cu (MAXK)
 MAX_KS_DIGITS = 32   # FusedKsInner digits (its sums fold every 16 terms)
@@ -42,7 +43,12 @@ MAX_KS_DIGITS = 32   # FusedKsInner digits (its sums fold every 16 terms)
 
 def _table(base, *cols) -> torch.Tensor:
     """[k, 8] int64 per modulus of `base`: q, floor(2^64 / q) (below 2^63
-    for q > 2), then the given [k, 1] columns, zero-padded."""
+    for q > 2), then the given [k, 1] columns, zero-padded. The kernels
+    hold the u32 engine only (every modulus below 2^30), as the
+    reference's do."""
+    if max(q.bit_length() for q in base.moduli) > U32_MAX_MODULUS_BITS:
+        raise ValueError("the fused RNS kernels take moduli below 2^30 "
+                         "only (the u64 engine runs the plain glue)")
     m = torch.tensor([(1 << 64) // q for q in base.moduli],
                      dtype=torch.int64, device=base.device).reshape(-1, 1)
     out = torch.cat([base.q, m, *(c.to(base.device) for c in cols)], dim=1)
@@ -200,6 +206,8 @@ class FusedModDown:
         self.k = qb.k
         self.device = qb.device
         self.p, self.half = int(md.p), int(md.half)
+        if self.p >= 1 << U32_MAX_MODULUS_BITS:
+            raise ValueError("FusedModDown takes p below 2^30 only")
         self.tab = _table(qb, md.half_mod_q, md.inv_p)
 
     def call_plain(self, x_q, x_p):

@@ -9,8 +9,13 @@ and `ModDown.apply` to B8, each op built once per object and cached. On
 the CPU they run the plain code (`convert_plain`, `apply_plain`), which
 is also the kernels' oracle. The default multiply reaches the scale
 through the chained B7 instead (`bfv/ops.py::_scale_convert`); B9 runs
-under `SUNSCREEN_TPU_FUSE_SC=0`. The plain residue products are below
-2^60, so they are taken exactly in int64 and reduced with `%`; the
+under `SUNSCREEN_TPU_FUSE_SC=0`. The fused kernels hold the u32 engine
+only, as the reference's do (`rns.py:222`, `:315`, `:438`): a base with
+a modulus above 2^30 (the u64 engine, limbs up to 56 bits) runs the
+plain code on every device. On the u32 engine the plain residue products
+are below 2^60, so they are taken exactly in int64 and reduced with `%`;
+on the u64 engine they go through Shoup multiplies with precomputed
+ratios (`modular.w_shoup_mul`) or the 128-bit Barrett product. The
 results are the same residues the reference computes.
 
 Layouts: polynomials are [..., k, N], limb-major.
@@ -20,9 +25,12 @@ from __future__ import annotations
 
 import torch
 
+from functools import lru_cache
+
+from sunscreen_tpu_torch import resolve_device
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math import prns
-from sunscreen_tpu_torch.math.modular import M32, s64, srl
+from sunscreen_tpu_torch.math.modular import M32, U64, s64, srl
 
 
 def _col(values, device) -> torch.Tensor:
@@ -58,7 +66,26 @@ class RnsBase:
         ratios = [m.barrett_ratio(q) for q in self.moduli]
         self.ratio_hi = _col([r[0] for r in ratios], device)
         self.ratio_lo = _col([r[1] for r in ratios], device)
-        self.wide = max(q.bit_length() for q in self.moduli) > 31
+        # engine word: U32 iff every modulus < 2^30 (the fused kernels'
+        # domain); the u64 engine's Shoup ratios of the digit inverses
+        self.word = m.word_dtype_for(self.moduli)
+        self.inv_punc_sh = _col([m.shoup_ratio(v, q) for v, q in
+                                 zip(self.inv_punctured, self.moduli)],
+                                device)
+        # the (c0, c1) reduction constants of `modular.w_reduce` per limb
+        consts = [m.w_consts_host(q, self.word) for q in self.moduli]
+        self.c0 = _col([c[0] for c in consts], device)
+        self.c1 = _col([c[1] for c in consts], device)
+
+    @property
+    def u64(self) -> bool:
+        return self.word == U64
+
+    def mul(self, a, b):
+        """Exact (a b) mod q per limb for residues a, b [..., k, N]."""
+        if self.u64:
+            return m.mul_mod(a, b, self.q, self.ratio_hi, self.ratio_lo)
+        return a * b % self.q
 
     def reduce_u64(self, x):
         """Full u64 words [..., N] -> residues [..., k, N]."""
@@ -67,11 +94,12 @@ class RnsBase:
 
     def normalize_digits(self, x):
         """y_i = [x_i * (C/c_i)^{-1}]_{c_i} for x of shape [..., k, N]:
-        an int64 product below 2^62 for moduli under 2^31, else the
-        128-bit product and Barrett reduction of `modular.mul_mod`."""
-        if self.wide:
-            return m.mul_mod(x, self.inv_punc, self.q, self.ratio_hi,
-                             self.ratio_lo)
+        an int64 product below 2^60 on the u32 engine, else a Shoup
+        multiply with the precomputed ratios (any u64 x, q < 2^62)."""
+        if self.u64:
+            return m.reduce_2q(m.mul_mod_shoup(x, self.inv_punc,
+                                               self.inv_punc_sh, self.q),
+                               self.q)
         return x * self.inv_punc % self.q
 
 
@@ -108,15 +136,31 @@ def fixed_point_dot(y, phi_hi, phi_lo, add_half: bool):
     return (int_hi, int_lo), (frac_hi, frac_lo)
 
 
-def _dot_mod(y, table, d):
-    """sum_i y[..., i, :] * table[i, j] mod d_j -> [..., kd, N]; y < 2^30,
-    table [ks, kd, 1] < d < 2^30, d [kd, 1]. Accumulates over source
-    limbs so no [.., ks, kd, N] stack is formed."""
+def _dot_mod(y, table, d, table_sh=None):
+    """sum_i y[..., i, :] * table[i, j] mod d_j -> [..., kd, N], d [kd, 1],
+    table [ks, kd, 1] < d. u32 engine (table_sh None): y, d < 2^30, exact
+    int64 products. u64 engine: y < 2^56 and the Shoup ratios table_sh of
+    the table; each term is reduced to [0, d), and the raw sum of
+    ks < 2^7 terms below 2^56 cannot wrap. Accumulates over source limbs
+    so no [.., ks, kd, N] stack is formed."""
     acc = None
     for i in range(y.shape[-2]):
-        term = y[..., i:i + 1, :] * table[i] % d
+        yi = y[..., i:i + 1, :]
+        if table_sh is None:
+            term = yi * table[i] % d
+        else:
+            term = m.reduce_2q(m.mul_mod_shoup(yi, table[i], table_sh[i], d),
+                               d)
         acc = term if acc is None else acc + term
     return acc % d
+
+
+def _sh(table, d_moduli, device):
+    """Shoup ratios [ks, kd, 1] of a table [ks, kd, 1] against d."""
+    return torch.tensor(
+        [[s64(m.shoup_ratio(int(v), d)) for v, d in zip(row, d_moduli)]
+         for row in table[..., 0].tolist()], dtype=torch.int64,
+        device=device).unsqueeze(-1)
 
 
 class BaseConverter:
@@ -132,6 +176,9 @@ class BaseConverter:
              for i in range(src.k)], dtype=torch.int64,
             device=dev).unsqueeze(-1)                        # [ks, kd, 1]
         self.c_mod_d = _col([src.product % d for d in dst.moduli], dev)
+        self.u64 = src.u64 or dst.u64
+        self.theta_sh = _sh(self.theta, dst.moduli, dev) if self.u64 \
+            else None
         self._fused_op = None
 
     def _fused(self) -> prns.FusedRnsOp:
@@ -141,11 +188,16 @@ class BaseConverter:
 
     def extend(self, x, centered: bool = True):
         """[..., k_src, N] -> [..., k_src + k_dst, N]: the source limbs
-        followed by the converted ones (one kernel pass on CUDA)."""
+        followed by the converted ones (one kernel pass on CUDA, u32
+        engine)."""
+        if self.u64:
+            return torch.cat([x, self.convert_plain(x, centered)], dim=-2)
         return self._fused()(x, include_src=True, centered=centered)
 
     def convert(self, x, centered: bool = False):
         """[..., k_src, N] -> [..., k_dst, N]."""
+        if self.u64:
+            return self.convert_plain(x, centered)
         return self._fused()(x, centered=centered)
 
     def convert_plain(self, x, centered: bool = False):
@@ -153,8 +205,9 @@ class BaseConverter:
         y = src.normalize_digits(x)
         (_, alpha), _ = fixed_point_dot(
             y, src.inv_q_fp_hi, src.inv_q_fp_lo, add_half=centered)
-        acc = _dot_mod(y, self.theta, dst.q)
-        corr = alpha.unsqueeze(-2) * self.c_mod_d % dst.q   # alpha < k_src
+        acc = _dot_mod(y, self.theta, dst.q, self.theta_sh)
+        # alpha < k_src and c_mod_d < 2^56: an exact int64 product
+        corr = alpha.unsqueeze(-2) * self.c_mod_d % dst.q
         return m.sub_mod(acc, corr, dst.q)
 
 
@@ -179,11 +232,16 @@ class ScaleAndRound:
                                   device=dev).unsqueeze(-1)  # [ks, kd, 1]
         self.phi_hi = _col([v >> 64 for v in fr], dev)
         self.phi_lo = _col(fr, dev)
+        self.u64 = src.u64 or dst.u64
+        self.omega_sh = _sh(self.omega, dst.moduli, dev) if self.u64 \
+            else None
         self._fused_op = None
 
     def apply(self, x):
         """[..., k_src, N] -> [..., k_dst, N] = [round(t*x/Q)]_D (one
-        kernel pass on CUDA)."""
+        kernel pass on CUDA, u32 engine)."""
+        if self.u64:
+            return self.apply_plain(x)
         if self._fused_op is None:
             self._fused_op = prns.fused_scaler(self)
         return self._fused_op(x)
@@ -192,8 +250,8 @@ class ScaleAndRound:
         y = self.src.normalize_digits(x)
         (_, r_lo), _ = fixed_point_dot(y, self.phi_hi, self.phi_lo,
                                        add_half=True)
-        acc = _dot_mod(y, self.omega, self.dst.q)
-        # r < k_src * 2^30: one word, and nonnegative as an int64
+        acc = _dot_mod(y, self.omega, self.dst.q, self.omega_sh)
+        # r < k_src 2^56 < 2^63: one word, and nonnegative as an int64
         return m.add_mod(acc, r_lo.unsqueeze(-2) % self.dst.q, self.dst.q)
 
 
@@ -240,13 +298,20 @@ class ModDown:
         self.p = p
         self.half = p >> 1
         dev = q_base.device
-        self.inv_p = _col([pow(p % q, -1, q) for q in q_base.moduli], dev)
+        inv_p = [pow(p % q, -1, q) for q in q_base.moduli]
+        self.inv_p = _col(inv_p, dev)
         self.half_mod_q = _col([self.half % q for q in q_base.moduli], dev)
+        # the reference's fused kernel takes the u32 engine and p < 2^30
+        self.u64 = q_base.u64 or p >= 1 << 30
+        self.inv_p_sh = _col([m.shoup_ratio(v, q) for v, q in
+                              zip(inv_p, q_base.moduli)], dev)
         self._fused_op = None
 
     def apply(self, x_q, x_p):
         """x_q: [..., k, N], x_p: [..., N] -> [..., k, N] (one kernel
-        pass on CUDA, reading strided views in place)."""
+        pass on CUDA, u32 engine, reading strided views in place)."""
+        if self.u64:
+            return self.apply_plain(x_q, x_p)
         if self._fused_op is None:
             self._fused_op = prns.fused_mod_down(self)
         return self._fused_op(x_q, x_p)
@@ -255,4 +320,18 @@ class ModDown:
         q = self.q_base.q
         xp = m.add_mod(x_p, self.half, self.p).unsqueeze(-2) % q
         num = m.sub_mod(m.add_mod(x_q, self.half_mod_q, q), xp, q)
+        if self.u64:
+            return m.reduce_2q(m.mul_mod_shoup(num, self.inv_p,
+                                               self.inv_p_sh, q), q)
         return num * self.inv_p % q
+
+
+@lru_cache(maxsize=64)
+def _base_cached(moduli: tuple[int, ...], device) -> RnsBase:
+    return RnsBase(moduli, device)
+
+
+def get_base(moduli: tuple[int, ...], device=None) -> RnsBase:
+    """Shared cache of bases; `device` None means CUDA."""
+    return _base_cached(tuple(int(q) for q in moduli),
+                        resolve_device(device))

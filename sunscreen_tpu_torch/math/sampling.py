@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from sunscreen_tpu_torch.math import modular as m
+
 CBD_WEIGHT = 21  # CBD(21): variance 21/2, sigma ~ 3.24 (SEAL sigma = 3.2)
 _R62 = 1 << 62
 
@@ -31,7 +33,9 @@ def uniform_mod_q(gen: torch.Generator, shape, base) -> torch.Tensor:
     q = base.q
     hi = _draw(gen, _R62, full, base.device) % q
     lo = _draw(gen, _R62, full, base.device) % q
-    return (hi * (_R62 % q) + lo) % q
+    r62 = torch.tensor([_R62 % v for v in base.moduli], dtype=torch.int64,
+                       device=q.device).reshape(-1, 1)
+    return m.add_mod(base.mul(hi, r62), lo, q)
 
 
 def ternary(gen: torch.Generator, shape, device) -> torch.Tensor:

@@ -362,27 +362,37 @@ def generate_keyswitch_key(from_sk, to_sk, to_params: LweDef,
     return encrypt_lwe(msgs, to_sk, to_params, gen)
 
 
-_LIMB = 16          # bits per word limb of the exact float64 product
+_LIMB = 16          # bits per limb of the exact float64 product
+_CHUNK = 1 << 20    # rows of K summed per matmul: K 2^32 < 2^53
 
 
-def _exact_dot(d, words, bound: int):
-    """d [R, K] signed ints with |d| <= bound, words [K, W] torus words ->
-    [R, W] = d @ words mod 2^64, exactly. The words are split into four
-    16-bit limbs; each limb product is an integer below bound 2^16, so
-    every float64 sum is exact while K bound 2^16 < 2^53, whatever order
-    the matmul adds in."""
-    if d.shape[-1] * bound * (1 << _LIMB) >= 1 << 53:
-        raise ValueError("keyswitch digits too large for the exact "
-                         "float64 product")
-    limbs = torch.stack([srl(words, _LIMB * i) & 0xFFFF if i else
-                         words & 0xFFFF for i in range(64 // _LIMB)], 1)
+def _exact_dot(d, words, radix_log: int):
+    """d [R, K] signed ints with |d| <= 2^(radix_log - 1), words [K, W]
+    torus words -> [R, W] = d @ words mod 2^64, exactly. The words are
+    split into four 16-bit limbs and the digits into ceil(radix_log / 16)
+    16-bit pieces (the top piece signed), so every piece-limb product is
+    below 2^32 in size and every float64 sum over at most 2^20 rows of K
+    is exact, whatever order the matmul adds in; the piece-limb products
+    are then combined with their weights 2^(16 (i + j)) mod 2^64."""
+    n_pieces = max(1, -(-radix_log // _LIMB))
+    pieces = [(d >> (_LIMB * i)) & 0xFFFF if i < n_pieces - 1
+              else d >> (_LIMB * i) for i in range(n_pieces)]
+    limbs = torch.stack([srl(words, _LIMB * j) & 0xFFFF if j else
+                         words & 0xFFFF for j in range(64 // _LIMB)], 1)
     k, nl, w = limbs.shape
-    part = torch.matmul(d.to(torch.float64),
-                        limbs.reshape(k, nl * w).to(torch.float64))
-    part = part.round().to(torch.int64).reshape(-1, nl, w)
-    out = part[:, 0]
-    for i in range(1, nl):
-        out = out + part[:, i] * (1 << (_LIMB * i))      # wraps mod 2^64
+    lhs = torch.cat(pieces).to(torch.float64)            # [P R, K]
+    rhs = limbs.reshape(k, nl * w).to(torch.float64)
+    part = None
+    for c in range(0, k, _CHUNK):
+        p = torch.matmul(lhs[:, c:c + _CHUNK], rhs[c:c + _CHUNK])
+        p = p.round().to(torch.int64)                    # exact, < 2^53
+        part = p if part is None else part + p           # wraps mod 2^64
+    part = part.reshape(n_pieces, d.shape[0], nl, w)
+    out = None
+    for i in range(n_pieces):
+        for j in range(nl - i):
+            term = part[i, :, j] * (1 << (_LIMB * (i + j)))  # wraps
+            out = term if out is None else out + term
     return out
 
 
@@ -390,15 +400,14 @@ def keyswitch_lwe_to_lwe(ct, ksk, to_params: LweDef,
                          radix: RadixDecomposition):
     """(0, b) - sum_{i,j} d_{i,j} KSK_{i,j}, with d the gadget digits of
     the mask a. The [batch, n_in l] x [n_in l, n_out+1] product runs as
-    one exact float64 matmul over 16-bit limbs (`_exact_dot`): CUDA has
+    exact float64 matmuls over 16-bit limbs (`_exact_dot`): CUDA has
     no int64 matmul, and the broadcast product would hold
     batch n_in l (n_out+1) words."""
     a, b = ct[..., :-1], ct[..., -1]
     n_in, w = a.shape[-1], ksk.shape[-1]
     digits = torus.signed_decompose(a, radix.radix_log, radix.count)
     d = torch.movedim(digits, 0, -1).reshape(-1, n_in * radix.count)
-    acc = _exact_dot(d, ksk.reshape(n_in * radix.count, w),
-                     1 << (radix.radix_log - 1))
+    acc = _exact_dot(d, ksk.reshape(n_in * radix.count, w), radix.radix_log)
     out = (-acc).reshape(*a.shape[:-1], w)
     out[..., -1] += b
     return out

@@ -14,6 +14,7 @@ import torch
 
 from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.bfv import BfvParams, get_context, keys, ops
+from sunscreen_tpu_torch.errors import InvalidArgument
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_u32_v1.npz")
 
@@ -65,9 +66,10 @@ def port(golden, reference):
     """The port's context and the reference's keys carried over."""
     ctx = get_context(BfvParams.insecure(512, limbs=3, limb_bits=27), "cpu")
     _, ref = reference
-    sk, _, rlk = keys.from_reference(ctx, s=golden["sk"], k0=ref["k0"],
-                                     k1=ref["k1"])
-    return ctx, sk, rlk, keys.galois_from_reference(ctx, ref["galois"])
+    sk, _, rlk = keys.from_reference(ctx, mode="pallas", s=golden["sk"],
+                                     k0=ref["k0"], k1=ref["k1"])
+    return ctx, sk, rlk, keys.galois_from_reference(ctx, ref["galois"],
+                                                    "pallas")
 
 
 def test_params_match_reference(golden, reference):
@@ -88,17 +90,24 @@ def test_params_match_reference(golden, reference):
 
 def test_from_reference_is_a_move(golden, reference, port):
     """Same NTT layout: the port's own transforms of the reference's s
-    reproduce the reference's stored NTT images."""
+    reproduce the reference's stored NTT images. NTT-domain arrays from
+    a reference context of another mode, or of no stated mode, raise."""
     _, ref = reference
     ctx, sk, rlk, _ = port
     np.testing.assert_array_equal(sk.s.numpy(), golden["sk"])
     np.testing.assert_array_equal(sk.s_ntt_q.numpy(), ref["s_ntt_q"])
     np.testing.assert_array_equal(sk.s_ntt_key.numpy(), ref["s_ntt_key"])
     assert rlk.k0.dtype == torch.int64 and rlk.k0.shape == ref["k0"].shape
-    moved, _, _ = keys.from_reference(ctx, s=ref["s"],
+    moved, _, _ = keys.from_reference(ctx, mode="pallas", s=ref["s"],
                                       s_ntt_q=ref["s_ntt_q"],
                                       s_ntt_key=ref["s_ntt_key"])
     assert torch.equal(moved.s_ntt_key, sk.s_ntt_key)
+    for mode in ("pallas_vpu", "unrolled", None):
+        with pytest.raises(InvalidArgument, match="NTT"):
+            keys.from_reference(ctx, mode=mode, s=ref["s"],
+                                s_ntt_q=ref["s_ntt_q"])
+        with pytest.raises(InvalidArgument, match="NTT"):
+            keys.galois_from_reference(ctx, ref["galois"], mode)
 
 
 def test_multiply_relin_matches_golden(golden, port):

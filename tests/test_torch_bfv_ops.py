@@ -106,7 +106,8 @@ def port(ref):
     carried over unchanged."""
     ctx = get_context(BfvParams.insecure(N, plain_modulus=T, limbs=2,
                                          limb_bits=28), "cpu", "pallas_vpu")
-    sk, pk, _ = keys.from_reference(ctx, **ref["sk"], **ref["pk"])
+    sk, pk, _ = keys.from_reference(ctx, mode="pallas_vpu", **ref["sk"],
+                                    **ref["pk"])
     return ctx, sk, pk
 
 

@@ -177,9 +177,18 @@ def test_cpu_tensors_never_launch():
 
 
 def test_get_plan_envelope():
+    """The plan cache, the u32 kernels' N <= 16384 bound, and the u64
+    engine's plans where the u32 plans end: moduli above 30 bits (the
+    CPU default "unrolled") and N below 256 ("matmul", as the reference
+    degrades "pallas")."""
     mods = tuple(rprimes.gen_ntt_primes(29, 2, 256))
     assert pntt.get_plan(256, mods, "cpu") is pntt.get_plan(256, mods, "cpu")
     with pytest.raises(Unsupported):
-        pntt.get_plan(256, tuple(rprimes.gen_ntt_primes(40, 1, 256)), "cpu")
-    with pytest.raises(Unsupported):
-        pntt.get_plan(128, tuple(rprimes.gen_ntt_primes(29, 1, 128)), "cpu")
+        pntt.get_plan(32768, tuple(rprimes.gen_ntt_primes(29, 1, 32768)),
+                      "cpu")
+    wide = pntt.get_plan(256, tuple(rprimes.gen_ntt_primes(40, 1, 256)),
+                         "cpu")
+    assert type(wide) is pntt.NttPlan and wide.mode == "unrolled"
+    small = pntt.get_plan(128, tuple(rprimes.gen_ntt_primes(29, 1, 128)),
+                          "cpu")
+    assert small.mode == "matmul"

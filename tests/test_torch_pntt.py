@@ -15,8 +15,8 @@ from sunscreen_tpu.math import pmntt as rpmntt
 from sunscreen_tpu.math import pntt as rpntt
 from sunscreen_tpu.math import primes as rprimes
 from sunscreen_tpu_torch import _build
-from sunscreen_tpu_torch.errors import Unsupported
-from sunscreen_tpu_torch.math import ntt, pmntt, pntt
+from sunscreen_tpu_torch.bfv import BfvParams, get_context
+from sunscreen_tpu_torch.math import mntt, ntt, pmntt, pntt
 
 
 def _t(a) -> torch.Tensor:
@@ -136,13 +136,14 @@ def test_fwd_tensor3_full_matches_reference():
 def test_degrade_rules_match_reference(monkeypatch):
     """The mode `get_plan` settles on, against the reference's get_plan
     (its plan constructor stubbed to return the mode), over the modes,
-    sizes and modulus widths around every rule; the port builds the u32
-    plans and the unrolled one and raises for the u64 engine's modes."""
+    sizes and modulus widths around every rule; the port builds a plan
+    of that mode in every case."""
     monkeypatch.setattr(rntt, "_plan_cached", lambda n, mods, mode: mode)
     widths = {"w16": (16,), "w18": (18, 29), "w29": (29, 30), "w40": (40,),
               "w60": (60,)}
     kinds = {"pallas": pmntt.NttPlanU32, "pallas_vpu": pntt.PallasNttPlan,
-             "unrolled": ntt.NttPlan}
+             "unrolled": ntt.NttPlan, "compact": ntt.NttPlan,
+             "matmul": mntt.MatmulNttPlan}
     for mode in ("pallas", "pallas_vpu", "unrolled", "matmul", "compact"):
         for n in (128, 256):
             for bits in widths.values():
@@ -150,20 +151,29 @@ def test_degrade_rules_match_reference(monkeypatch):
                              for b in bits)
                 want = rntt.get_plan(n, mods, mode)
                 assert ntt.degrade(n, mods, mode) == want, (mode, n, bits)
-                if want in kinds:
-                    plan = ntt.get_plan(n, mods, "cpu", mode)
-                    assert type(plan) is kinds[want] and plan.mode == want
-                else:
-                    with pytest.raises(Unsupported, match="A7"):
-                        ntt.get_plan(n, mods, "cpu", mode)
+                plan = ntt.get_plan(n, mods, "cpu", mode)
+                assert type(plan) is kinds[want] and plan.mode == want
 
 
 def test_resolve_mode_reads_settings(monkeypatch):
     """The argument, then SUNSCREEN_TPU_NTT, then the legacy
-    SUNSCREEN_TPU_COMPACT_NTT=1, then "pallas" on every device."""
+    SUNSCREEN_TPU_COMPACT_NTT=1, then the device's default: "pallas",
+    except "unrolled" on the CPU for moduli above 30 bits, the
+    reference's CPU default, so that the golden u64 vectors come out
+    under default settings (a BFV context takes it for its moduli)."""
     monkeypatch.delenv("SUNSCREEN_TPU_NTT", raising=False)
     monkeypatch.delenv("SUNSCREEN_TPU_COMPACT_NTT", raising=False)
     assert ntt.resolve_mode() == "pallas"
+    wide = tuple(rprimes.gen_ntt_primes(40, 2, 256))
+    narrow = tuple(rprimes.gen_ntt_primes(29, 2, 256))
+    assert ntt.resolve_mode(None, "cpu", wide) == "unrolled"
+    assert ntt.resolve_mode(None, "cpu", narrow) == "pallas"
+    assert ntt.resolve_mode(None, None, wide) == "pallas"
+    assert ntt.degrade(256, wide, ntt.resolve_mode(None, None, wide)) \
+        == "matmul"
+    assert type(ntt.get_plan(256, wide, "cpu")) is ntt.NttPlan
+    u64_ctx = get_context(BfvParams.insecure(256, limbs=2), "cpu")
+    assert (u64_ctx.mode, u64_ctx.plan_key.mode) == ("unrolled", "unrolled")
     monkeypatch.setenv("SUNSCREEN_TPU_COMPACT_NTT", "1")
     assert ntt.resolve_mode() == "compact"
     monkeypatch.setenv("SUNSCREEN_TPU_NTT", "pallas_vpu")

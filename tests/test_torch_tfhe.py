@@ -117,12 +117,28 @@ def test_sample_extract_matches_reference(ref, coeff):
 
 def test_keyswitch_matches_reference(ref):
     """keyswitch_lwe_to_lwe on the extracted ciphertexts and on
-    full-range words: the exact float64 product over 16-bit limbs."""
+    full-range words: the exact float64 product over 16-bit limbs. Then
+    wide digits at n_in = 1024, n_out = 8, uniform words from numpy: one
+    28-bit digit (where the port raised before the digits were split
+    into 16-bit pieces too) and two 32-bit digits."""
     ksk = keys.words(ref["ksk"], "cpu")
     for ct, want in ((ref["extract"][0], ref["pbs"]),
                      (ref["wide"], ref["wide_ks"])):
         got = ops.keyswitch_lwe_to_lwe(keys.words(ct, "cpu"), ksk, LWE,
                                        KS_RADIX)
+        np.testing.assert_array_equal(_u64(got), want)
+    rng = np.random.default_rng(0)
+    n_in = 1024
+    for count, radix_log in ((1, 28), (2, 32)):
+        ct = rng.integers(0, 1 << 64, (n_in + 1,), dtype=np.uint64)
+        wide_ksk = rng.integers(0, 1 << 64, (n_in, count, DIM + 1),
+                                dtype=np.uint64)
+        want = np.asarray(rops.keyswitch_lwe_to_lwe(
+            jnp.asarray(ct), jnp.asarray(wide_ksk), RefLweDef(DIM, STD),
+            RefRadix(count, radix_log)))
+        got = ops.keyswitch_lwe_to_lwe(
+            keys.words(ct, "cpu"), keys.words(wide_ksk, "cpu"), LWE,
+            RadixDecomposition(count, radix_log))
         np.testing.assert_array_equal(_u64(got), want)
 
 
