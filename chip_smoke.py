@@ -2,8 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against OTHER_TREE
 
-Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc`, holds
+Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc` (printing
+ptxas' registers, stack and spills of the transform kernels in ntt.cu and
+tensor3.cu with each one's threads and shared memory a block), holds
 each of the twenty-one kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
 `BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
@@ -13,9 +16,12 @@ for B16 and B17; [512, 8192] u64 words under a 54-bit limb of
 `default_u32(16384)` shapes (batch 2; B16 also at N=128 and on the
 encoder's (t,) plan, B17 with broadcast operands; B18 and B19 under the
 moduli of tests/test_pallas_mod.py and a 61-bit prime, edge values and
-broadcast tables included, also against a big-int oracle), then drives
-fourteen paths, each with the launch counts set to 0 just before it and
-read just after:
+broadcast tables included, also against a big-int oracle; B1 and B3
+also at the TFHE step's [384, 4, 1024], timed with their bounds), holds
+B1-B3 at every N from 256 to 16384 and B4 and B13 at every N up to 8192
+(`transform_checks`: edge residues, raw words up to 2^32 - 1, a 30-bit
+and three small moduli), then drives fourteen paths, each with the
+launch counts set to 0 just before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
    batch 64, under the default fusion settings;
@@ -67,6 +73,13 @@ Prints the card, each kernel's times
 and launch counts as one JSON line, the rates, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no GPU is visible or any check fails.
+
+With --against OTHER_TREE (another checkout of this repo, such as a
+`git archive` of the parent commit) it runs that tree's chip_smoke.py and
+this one in turns on the same card (other, this, this, other), keeps the
+four logs under chiprun_out/compare/ and prints each number both report
+(kernel times, rates, each profiled cell's device time by kernel) side
+by side; it fails if any of the four runs fails.
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -632,10 +646,48 @@ def u64_checks(gen) -> dict[str, dict]:
     return out
 
 
+def _timing(label, kern, plain, args, nbytes: int, muls: int,
+            library=None) -> dict:
+    """A kernel's device time on prepared inputs beside its plain twin's,
+    its bound (bytes or 32-bit multiplies, whichever takes longer) and,
+    where given, one PyTorch call computing the same function."""
+    ms = _median_ms(lambda: kern(*args), reps=5, iters=KERNEL_ITERS)
+    plain_ms = _median_ms(lambda: plain(*args), reps=3, iters=2)
+    library_ms = (_median_ms(lambda: library(*args), reps=5,
+                             iters=KERNEL_ITERS) if library else None)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = muls / PEAK_INT_MULS_PER_S * 1e3
+    print(f"time {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB "
+          f"= {t_bytes:.4f} ms, {muls / 1e9:.4f} G 32-bit multiplies "
+          f"= {t_ops:.4f} ms)"
+          + (f", library {library_ms:.4f} ms" if library else ""),
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def pbs_transform_cases(gen, batch: int) -> list[tuple]:
+    """B1 and B3 at the blind-rotation step's [6 batch, 4, 1024] (path 7
+    runs B1 there 512 times per PBS): (name, kernel, plain twin, args,
+    bytes, 32-bit multiplies)."""
+    plan = _pbs_plan()
+    rows, k, n = 6 * batch, plan.k, plan.n
+    ntt_muls = 3 * (n // 2) * plan.logn
+    x = _max_residues(_uniform(gen, (rows, k, n), plan.q), plan.q)
+    nbytes = 2 * rows * k * n * WORD
+    return [("fwd", plan.fwd, plan.fwd_plain, (x,), nbytes,
+             rows * k * ntt_muls),
+            ("inv", plan.inv, plan.inv_plain, (x,), nbytes,
+             rows * k * (ntt_muls + 3 * n))]
+
+
 def check_kernels(ctx, gen) -> list[dict]:
     """Each kernel entry point against its plain twin at the main-path
     shapes, bit for bit, with both times, the bound and, where one
-    PyTorch expression computes the same function, its time."""
+    PyTorch expression computes the same function, its time; B1 and B3
+    also at the PBS step's shape."""
     rows = []
     from sunscreen_tpu_torch.bfv import BfvParams
 
@@ -645,24 +697,19 @@ def check_kernels(ctx, gen) -> list[dict]:
                        + vpu_kernel_cases(ctx.params, gen, BATCH)
                        + u64_kernel_cases(BfvParams.default(N), gen)):
         err = _held(name, kern, plain, args)
-        ms = _median_ms(lambda: kern(*args), reps=5, iters=KERNEL_ITERS)
-        plain_ms = _median_ms(lambda: plain(*args), reps=3, iters=2)
-        library_ms = (_median_ms(lambda: library[0](*args), reps=5,
-                                 iters=KERNEL_ITERS) if library else None)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = muls / PEAK_INT_MULS_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms})
-        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB "
-              f"= {t_bytes:.4f} ms, {muls / 1e9:.4f} G 32-bit multiplies "
-              f"= {t_ops:.4f} ms)"
-              + (f", library {library_ms:.4f} ms" if library else ""),
-              flush=True)
+            "launches": 0, "max_abs_err": err,
+            **_timing(name, kern, plain, args, nbytes, muls,
+                      library[0] if library else None)})
+    at_pbs = {}
+    for name, kern, plain, args, nbytes, muls in pbs_transform_cases(
+            gen, BATCH):
+        shape = list(args[0].shape)
+        _held(f"{name}@{shape}", kern, plain, args)
+        at_pbs[name] = {"shape": shape,
+                        **_timing(f"{name} at {shape}", kern, plain, args,
+                                  nbytes, muls)}
     extra_checks(ctx, gen, BATCH)
     ks_full_extremes(_pbs_plan(), gen, 2)
     vpu_extra_checks(ctx.params, gen, BATCH)
@@ -670,13 +717,15 @@ def check_kernels(ctx, gen) -> list[dict]:
     for row in rows:
         if row["name"] in at31:
             row["at_q_2_31_minus_1"] = at31[row["name"]]
+        if row["name"] in at_pbs:
+            row["at_pbs_step"] = at_pbs[row["name"]]
     return rows
 
 
 def check_wide(gen) -> None:
     """Every kernel but fwd_tensor3 at the default_u32(16384) shapes:
-    N=16384 transforms (64 and 128 KB of shared memory per block for B1,
-    B2, B3 and B5, 192 KB for B12), a 29-limb multiply base whose limb
+    N=16384 transforms (128 KB of shared memory per block for B1-B3 and
+    B5, 192 KB for B12), a 29-limb multiply base whose limb
     sums fold, and 14 keyswitch digits."""
     from sunscreen_tpu_torch.bfv import BfvParams, get_context
 
@@ -686,6 +735,98 @@ def check_wide(gen) -> None:
     for name, kern, plain, args, *_ in kernel_cases(ctx, gen, WIDE_BATCH):
         _held(f"{name}@{WIDE_N}", kern, plain, args)
     extra_checks(ctx, gen, WIDE_BATCH)
+
+
+def transform_checks(gen, rows: int = 3) -> None:
+    """B1-B4 and B13 wherever the schedule of csrc/transform.cuh changes:
+    fwd, fwd_broadcast and inv at every N from 256 to 16384 (radix-8 groups
+    at 256, radix-16 above, 2 to 4 groups, several polynomials per block
+    below 8192, a block's spare slots when rows * k is not a multiple of
+    them), fwd_tensor3 and fwd_tensor3_full up to TENSOR3_MAX_N; under one
+    limb at the largest 30-bit NTT prime (the lazy butterflies' values
+    reach 4q - 1 < 2^32) and three small ones (17 + log2 N - 8 bits).
+    Residues include 0 and q - 1 in every polynomial and a polynomial of
+    q - 1 only, and one word above 2^62 in the others (the loads' 64-bit
+    reduction; below 2^32 they take a 32-bit one); fwd_broadcast's raw
+    words include 2^32 - 1 and a row of them."""
+    import torch
+    from sunscreen_tpu_torch.math import pmntt, primes
+
+    for logn in range(8, 15):
+        n = 1 << logn
+        for k, bits in ((1, 30), (3, 17 + logn - 8)):
+            plan = pmntt.NttPlanU32(
+                n, tuple(primes.gen_ntt_primes(bits, k, n)), DEV)
+            x = _uniform(gen, (rows, k, n), plan.q)
+            x[..., 0] = plan.q[:, 0] - 1
+            x[..., 1] = 0
+            x[..., 2] = (1 << 62) + 12345   # the loads' 64-bit reduction
+            x[0] = plan.q - 1
+            raw = torch.randint(0, 1 << 32, (rows, n), generator=gen,
+                                device=DEV, dtype=torch.int64)
+            raw[:, 0] = (1 << 32) - 1
+            raw[0] = (1 << 32) - 1
+            tag = f"@[{rows},{k},{n}] {bits}b"
+            _held(f"fwd{tag}", plan.fwd, plan.fwd_plain, (x,))
+            _held(f"fwd_broadcast{tag}", plan.fwd_broadcast,
+                  plan.fwd_broadcast_plain, (raw,))
+            _held(f"inv{tag}", plan.inv, plan.inv_plain, (x,))
+            if n > pmntt.TENSOR3_MAX_N:
+                continue
+            ext = _uniform(gen, (rows, 4, k, n), plan.q)
+            ext[..., 0] = plan.q[:, 0] - 1
+            ext[..., 2] = (1 << 62) + 12345
+            ext[0] = plan.q - 1
+            _held(f"fwd_tensor3{tag}", plan.fwd_tensor3,
+                  plan.fwd_tensor3_plain, (ext,))
+            _held(f"fwd_tensor3_full{tag}",
+                  lambda e, p=plan: p.fwd_tensor3(e, full=True),
+                  plan.fwd_tensor3_full_plain, (ext,))
+
+
+def transform_shape(n: int) -> tuple[int, int]:
+    """(threads per block, polynomials per block) of csrc/transform.cuh's
+    Shape for N = n: N/8 threads a polynomial at N = 256, N/16 above, as
+    many polynomials as fill 512 threads."""
+    threads = n // (8 if n == 256 else 16)
+    polys = max(1, 512 // threads)
+    return threads * polys, polys
+
+
+def print_ptxas() -> None:
+    """ptxas' registers, stack and spills of every instantiation in
+    csrc/ntt.cu and csrc/tensor3.cu, with the block's threads and dynamic
+    shared memory (two exchange buffers for ntt.cu, the exchange buffer and
+    two stashes for tensor3.cu, per polynomial)."""
+    import re
+    from sunscreen_tpu_torch import _build
+
+    for src, buffers in (("ntt", 2), ("tensor3", 3)):
+        kernel = None
+        for line in _build.build_log(src).splitlines():
+            m = re.search(r"entry function '_Z\d+(\w+?)ILi(\d+)E(Lb(\d))?E",
+                          line)
+            if m:
+                kernel = (m.group(1), int(m.group(2)), m.group(4))
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and kernel:
+                spill = m.groups()
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                name, logn, full = kernel
+                threads, polys = transform_shape(1 << logn)
+                smem = buffers * polys * (1 << logn) * 4
+                print(f"ptxas {name}<{logn}"
+                      + ("" if full is None else
+                         f", {'true' if full == '1' else 'false'}")
+                      + f">: {m.group(1)} registers, {spill[0]} B stack, "
+                      f"{spill[1]}/{spill[2]} B spill stores/loads; "
+                      f"{threads} threads, {smem} B dynamic shared memory "
+                      f"a block", flush=True)
+                kernel = None
 
 
 # Each CUDA kernel function of the port and the `_build.LAUNCHES` keys whose
@@ -704,11 +845,14 @@ KERNEL_KEYS = {
     "u64_shoup_kernel": ("shoup_mul_mod",),
     "u64_mul_mod_kernel": ("mul_mod",),
     "pointwise_mul_mod_kernel": ("pointwise_mul_mod",)}
-PROFILE_RETRIES = 3
+PROFILE_RETRIES = 5
 MARK_CYCLES = 200_000        # a 0.1 ms spin marks each end of a profile window
 WARMUP_SPINS, WARMUP_STEPS = 4, 2   # traced ahead of the window, not counted
 # Host wait after a trace starts: the events of a fresh trace's first
 # milliseconds can be lost (up to the first 16 spins, 1.6 ms, in one run).
+# A trace can also lose all but its last events (cell 12 kept 1 of its 6
+# spins four times running in one run); each retry doubles the wait and
+# the warm-up spins.
 TRACE_SETTLE_S = 0.3
 
 
@@ -772,7 +916,8 @@ def profile_breakdown(label, step, batches: int = 3) -> dict:
     event of the warm-up or of the trace's end is counted in it. The
     window must hold one event per launch that `_build.LAUNCHES` counted
     in it, for every port kernel: a window that differs is profiled
-    again, up to PROFILE_RETRIES times, and then the run fails."""
+    again, up to PROFILE_RETRIES times, after a longer wait and warm-up,
+    and then the run fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -780,10 +925,11 @@ def profile_breakdown(label, step, batches: int = 3) -> dict:
 
     mark = _spin_name()
     for attempt in range(PROFILE_RETRIES + 1):
+        warmup_spins = WARMUP_SPINS << attempt
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            time.sleep(TRACE_SETTLE_S)
-            for _ in range(WARMUP_SPINS):
+            time.sleep(TRACE_SETTLE_S * 2 ** attempt)
+            for _ in range(warmup_spins):
                 torch.cuda._sleep(MARK_CYCLES)
             for _ in range(WARMUP_STEPS):
                 step()
@@ -820,7 +966,8 @@ def profile_breakdown(label, step, batches: int = 3) -> dict:
             break
         spins = sum(ev.name == mark for ev in device)
         print(f"profile {label}: window {attempt + 1} discarded: "
-              f"{spins} of {WARMUP_SPINS + 2} spins found, kernel events "
+              f"{spins} of {warmup_spins + 2} spins and {len(device)} "
+              f"device events in the trace, kernel events "
               f"against launches {json.dumps(lost)} (events, launches), "
               f"device busy "
               f"{sum(per_name.values()) / batches / 1e3:.3f} ms per "
@@ -1491,6 +1638,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print_ptxas()
 
     params = BfvParams.default_u32(N)
     ctx = get_context(params, DEV)
@@ -1500,6 +1648,7 @@ def main() -> int:
     gen = torch.Generator(device=DEV).manual_seed(0)
     table = check_kernels(ctx, gen)
     check_wide(gen)
+    transform_checks(gen)
     t = params.plain_modulus
     paths: dict[str, tuple[dict, dict]] = {}
 
@@ -1625,5 +1774,81 @@ def main() -> int:
     return 0
 
 
+COMPARE_TURNS = ("against", "this", "this", "against")
+RATE_RE = re.compile(r"(?:^|, )([A-Za-z_][\w@ ()]*?): ([0-9.e+]+) "
+                     r"(ops/s|rotations/s|PBS/s|elements/s)")
+PROFILE_RE = re.compile(r"profile (\S+):\s+([0-9.]+) ms\s+[0-9.]+%\s+(.*)")
+
+
+def _parse_run(text: str) -> dict[str, float]:
+    """The numbers of one run's log that a comparison reads: every entry
+    point's kernel ms (and B1/B3 at the PBS step where the run timed
+    them), every rate, and each profiled cell's device ms per batch by
+    kernel function."""
+    out: dict[str, float] = {}
+    for line in text.splitlines():
+        if line.startswith('{"kernels"'):
+            for row in json.loads(line)["kernels"]:
+                out[f"kernel {row['name']} ms"] = row["ms"]
+                if "at_pbs_step" in row:
+                    out[f"kernel {row['name']}@pbs_step ms"] = (
+                        row["at_pbs_step"]["ms"])
+        for m in RATE_RE.finditer(line):
+            out[f"rate {m.group(1)} {m.group(3)}"] = float(m.group(2))
+        m = PROFILE_RE.match(line)
+        if m:
+            key = f"profile {m.group(1)} {_kernel_fn(m.group(3))} ms"
+            out[key] = out.get(key, 0.0) + float(m.group(2))
+    return out
+
+
+def compare(against: str) -> int:
+    """Runs `against`/chip_smoke.py (another tree of this repo, say the
+    parent commit's `git archive`) and this one in turns, against, this,
+    this, against, each in its own process on the same card, keeps each
+    log under chiprun_out/compare/, and prints every number both runs
+    report as the two readings of each side, their means and this / against.
+    Fails if any run fails."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"against": os.path.abspath(against), "this": here}
+    logs = os.path.join(os.getcwd(), "chiprun_out", "compare")
+    os.makedirs(logs, exist_ok=True)
+    runs: dict[str, list[dict[str, float]]] = {"against": [], "this": []}
+    failed = []
+    for i, side in enumerate(COMPARE_TURNS):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "chip_smoke.py"],
+                              cwd=trees[side], capture_output=True,
+                              text=True)
+        log = os.path.join(logs, f"{i}_{side}.log")
+        with open(log, "w") as f:
+            f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        print(f"compare run {i} ({side}, {trees[side]}): rc "
+              f"{proc.returncode}, {time.perf_counter() - t0:.1f} s, {log}",
+              flush=True)
+        if proc.returncode:
+            failed.append(i)
+            print(proc.stderr[-2000:], flush=True)
+        runs[side].append(_parse_run(proc.stdout))
+    for key in sorted(set().union(*runs["this"], *runs["against"])):
+        vals = {side: [r[key] for r in runs[side] if key in r]
+                for side in runs}
+        mean = {side: sum(v) / len(v) for side, v in vals.items() if v}
+        ratio = (f", this / against {mean['this'] / mean['against']:.4f}"
+                 if len(mean) == 2 and mean["against"] else "")
+        print(f"compare {key}: against "
+              f"{' '.join(f'{v:g}' for v in vals['against']) or '-'}, this "
+              f"{' '.join(f'{v:g}' for v in vals['this']) or '-'}{ratio}",
+              flush=True)
+    if failed:
+        print(f"compare: runs {failed} failed", file=sys.stderr)
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--against":
+        sys.exit(compare(sys.argv[2]))
+    if len(sys.argv) != 1:
+        sys.exit("usage: chip_smoke.py [--against OTHER_TREE]")
     sys.exit(main())

@@ -3,8 +3,10 @@
 Each `csrc/<name>.cu` becomes `lib<name>.so`, a plain C interface, in
 `_kbuild/<digest>/` beside this file (listed in .gitignore). The digest
 covers every source, header and flag, so an edit rebuilds. All missing
-libraries are compiled at once, one nvcc process per source. Nothing is
-built when the package is imported: the first launch builds.
+libraries are compiled at once, one nvcc process per source, and each
+one's nvcc output (with ptxas' resource usage) is kept beside it as
+`lib<name>.log`. Nothing is built when the package is imported: the
+first launch builds.
 
 `LAUNCHES` counts kernel launches per entry point, for every wrapper of
 the port (`math/pmntt.py`, `math/prns.py`); the plain twins never count.
@@ -28,7 +30,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "_kbuild")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # C entry points per source: "p" = pointer or stream, "i" = int,
 # "l" = int64, "u" = uint64.
@@ -110,10 +112,19 @@ def build_all() -> dict[str, str]:
             if proc.returncode:
                 errors.append(f"--- {s}.cu (rc {proc.returncode}) ---\n{log}")
             else:
+                with open(paths[s][:-3] + ".log", "w") as f:
+                    f.write(log)
                 os.replace(paths[s] + ".tmp", paths[s])
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return paths
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for csrc/<name>.cu (ptxas' registers, stack and spills
+    of each kernel), building it first if needed."""
+    with open(build_all()[name][:-3] + ".log") as f:
+        return f.read()
 
 
 def lib(name: str) -> ctypes.CDLL:

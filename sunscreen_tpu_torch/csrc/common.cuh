@@ -1,14 +1,18 @@
 // Shared device code of the u32-engine kernels (ntt.cu, tensor3.cu,
-// inv_ks.cu, inv_tensor3.cu, rns.cu, pointwise.cu): modular helpers, the
-// per-modulus tables, the exact 128-bit fixed-point sum of
-// the RNS conversions, the radix-2 transforms on shared memory, and the map
-// from the plan's flat NTT domain to the butterflies' bit-reversed order.
+// inv_ks.cu, inv_tensor3.cu, ks_full.cu, pntt.cu, rns.cu, pointwise.cu):
+// modular helpers, the per-modulus tables, the exact 128-bit fixed-point sum
+// of the RNS conversions, the radix-2 transforms on shared memory (inv_ks,
+// inv_tensor3, ks_full, pntt; ntt.cu and tensor3.cu use the register-
+// resident ones of transform.cuh), and the map from the plan's flat NTT
+// domain to the butterflies' bit-reversed order.
 //
 // Tensors cross the C interface as int64 residues (values < 2^32). Per limb
 // the plan uploads:
 //   tw     [k][4][N] u32: psi_rev, its Shoup ratios, psi_inv_rev, its Shoup
 //          ratios, where psi_rev[i] = psi^brev(i) and psi is the minimal
 //          primitive 2N-th root of unity mod q;
+//   twp    [k][2][N] u64: the same pairs (w | w_sh << 32), psi_rev then
+//          psi_inv_rev (transform.cuh);
 //   consts [k][4] int64: q, floor(2^64 / q), N^-1 mod q, its Shoup ratio.
 #pragma once
 

@@ -2,92 +2,133 @@
 //
 // Replaces the Pallas kernel sunscreen_tpu/math/pmntt.py::_make_transform
 // (pallas_call at pmntt.py:354) in its three uses: PallasMatmulNttPlan.fwd
-// (inverse=False), .fwd_broadcast (broadcast=True) and .inv (inverse=True).
-// The output domain is the same: flat position j2 * n1 + j1 holds natural
-// NTT index j2 + 128 j1; the inverse returns natural coefficient order with
-// 1/N folded in.
-//
-// Design: one thread block per (row, limb) polynomial. The block loads the
-// polynomial into shared memory (32 KB at N = 8192), reducing every input
-// mod q, so fwd and fwd_broadcast are exact for any u32 value. It runs the
-// log2 N radix-2 stages there with Shoup multiplies (__umulhi) on per-limb
-// twiddle tables that the plan uploads once, and stores to device memory
-// once, coalesced, through the flat-domain permutation.
+// (inverse=False, B1), .fwd_broadcast (broadcast=True, B2) and .inv
+// (inverse=True, B3). The output domain is the same: flat position
+// j2 * n1 + j1 holds natural NTT index j2 + 128 j1; the inverse returns
+// natural coefficient order with 1/N folded in.
 //
 // Bound on the H100 at the main-path shapes (int64 residues in and out):
 // fwd / inv on [256, 15, 8192] move 2 * 252 MB, about 0.15 ms at 3.35 TB/s;
 // their 3 * (N/2) * log2 N = 159,744 32-bit multiplies per polynomial make
-// 0.61 G multiplies, about 0.04 ms at 16.7 T integer multiplies/s. So they
+// 0.61 G multiplies, about 0.04 ms at 16.75 T integer multiplies/s. So they
 // are bound by bytes. fwd_broadcast on [448, 8192] -> [448, 8, 8192] reads
-// 29 MB and writes 235 MB. The design reads and writes each residue once;
-// the int64 storage doubles those bytes against u32 storage, which a later
-// change can narrow.
+// 29 MB and writes 235 MB, 0.08 ms.
+//
+// Design (transform.cuh): each polynomial is held in registers by N / 16
+// threads, 16 coefficients each (N / 8 threads of 8 at N = 256), several
+// polynomials per block below N = 8192 so that a block has 512 threads
+// (1024 at N = 16384). Each thread loads its coefficients as coalesced
+// int64 reads and reduces them below 2q (one 32-bit Barrett step while
+// they fit 32 bits, the 64-bit reduction otherwise, so fwd and
+// fwd_broadcast are exact for any value below 2^63), runs the log2 N
+// stages in groups of four in registers with lazy butterflies and one
+// 8-byte load of each twiddle and its Shoup ratio from the plan's pair
+// table, and exchanges through conflict-free swizzled shared memory
+// between groups: 3 exchanges and 3 barriers at N = 8192, where the
+// radix-2 design of earlier versions made 13 passes through shared
+// memory, each with two loads and two stores per butterfly and a barrier.
+// The flat-domain permutation is one more exchange (the last of the
+// forward transform, the first of the inverse), so the int64 stores and
+// loads stay coalesced. Two exchange buffers alternate, one barrier per
+// exchange. A block takes 64 KB of shared memory and ptxas gives a thread
+// about 64 registers, so two blocks share an SM and one's loads and stores
+// overlap the other's butterflies.
 
-#include "common.cuh"
+#include "transform.cuh"
 
-__global__ void ntt_fwd_kernel(const long long* __restrict__ x,
-                               long long* __restrict__ out,
-                               const u32* __restrict__ tw,
-                               const long long* __restrict__ consts, int k,
-                               int logn, int broadcast) {
+template <int LOGN>
+__global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS)
+    ntt_fwd_kernel(const long long* __restrict__ x,
+                   long long* __restrict__ out, const u64* __restrict__ twp,
+                   const long long* __restrict__ consts, int k, int polys,
+                   int broadcast) {
+  using S = tf::Shape<LOGN>;
   extern __shared__ u32 sm[];
-  const int n = 1 << logn;
-  const int row = blockIdx.x / k, limb = blockIdx.x % k;
+  const u32 tau = threadIdx.x % S::T;
+  const int slot = threadIdx.x / S::T;
+  const int task = blockIdx.x * S::P + slot;
+  // a block's spare slots redo the last polynomial and store nothing: every
+  // thread reaches every barrier
+  const int poly = task < polys ? task : polys - 1;
+  const int row = poly / k, limb = poly % k;
   const Limb L = load_limb(consts, limb);
   // broadcast: every limb of a row transforms the row's single raw poly
-  const long long* src = x + (size_t)(broadcast ? row : blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    sm[i] = reduce64((u64)src[i], L.q, L.m);
-  __syncthreads();
-  const u32* t = tw + (size_t)limb * 4 * n;
-  fwd_smem(sm, 1, logn, t, t + n, L.q);
-  long long* dst = out + (size_t)blockIdx.x * n;
-  for (int p = threadIdx.x; p < n; p += blockDim.x)
-    dst[p] = sm[flat_to_br(p, logn)];
+  const long long* src = x + (size_t)(broadcast ? row : poly) * S::N;
+  u32 v[S::E];
+  tf::load_mod(v, src + tau, S::T, L);
+  tf::Buffers<2> bufs{sm + slot * S::N, S::P * S::N, 0};
+  tf::fwd<LOGN>(v, bufs, tau, twp + (size_t)limb * 2 * S::N, L.q);
+  tf::canon(v, L.q);
+  tf::to_flat<LOGN>(v, bufs.next(), tau);
+  if (task >= polys) return;
+  long long* dst = out + (size_t)poly * S::N;
+#pragma unroll
+  for (int s = 0; s < S::E; ++s) dst[tau + s * S::T] = v[s];
 }
 
-__global__ void ntt_inv_kernel(const long long* __restrict__ x,
-                               long long* __restrict__ out,
-                               const u32* __restrict__ tw,
-                               const long long* __restrict__ consts, int k,
-                               int logn) {
+template <int LOGN>
+__global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS)
+    ntt_inv_kernel(const long long* __restrict__ x,
+                   long long* __restrict__ out, const u64* __restrict__ twp,
+                   const long long* __restrict__ consts, int k, int polys) {
+  using S = tf::Shape<LOGN>;
   extern __shared__ u32 sm[];
-  const int n = 1 << logn;
-  const int limb = blockIdx.x % k;
-  const Limb L = load_limb(consts, limb);
-  const long long* src = x + (size_t)blockIdx.x * n;
-  for (int p = threadIdx.x; p < n; p += blockDim.x)
-    sm[flat_to_br(p, logn)] = reduce64((u64)src[p], L.q, L.m);
-  __syncthreads();
-  const u32* t = tw + (size_t)limb * 4 * n;
-  inv_smem(sm, 1, logn, t + 2 * n, t + 3 * n, L.q);
-  long long* dst = out + (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    dst[i] = mul_shoup(sm[i], L.ninv, L.ninv_sh, L.q);
+  const u32 tau = threadIdx.x % S::T;
+  const int slot = threadIdx.x / S::T;
+  const int task = blockIdx.x * S::P + slot;
+  const int poly = task < polys ? task : polys - 1;
+  const Limb L = load_limb(consts, poly % k);
+  const long long* src = x + (size_t)poly * S::N;
+  u32 v[S::E];
+  tf::load_mod(v, src + tau, S::T, L);
+  tf::Buffers<2> bufs{sm + slot * S::N, S::P * S::N, 0};
+  tf::from_flat<LOGN>(v, bufs.next(), tau);
+  tf::inv<LOGN>(v, bufs, tau, twp + ((size_t)(poly % k) * 2 + 1) * S::N,
+                L.q);
+  if (task >= polys) return;
+  long long* dst = out + (size_t)poly * S::N;
+#pragma unroll
+  for (int s = 0; s < S::E; ++s)
+    dst[tau + s * S::T] = mul_shoup(v[s], L.ninv, L.ninv_sh, L.q);
 }
 
-// x [rows, k, N] (or [rows, N] when broadcast) -> out [rows, k, N]
-extern "C" int ntt_fwd(const void* x, void* out, const void* tw,
+template <int LOGN, bool INV>
+static int launch(const void* x, void* out, const void* twp,
+                  const void* consts, int rows, int k, int broadcast,
+                  void* stream) {
+  using S = tf::Shape<LOGN>;
+  const int polys = rows * k;
+  const int blocks = (polys + S::P - 1) / S::P;
+  const int smem = (int)(2 * sizeof(u32) * S::P * S::N);
+  if constexpr (INV) {
+    cudaFuncSetAttribute(ntt_inv_kernel<LOGN>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    ntt_inv_kernel<LOGN><<<blocks, S::THREADS, smem, (cudaStream_t)stream>>>(
+        (const long long*)x, (long long*)out, (const u64*)twp,
+        (const long long*)consts, k, polys);
+  } else {
+    cudaFuncSetAttribute(ntt_fwd_kernel<LOGN>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    ntt_fwd_kernel<LOGN><<<blocks, S::THREADS, smem, (cudaStream_t)stream>>>(
+        (const long long*)x, (long long*)out, (const u64*)twp,
+        (const long long*)consts, k, polys, broadcast);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x [rows, k, N] (or [rows, N] when broadcast) -> out [rows, k, N];
+// twp [k, 2, N] u64 twiddle pairs (math/pmntt.py::twiddle_pairs)
+extern "C" int ntt_fwd(const void* x, void* out, const void* twp,
                        const void* consts, int rows, int k, int logn,
                        int broadcast, void* stream) {
-  const int smem = (int)(sizeof(u32) << logn);
-  cudaFuncSetAttribute(ntt_fwd_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ntt_fwd_kernel<<<rows * k, ntt_threads(logn), smem, (cudaStream_t)stream>>>(
-      (const long long*)x, (long long*)out, (const u32*)tw,
-      (const long long*)consts, k, logn, broadcast);
-  return (int)cudaGetLastError();
+  TF_DISPATCH(logn, (launch<LOGN, false>(x, out, twp, consts, rows, k,
+                                         broadcast, stream)))
 }
 
 // x [rows, k, N] flat NTT domain -> out [rows, k, N] natural coefficients
-extern "C" int ntt_inv(const void* x, void* out, const void* tw,
+extern "C" int ntt_inv(const void* x, void* out, const void* twp,
                        const void* consts, int rows, int k, int logn,
                        void* stream) {
-  const int smem = (int)(sizeof(u32) << logn);
-  cudaFuncSetAttribute(ntt_inv_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ntt_inv_kernel<<<rows * k, ntt_threads(logn), smem, (cudaStream_t)stream>>>(
-      (const long long*)x, (long long*)out, (const u32*)tw,
-      (const long long*)consts, k, logn);
-  return (int)cudaGetLastError();
+  TF_DISPATCH(logn, (launch<LOGN, true>(x, out, twp, consts, rows, k, 0,
+                                        stream)))
 }

@@ -75,6 +75,17 @@ def kernel_tables(n: int, moduli: tuple[int, ...]):
             np.array(consts, dtype=np.int64))
 
 
+def twiddle_pairs(tw: np.ndarray) -> np.ndarray:
+    """The transform kernels' twiddle table (`csrc/transform.cuh`) from
+    `kernel_tables`' tw [k, 4, N]: [k, 2, N] int64, row 0 psi_rev and
+    row 1 ipsi_rev, each entry w | floor(w 2^32 / q) << 32 (the u64 bits),
+    so that one 8-byte load gives a twiddle and its Shoup ratio."""
+    u = tw.view(np.uint32).astype(np.uint64)
+    pairs = np.stack([u[:, 0] | u[:, 1] << np.uint64(32),
+                      u[:, 2] | u[:, 3] << np.uint64(32)], axis=1)
+    return pairs.view(np.int64)
+
+
 class NttPlanU32:
     """u32-engine negacyclic NTT plan for 17-30-bit NTT-friendly moduli
     and 256 <= N <= 16384, with the reference plan's call surface.
@@ -110,8 +121,11 @@ class NttPlanU32:
         self.ninv = dev(consts[:, 2:3])
         self.fwd_gather = dev(fwd_gather)
         self.inv_gather = dev(inv_gather)
-        # kernel tables: [k, 4, N] u32 (bits in int32) and [k, 4] int64
+        # kernel tables: [k, 4, N] u32 (bits in int32) for the radix-2
+        # kernels, [k, 2, N] twiddle pairs for ntt.cu and tensor3.cu, and
+        # [k, 4] int64
         self.tw = torch.as_tensor(tw, device=self.device)
+        self.twp = torch.as_tensor(twiddle_pairs(tw), device=self.device)
         self.consts = dev(consts)
 
     # -- plain PyTorch twins (any device) -----------------------------------
@@ -223,7 +237,7 @@ class NttPlanU32:
         x, rows = self._prep(x, (self.k, self.n))
         out = torch.empty_like(x)
         if rows:
-            _build.launch("ntt", "ntt_fwd", x, out, self.tw, self.consts,
+            _build.launch("ntt", "ntt_fwd", x, out, self.twp, self.consts,
                           rows, self.k, self.logn, 0)
             _build.LAUNCHES["fwd"] += 1
         return out
@@ -238,7 +252,7 @@ class NttPlanU32:
         out = torch.empty(*x.shape[:-1], self.k, self.n, dtype=torch.int64,
                           device=x.device)
         if rows:
-            _build.launch("ntt", "ntt_fwd", x, out, self.tw, self.consts,
+            _build.launch("ntt", "ntt_fwd", x, out, self.twp, self.consts,
                           rows, self.k, self.logn, 1)
             _build.LAUNCHES["fwd_broadcast"] += 1
         return out
@@ -250,7 +264,7 @@ class NttPlanU32:
         x, rows = self._prep(x, (self.k, self.n))
         out = torch.empty_like(x)
         if rows:
-            _build.launch("ntt", "ntt_inv", x, out, self.tw, self.consts,
+            _build.launch("ntt", "ntt_inv", x, out, self.twp, self.consts,
                           rows, self.k, self.logn)
             _build.LAUNCHES["inv"] += 1
         return out
@@ -271,7 +285,7 @@ class NttPlanU32:
         out = torch.empty(*ext.shape[:-3], 3, self.k, self.n,
                           dtype=torch.int64, device=ext.device)
         if rows:
-            _build.launch("tensor3", "fwd_tensor3", ext, out, self.tw,
+            _build.launch("tensor3", "fwd_tensor3", ext, out, self.twp,
                           self.consts, rows, self.k, self.logn, int(full))
             _build.LAUNCHES["fwd_tensor3_full" if full
                             else "fwd_tensor3"] += 1

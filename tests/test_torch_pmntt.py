@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from sunscreen_tpu.math import ntt as rntt
 from sunscreen_tpu.math import pmntt as rpmntt
 from sunscreen_tpu.math import primes as rprimes
 from sunscreen_tpu_torch import _build
@@ -145,6 +146,26 @@ def test_roundtrip_and_negacyclic(plans):
             want[i:] += prod[:n - i]
             want[:i] -= prod[n - i:]
         np.testing.assert_array_equal(got[li], (want % q).astype(np.int64))
+
+
+def test_twiddle_pairs_match_tw_and_reference(plans):
+    """The transform kernels' table [k, 2, N] (w | w_sh << 32 per entry)
+    holds the radix-2 table tw's psi_rev and ipsi_rev rows beside their
+    Shoup ratios, and those are the reference NttPlan's u32 tables."""
+    n, mods, _, port = plans
+    pairs = port.twp.numpy().view(np.uint64)
+    assert pairs.shape == (len(mods), 2, n)
+    lo = (pairs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (pairs >> np.uint64(32)).astype(np.uint32)
+    tw = port.tw.numpy().view(np.uint32)
+    np.testing.assert_array_equal(lo, tw[:, 0::2])
+    np.testing.assert_array_equal(hi, tw[:, 1::2])
+    ref = rntt.NttPlan(n, mods)
+    for row, name in enumerate(("psi_rev", "ipsi_rev")):
+        np.testing.assert_array_equal(lo[:, row],
+                                      np.asarray(getattr(ref, name)))
+        np.testing.assert_array_equal(hi[:, row],
+                                      np.asarray(getattr(ref, name + "_sh")))
 
 
 def test_flat_domain_layout_oracle():
