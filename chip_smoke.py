@@ -5,8 +5,9 @@
     python3 chip_smoke.py --against OTHER_TREE
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc` (printing
-ptxas' registers, stack and spills of the transform kernels in ntt.cu and
-tensor3.cu with each one's threads and shared memory a block), holds
+ptxas' registers, stack and spills of the kernels in ntt.cu, tensor3.cu,
+inv_ks.cu and rns.cu with each one's threads and shared memory a block,
+and the IMAD-class and total SASS instructions of scale_convert), holds
 each of the twenty-one kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
 `BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
@@ -17,11 +18,13 @@ for B16 and B17; [512, 8192] u64 words under a 54-bit limb of
 encoder's (t,) plan, B17 with broadcast operands; B18 and B19 under the
 moduli of tests/test_pallas_mod.py and a 61-bit prime, edge values and
 broadcast tables included, also against a big-int oracle; B1 and B3
-also at the TFHE step's [384, 4, 1024], timed with their bounds), holds
-B1-B3 at every N from 256 to 16384 and B4 and B13 at every N up to 8192
-(`transform_checks`: edge residues, raw words up to 2^32 - 1, a 30-bit
-and three small moduli), then drives fourteen paths, each with the
-launch counts set to 0 just before it and read just after:
+also at the TFHE step's [384, 4, 1024] and B5 at its [64, 6, 4, 1024],
+B5 and B7 at `default_u32(16384)`'s shapes at batch 64, all timed with
+their bounds), holds B1-B3 and B5 at every N from 256 to 16384 and B4
+and B13 at every N up to 8192 (`transform_checks`: edge residues, raw
+words up to 2^32 - 1, a 30-bit and three small moduli), then drives
+fourteen paths, each with the launch counts set to 0 just before it and
+read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
    batch 64, under the default fusion settings;
@@ -86,6 +89,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import glob
 import json
 import os
 import re
@@ -668,10 +672,25 @@ def _timing(label, kern, plain, args, nbytes: int, muls: int,
             "library_ms": library_ms}
 
 
+def _inv_ks_case(plan, gen, batch: int, kdig: int) -> tuple:
+    """B5 on digits [batch, kdig, k, N] and keys [kdig, k, N] of `plan`,
+    the first digit row and key row at q - 1: (args, bytes, 32-bit
+    multiplies: 2 kdig digit products (2 each) + 2 inverse transforms)."""
+    k, n = plan.k, plan.n
+    ntt_muls = 3 * (n // 2) * plan.logn
+    d = _max_residues(_uniform(gen, (batch, kdig, k, n), plan.q), plan.q)
+    k0 = _max_residues(_uniform(gen, (kdig, k, n), plan.q), plan.q)
+    k1 = _uniform(gen, (kdig, k, n), plan.q)
+    return ((d, k0, k1),
+            (batch * kdig + 2 * kdig + batch * 2) * k * n * WORD,
+            batch * k * (4 * kdig * n + 2 * (ntt_muls + 3 * n)))
+
+
 def pbs_transform_cases(gen, batch: int) -> list[tuple]:
-    """B1 and B3 at the blind-rotation step's [6 batch, 4, 1024] (path 7
-    runs B1 there 512 times per PBS): (name, kernel, plain twin, args,
-    bytes, 32-bit multiplies)."""
+    """B1 and B3 at the blind-rotation step's [6 batch, 4, 1024] and B5 at
+    its digits [batch, 6, 4, 1024] (path 7 runs B1 and B5 there 512 times
+    per PBS): (name, kernel, plain twin, args, bytes, 32-bit
+    multiplies)."""
     plan = _pbs_plan()
     rows, k, n = 6 * batch, plan.k, plan.n
     ntt_muls = 3 * (n // 2) * plan.logn
@@ -680,14 +699,38 @@ def pbs_transform_cases(gen, batch: int) -> list[tuple]:
     return [("fwd", plan.fwd, plan.fwd_plain, (x,), nbytes,
              rows * k * ntt_muls),
             ("inv", plan.inv, plan.inv_plain, (x,), nbytes,
-             rows * k * (ntt_muls + 3 * n))]
+             rows * k * (ntt_muls + 3 * n)),
+            ("inv_ks", plan.inv_ks, plan.inv_ks_plain,
+             *_inv_ks_case(plan, gen, batch, 6))]
+
+
+def wide_cases(gen, batch: int) -> list[tuple]:
+    """B5 and B7 at path 3's shapes (`default_u32(16384)`, `batch`
+    ciphertexts): digits [batch, 14, 15, 16384] with 1024 threads a task,
+    and the 29-limb tensor base [batch, 3, 29, 16384] -> [batch, 3, 14,
+    16384], the all-(q_i - 1) digit column included (name, kernel, plain
+    twin, args, bytes, 32-bit multiplies)."""
+    from sunscreen_tpu_torch.bfv import BfvParams, get_context
+
+    ctx = get_context(BfvParams.default_u32(WIDE_N), DEV)
+    sc = ctx.fused_op("scale_convert")
+    x = _max_digits(_uniform(gen, (batch, 3, sc.ks, WIDE_N), ctx.mul_base.q),
+                    ctx.mul_base)
+    cols = batch * 3 * WIDE_N
+    return [("inv_ks", ctx.plan_key.inv_ks, ctx.plan_key.inv_ks_plain,
+             *_inv_ks_case(ctx.plan_key, gen, batch, ctx.k)),
+            ("scale_convert", sc, sc.call_plain, (x,),
+             cols * (sc.ks + sc.kd) * WORD,
+             cols * (10 * sc.ks + 2 * sc.ks * sc.km + 10 * sc.km
+                     + 2 * sc.km * sc.kd + 2 * sc.kd))]
 
 
 def check_kernels(ctx, gen) -> list[dict]:
     """Each kernel entry point against its plain twin at the main-path
     shapes, bit for bit, with both times, the bound and, where one
     PyTorch expression computes the same function, its time; B1 and B3
-    also at the PBS step's shape."""
+    also at the PBS step's shape, B5 there too, and B5 and B7 at path 3's
+    shapes."""
     rows = []
     from sunscreen_tpu_torch.bfv import BfvParams
 
@@ -702,14 +745,15 @@ def check_kernels(ctx, gen) -> list[dict]:
             "launches": 0, "max_abs_err": err,
             **_timing(name, kern, plain, args, nbytes, muls,
                       library[0] if library else None)})
-    at_pbs = {}
-    for name, kern, plain, args, nbytes, muls in pbs_transform_cases(
-            gen, BATCH):
-        shape = list(args[0].shape)
-        _held(f"{name}@{shape}", kern, plain, args)
-        at_pbs[name] = {"shape": shape,
-                        **_timing(f"{name} at {shape}", kern, plain, args,
-                                  nbytes, muls)}
+    at = {}
+    for where, cases in (("at_pbs_step", pbs_transform_cases(gen, BATCH)),
+                         (f"at_{WIDE_N}", wide_cases(gen, BATCH))):
+        for name, kern, plain, args, nbytes, muls in cases:
+            shape = list(args[0].shape)
+            _held(f"{name}@{shape}", kern, plain, args)
+            at.setdefault(name, {})[where] = {
+                "shape": shape, **_timing(f"{name} at {shape}", kern, plain,
+                                          args, nbytes, muls)}
     extra_checks(ctx, gen, BATCH)
     ks_full_extremes(_pbs_plan(), gen, 2)
     vpu_extra_checks(ctx.params, gen, BATCH)
@@ -717,8 +761,7 @@ def check_kernels(ctx, gen) -> list[dict]:
     for row in rows:
         if row["name"] in at31:
             row["at_q_2_31_minus_1"] = at31[row["name"]]
-        if row["name"] in at_pbs:
-            row["at_pbs_step"] = at_pbs[row["name"]]
+        row.update(at.get(row["name"], {}))
     return rows
 
 
@@ -738,13 +781,16 @@ def check_wide(gen) -> None:
 
 
 def transform_checks(gen, rows: int = 3) -> None:
-    """B1-B4 and B13 wherever the schedule of csrc/transform.cuh changes:
-    fwd, fwd_broadcast and inv at every N from 256 to 16384 (radix-8 groups
-    at 256, radix-16 above, 2 to 4 groups, several polynomials per block
-    below 8192, a block's spare slots when rows * k is not a multiple of
-    them), fwd_tensor3 and fwd_tensor3_full up to TENSOR3_MAX_N; under one
-    limb at the largest 30-bit NTT prime (the lazy butterflies' values
-    reach 4q - 1 < 2^32) and three small ones (17 + log2 N - 8 bits).
+    """B1-B5 and B13 wherever the schedule of csrc/transform.cuh changes:
+    fwd, fwd_broadcast, inv and inv_ks at every N from 256 to 16384
+    (radix-8 groups at 256, radix-16 above, 2 to 4 groups, several
+    polynomials per block below 8192, a block's spare slots when rows * k
+    is not a multiple of them; inv_ks in both of its block shapes, with
+    16 digits and every key word of k0 at q - 1), fwd_tensor3 and
+    fwd_tensor3_full up to
+    TENSOR3_MAX_N; under one limb at the largest 30-bit NTT prime (the
+    lazy butterflies' values reach 4q - 1 < 2^32) and three small ones
+    (17 + log2 N - 8 bits).
     Residues include 0 and q - 1 in every polynomial and a polynomial of
     q - 1 only, and one word above 2^62 in the others (the loads' 64-bit
     reduction; below 2^32 they take a 32-bit one); fwd_broadcast's raw
@@ -771,6 +817,12 @@ def transform_checks(gen, rows: int = 3) -> None:
             _held(f"fwd_broadcast{tag}", plan.fwd_broadcast,
                   plan.fwd_broadcast_plain, (raw,))
             _held(f"inv{tag}", plan.inv, plan.inv_plain, (x,))
+            d = _uniform(gen, (rows, 16, k, n), plan.q)
+            d[0] = plan.q - 1
+            d[..., 0] = plan.q[:, 0] - 1
+            top = torch.broadcast_to(plan.q - 1, (16, k, n)).contiguous()
+            _held(f"inv_ks{tag}", plan.inv_ks, plan.inv_ks_plain,
+                  (d, top, _uniform(gen, (16, k, n), plan.q)))
             if n > pmntt.TENSOR3_MAX_N:
                 continue
             ext = _uniform(gen, (rows, 4, k, n), plan.q)
@@ -793,40 +845,112 @@ def transform_shape(n: int) -> tuple[int, int]:
     return threads * polys, polys
 
 
+# Per source whose kernels print_ptxas reports: (threads a block, dynamic
+# shared memory in bytes) from an instantiation's template arguments.
+# ntt.cu takes two exchange buffers a polynomial, tensor3.cu an exchange
+# buffer and two stashes, inv_ks.cu (<LOGN, SPLIT>) two exchange buffers a
+# component with twice the threads of a transform (SPLIT) or two and a
+# stash; rns.cu's kernels run 256 threads with static shared memory only
+# (ptxas' "smem").
+def _ntt_block(logn, *_):
+    threads, polys = transform_shape(1 << logn)
+    return threads, 2 * polys * (1 << logn) * 4
+
+
+def _tensor3_block(logn, *_):
+    threads, polys = transform_shape(1 << logn)
+    return threads, 3 * polys * (1 << logn) * 4
+
+
+def _inv_ks_block(logn, split):
+    threads = (1 << logn) // (8 if logn == 8 else 16) * (1 + split)
+    return threads, (3 + split) * (1 << logn) * 4
+
+
+PTXAS_SOURCES = {"ntt": _ntt_block, "tensor3": _tensor3_block,
+                 "inv_ks": _inv_ks_block, "rns": lambda *_: (256, 0)}
+
+
+def _demangle(symbol: str) -> tuple[str, list[int]]:
+    """(function name, integer and bool template arguments) of a mangled
+    kernel symbol: "_Z13inv_ks_kernelILi13ELi1EEv..." -> ("inv_ks_kernel",
+    [13, 1])."""
+    m = re.match(r"_Z(\d+)(\w+)", symbol)
+    name = m.group(2)[:int(m.group(1))]
+    tmpl = re.match(r"I((?:L[ib]\d+E)+)E", m.group(2)[len(name):])
+    return name, [int(a) for a in
+                  re.findall(r"L[ib](\d+)E", tmpl.group(1) if tmpl else "")]
+
+
 def print_ptxas() -> None:
-    """ptxas' registers, stack and spills of every instantiation in
-    csrc/ntt.cu and csrc/tensor3.cu, with the block's threads and dynamic
-    shared memory (two exchange buffers for ntt.cu, the exchange buffer and
-    two stashes for tensor3.cu, per polynomial)."""
-    import re
+    """ptxas' registers, stack, spills and static shared memory of every
+    kernel instantiation in csrc/ntt.cu, tensor3.cu, inv_ks.cu and rns.cu,
+    with the block's threads and dynamic shared memory."""
     from sunscreen_tpu_torch import _build
 
-    for src, buffers in (("ntt", 2), ("tensor3", 3)):
-        kernel = None
+    for src, block in PTXAS_SOURCES.items():
+        kernel = spill = None
         for line in _build.build_log(src).splitlines():
-            m = re.search(r"entry function '_Z\d+(\w+?)ILi(\d+)E(Lb(\d))?E",
-                          line)
+            m = re.search(r"entry function '(_Z\w+)'", line)
             if m:
-                kernel = (m.group(1), int(m.group(2)), m.group(4))
+                kernel = _demangle(m.group(1))
                 continue
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
             if m and kernel:
                 spill = m.groups()
                 continue
-            m = re.search(r"Used (\d+) registers", line)
-            if m and kernel:
-                name, logn, full = kernel
-                threads, polys = transform_shape(1 << logn)
-                smem = buffers * polys * (1 << logn) * 4
-                print(f"ptxas {name}<{logn}"
-                      + ("" if full is None else
-                         f", {'true' if full == '1' else 'false'}")
-                      + f">: {m.group(1)} registers, {spill[0]} B stack, "
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                          line)
+            if m and kernel and spill:
+                name, args = kernel
+                threads, dyn = block(*args)
+                print(f"ptxas {name}<{', '.join(map(str, args))}>: "
+                      f"{m.group(1)} registers, {spill[0]} B stack, "
                       f"{spill[1]}/{spill[2]} B spill stores/loads; "
-                      f"{threads} threads, {smem} B dynamic shared memory "
-                      f"a block", flush=True)
-                kernel = None
+                      f"{threads} threads, {dyn} B dynamic and "
+                      f"{m.group(2) or 0} B static shared memory a block",
+                      flush=True)
+                kernel = spill = None
+
+
+IMAD_RE = re.compile(r"\bIMAD(?:\.\w+)*\b")
+
+
+def sass_counts(so: str, kernel: str) -> dict[str, tuple[int, int]]:
+    """{instantiation: (IMAD-class instructions, all instructions)} of
+    `kernel`'s functions in the SASS of the shared library `so`
+    (cuobjdump -sass), counted statically: each unrolled loop once per
+    iteration, each loop left rolled once."""
+    from sunscreen_tpu_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    out: dict[str, tuple[int, int]] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                out[name] = (0, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\S*)",
+                     line)
+        if name and m:
+            imad, total = out[name]
+            out[name] = (imad + bool(IMAD_RE.match(m.group(1))), total + 1)
+    return out
+
+
+def print_sass(so: str, label: str) -> None:
+    """Prints the SASS counts of scale_convert_kernel in `so`."""
+    for sym, (imad, total) in sorted(sass_counts(
+            so, "scale_convert_kernel").items()):
+        name, args = _demangle(sym)
+        print(f"sass {label} {name}<{', '.join(map(str, args))}>: {imad} "
+              f"IMAD-class of {total} instructions", flush=True)
 
 
 # Each CUDA kernel function of the port and the `_build.LAUNCHES` keys whose
@@ -1639,6 +1763,7 @@ def main() -> int:
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     print_ptxas()
+    print_sass(_build.build_all()["rns"], "this")
 
     params = BfvParams.default_u32(N)
     ctx = get_context(params, DEV)
@@ -1790,9 +1915,10 @@ def _parse_run(text: str) -> dict[str, float]:
         if line.startswith('{"kernels"'):
             for row in json.loads(line)["kernels"]:
                 out[f"kernel {row['name']} ms"] = row["ms"]
-                if "at_pbs_step" in row:
-                    out[f"kernel {row['name']}@pbs_step ms"] = (
-                        row["at_pbs_step"]["ms"])
+                for where in ("at_pbs_step", f"at_{WIDE_N}"):
+                    if where in row:
+                        out[f"kernel {row['name']}@{where[3:]} ms"] = (
+                            row[where]["ms"])
         for m in RATE_RE.finditer(line):
             out[f"rate {m.group(1)} {m.group(3)}"] = float(m.group(2))
         m = PROFILE_RE.match(line)
@@ -1807,8 +1933,9 @@ def compare(against: str) -> int:
     parent commit's `git archive`) and this one in turns, against, this,
     this, against, each in its own process on the same card, keeps each
     log under chiprun_out/compare/, and prints every number both runs
-    report as the two readings of each side, their means and this / against.
-    Fails if any run fails."""
+    report as the two readings of each side, their means and this / against,
+    and the SASS counts of each side's scale_convert kernels. Fails if any
+    run fails."""
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"against": os.path.abspath(against), "this": here}
     logs = os.path.join(os.getcwd(), "chiprun_out", "compare")
@@ -1830,6 +1957,10 @@ def compare(against: str) -> int:
             failed.append(i)
             print(proc.stderr[-2000:], flush=True)
         runs[side].append(_parse_run(proc.stdout))
+    for side, tree in trees.items():      # each side's build of rns.cu
+        for so in sorted(glob.glob(os.path.join(
+                tree, "sunscreen_tpu_torch", "_kbuild", "*", "librns.so"))):
+            print_sass(so, side)
     for key in sorted(set().union(*runs["this"], *runs["against"])):
         vals = {side: [r[key] for r in runs[side] if key in r]
                 for side in runs}

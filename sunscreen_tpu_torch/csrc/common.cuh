@@ -1,10 +1,11 @@
 // Shared device code of the u32-engine kernels (ntt.cu, tensor3.cu,
 // inv_ks.cu, inv_tensor3.cu, ks_full.cu, pntt.cu, rns.cu, pointwise.cu):
-// modular helpers, the per-modulus tables, the exact 128-bit fixed-point sum
-// of the RNS conversions, the radix-2 transforms on shared memory (inv_ks,
-// inv_tensor3, ks_full, pntt; ntt.cu and tensor3.cu use the register-
-// resident ones of transform.cuh), and the map from the plan's flat NTT
-// domain to the butterflies' bit-reversed order.
+// modular helpers, the 32-bit reduction of u64 words (inv_ks.cu, rns.cu's
+// scale_convert), the per-modulus tables, the exact 128-bit fixed-point sum
+// of the RNS conversions, the radix-2 transforms on shared memory
+// (inv_tensor3, ks_full, pntt; ntt.cu, tensor3.cu and inv_ks.cu use the
+// register-resident ones of transform.cuh), and the map from the plan's
+// flat NTT domain to the butterflies' bit-reversed order.
 //
 // Tensors cross the C interface as int64 residues (values < 2^32). Per limb
 // the plan uploads:
@@ -87,6 +88,44 @@ __device__ __forceinline__ u32 add_q(u32 a, u32 b, u32 q) {
 
 __device__ __forceinline__ u32 sub_q(u32 a, u32 b, u32 q) {
   return a >= b ? a - b : a + q - b;
+}
+
+// x - m if x >= m, else x: below m for x < 2m.
+__device__ __forceinline__ u32 csub(u32 x, u32 m) { return min(x, x - m); }
+
+// floor(w 2^32 / q) for w < q < 2^30, from m = floor(2^64 / q): w m / 2^32
+// falls short of w 2^32 / q by less than w / 2^32 < 1/4, so its floor is
+// at most one low.
+__device__ __forceinline__ u32 shoup32(u32 w, u32 q, u64 m) {
+  u64 s = (u64)w * (u32)(m >> 32) + __umulhi(w, (u32)m);
+  if ((s + 1) * q <= (u64)w << 32) ++s;
+  return (u32)s;
+}
+
+// The constants of a 32-bit reduction of any u64 word mod q < 2^30 (inv_ks.cu,
+// rns.cu's scale_convert): m32 = floor(2^32 / q), c = 2^32 mod q and its
+// Shoup ratio. 16 bytes, so a row of a table in shared memory is one load.
+struct __align__(16) Red32 {
+  u32 q, m32, c, c_sh;
+};
+
+__device__ __forceinline__ Red32 red32(u32 q, u64 m) {
+  const u32 m32 = (u32)(m >> 32), c = 0u - q * m32;
+  return {q, m32, c, shoup32(c, q, m)};
+}
+
+// x mod q up to one q, in [0, 2q), for any u64 x = xh 2^32 + xl: xh c by
+// Shoup's product and xl by a 32-bit Barrett step (the quotient at most 1
+// short), each in [0, 2q), so the sum lies below 4q < 2^32.
+__device__ __forceinline__ u32 red2q(u64 x, const Red32& r) {
+  const u32 xh = (u32)(x >> 32), xl = (u32)x;
+  const u32 a = r.c * xh - __umulhi(xh, r.c_sh) * r.q;
+  const u32 b = xl - __umulhi(xl, r.m32) * r.q;
+  return csub(a + b, 2 * r.q);
+}
+
+__device__ __forceinline__ u32 red(u64 x, const Red32& r) {
+  return csub(red2q(x, r), r.q);
 }
 
 // Exact running sum of y * f / 2^128 over terms with y < 2^32 and f a

@@ -17,13 +17,25 @@
 // Design: one thread per (row, coefficient). A thread reads its column's
 // source limbs once (neighbouring threads on neighbouring coefficients, so
 // every load and store is coalesced), keeps the normalized digits in
-// registers, and writes each output limb once. Native 64-bit products
-// (__umul64hi) take the place of the TPU's 16-bit-half arithmetic: the
-// fixed-point sums are exact in three u64 words (Fixed192), and the limb
-// contractions fold their raw u64 sums every 16 terms (dot_mod), so both are
-// exact for any base up to MAXK limbs. The tables are a few KB, read through
-// the read-only cache; all threads of a warp read the same entry. rns_scale
-// and scale_convert share their scale step (scale_digits, scale_limb).
+// registers, and writes each output limb once.
+//
+// rns_convert, rns_scale and mod_down: native 64-bit products (__umul64hi)
+// take the place of the TPU's 16-bit-half arithmetic: the fixed-point sums
+// are exact in three u64 words (Fixed192), and the limb contractions fold
+// their raw u64 sums every 16 terms (dot_mod), so both are exact for any
+// base up to MAXK limbs. The tables are a few KB, read through the
+// read-only cache; all threads of a warp read the same entry. rns_scale
+// reads its scale step from scale_digits and scale_limb.
+//
+// scale_convert is held by its instruction count, not its bytes (about 45
+// u64 Barrett steps, each a 64 x 64-bit product emulated in 32-bit
+// multiply-adds, and 300 table loads a column in the design above). It
+// stages its tables once a block in shared memory as u32 words and works
+// in 32-bit multiplies: Shoup products for the normalizations (the ratios
+// derived from floor(2^64 / q) at staging), 32 x 32 -> 64-bit multiply-adds
+// for the limb sums, reduced once by 32-bit steps (red2q in common.cuh),
+// and four multiply-adds a term for the exact 128-bit fixed-point sums
+// (Frac128), as the reference's 32-bit column sums.
 //
 // Tables are int64, one row of 8 per modulus (load_mod in common.cuh): q,
 // floor(2^64 / q), then the op's constants (below). Residues cross the
@@ -131,46 +143,190 @@ __global__ void rns_scale_kernel(const long long* __restrict__ x,
     oc[(size_t)j * n] = scale_limb<K>(y, ks, r, omega, j, kd, load_mod(d, j));
 }
 
-// x [rows, ks, N] in the tensor base -> out [rows, kd, N] in Q:
-// s = round(t x / Q) mod each b_j (the scale step above), then the centered
-// conversion of s from B to Q, with s kept in registers.
-//   a [ks] as for scale_digits
+// Four 32-bit words, one 16-byte load from shared memory.
+struct __align__(16) Words {
+  u32 w0, w1, w2, w3;
+};
+
+// scale_convert's tables, staged once a block from the int64 tables into
+// shared memory as u32 words (3 KB for <16, 8>, 11 KB for <32, 32>): all
+// threads of a warp read the same word, a broadcast.
+template <int KS, int KM>
+struct ScTables {
+  Words a[KS];     // q_i, (A/q_i)^-1 mod q_i, its Shoup ratio
+  Words af[KS];    // phi_i, four 32-bit words, lowest first
+  u32 om[KM][KS];  // omega transposed: om[j][i] = omega_ij
+  Red32 b[KM];     // b_j and its reduction constants
+  Words bn[KM];    // (B/b_j)^-1 mod b_j, its Shoup ratio
+  Words bf[KM];    // 1/b_j rounded up, four 32-bit words
+  u32 th[KS][KM];  // theta transposed: th[l][j] = theta_jl
+  Red32 d[KS];     // d_l and its reduction constants
+  u32 dneg[KS];    // d_l - (B mod d_l)
+};
+
+__device__ __forceinline__ Words words128(u64 hi, u64 lo) {
+  return {(u32)lo, (u32)(lo >> 32), (u32)hi, (u32)(hi >> 32)};
+}
+
+// (q, w, floor(w 2^32 / q)) of a table row (q, m, w, ...)
+__device__ __forceinline__ Words shoup_row(const long long* row) {
+  const u32 q = (u32)row[0], w = (u32)row[2];
+  return {q, w, shoup32(w, q, (u64)row[1]), 0};
+}
+
+// Exact running sum of y f / 2^128 over terms with y < 2^30 and f a
+// 128-bit fraction (four 32-bit words): word k of the products sums in
+// a[k] (each product below 2^62, so four terms fit a u64 above a carried
+// word); carry() moves every word's bits above 32 into the next, the
+// integer part into hi. Every carry reaches hi, as in the reference's
+// column sums (math/rns.py::fixed_point_dot).
+struct Frac128 {
+  u64 a[4] = {0, 0, 0, 0}, hi = 0;
+  __device__ __forceinline__ void add(u32 y, const Words& f) {
+    a[0] += (u64)y * f.w0;
+    a[1] += (u64)y * f.w1;
+    a[2] += (u64)y * f.w2;
+    a[3] += (u64)y * f.w3;
+  }
+  __device__ __forceinline__ void carry() {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      a[k + 1] += a[k] >> 32;
+      a[k] = (u32)a[k];
+    }
+    hi += a[3] >> 32;
+    a[3] = (u32)a[3];
+  }
+  // floor(total + 1/2)
+  __device__ __forceinline__ u64 round() {
+    carry();
+    return hi + ((a[3] + (1ull << 31)) >> 32);
+  }
+};
+
+// Whether a limb sum of up to K terms below (2^30)^2, started from a value
+// below K 2^30 (r, alpha (d_l - B mod d_l)), folds after term i: never for
+// K <= 16 (K 2^30 + 16 (2^30 - 1)^2 < 2^64), else every 15 terms.
+template <int K>
+__device__ __forceinline__ constexpr bool fold(int i) {
+  return K > 16 && i % 15 == 14 && i + 1 < K;
+}
+
+// One column of scale_convert: x [ks] (limbs n apart) in the tensor base
+// -> out [kd] in Q: s = round(t x / Q) mod each b_j, then the centered
+// conversion of s from B to Q. With y_i = x_i (A/q_i)^-1 mod q_i and
+// r = floor(sum_i y_i phi_i + 1/2): s_j = sum_i y_i omega_ij + r mod b_j;
+// z_j = s_j (B/b_j)^-1 mod b_j, alpha = floor(sum_j z_j / b_j + 1/2);
+// out_l = sum_j z_j theta_jl - alpha (B mod d_l) mod d_l. KS >= ks,
+// KM >= km and KS > kd bound the unrolled loops. Each normalization is one
+// 32-bit Shoup product, each limb sum a chain of 32 x 32 -> 64-bit
+// multiply-adds started from r (or alpha (d_l - B mod d_l)) and reduced
+// once by 32-bit steps (fold), and each fixed-point sum four multiply-adds
+// a term (Frac128).
+template <int KS, int KM>
+__device__ __forceinline__ void scale_convert_column(
+    const ScTables<KS, KM>& tb, const long long* __restrict__ xc,
+    long long* __restrict__ oc, int ks, int km, int kd, int n) {
+  // digits and limbs past ks and km are 0, so the products and fractions
+  // over the full KS and KM run unguarded
+  u32 y[KS];
+#pragma unroll
+  for (int i = 0; i < KS; ++i) y[i] = i < ks ? (u32)xc[(size_t)i * n] : 0;
+  Frac128 fr;
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+    if (i < ks) {
+      const Words ai = tb.a[i];
+      y[i] = mul_shoup(y[i], ai.w1, ai.w2, ai.w0);
+    }
+    fr.add(y[i], tb.af[i]);
+    if ((i & 3) == 3) fr.carry();
+  }
+  const u64 r = fr.round();
+  u32 z[KM];
+  Frac128 fz;
+#pragma unroll
+  for (int j = 0; j < KM; ++j) {
+    z[j] = 0;
+    if (j < km) {
+      const Red32 bj = tb.b[j];
+      u64 acc = r;
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        acc += (u64)y[i] * tb.om[j][i];
+        if (fold<KS>(i)) acc = red2q(acc, bj);
+      }
+      const Words bn = tb.bn[j];
+      z[j] = mul_shoup(red2q(acc, bj), bn.w1, bn.w2, bj.q);
+    }
+    fz.add(z[j], tb.bf[j]);
+    if ((j & 3) == 3) fz.carry();
+  }
+  const u32 alpha = (u32)fz.round();  // at most km
+#pragma unroll 1
+  for (int l = 0; l < kd; ++l) {
+    const Red32 dl = tb.d[l];
+    u64 acc = (u64)alpha * tb.dneg[l];
+#pragma unroll
+    for (int j = 0; j < KM; ++j) {
+      acc += (u64)z[j] * tb.th[l][j];
+      if (fold<KM>(j)) acc = red2q(acc, dl);
+    }
+    oc[(size_t)l * n] = red(acc, dl);
+  }
+}
+
+// x [rows, ks, N] in the tensor base -> out [rows, kd, N] in Q, one thread
+// a column (scale_convert_column), blockIdx.y striding over the rows, after
+// the block has staged the tables (the Shoup ratios derived from
+// floor(2^64 / q)).
+//   a [ks]: q_i, m, (A/q_i)^-1 mod q_i, phi_i = frac(t (A/q_i) / Q) (hi, lo)
 //   b [km]: b_j, m, (B/b_j)^-1 mod b_j, 1/b_j rounded up (hi, lo)
 //   d [kd]: d_l, m, B mod d_l
 //   omega [ks][km], theta [km][kd]
-template <int K>
-__global__ void scale_convert_kernel(const long long* __restrict__ x,
-                                     long long* __restrict__ out,
-                                     const long long* __restrict__ a,
-                                     const long long* __restrict__ b,
-                                     const long long* __restrict__ d,
-                                     const long long* __restrict__ omega,
-                                     const long long* __restrict__ theta,
-                                     int rows, int ks, int km, int kd, int n) {
-  const size_t id = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (id >= (size_t)rows * n) return;
-  const size_t row = id / n, col = id % n;
-  long long* oc = out + row * kd * n + col;
-  u32 y[K];
-  const u64 r = scale_digits<K>(x + row * ks * n + col, n, a, ks, y);
-  u32 z[K];
-  Fixed192 fz;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    if (j < km) {
-      const Mod bj = load_mod(b, j);
-      const u32 s = scale_limb<K>(y, ks, r, omega, j, km, bj);
-      z[j] = reduce64((u64)s * tab_at(b, j, 2), bj.q, bj.m);
-      fixed_add(fz, z[j], tab_at(b, j, 3), tab_at(b, j, 4));
+template <int KS, int KM>
+__global__ void __launch_bounds__(256)
+    scale_convert_kernel(const long long* __restrict__ x,
+                         long long* __restrict__ out,
+                         const long long* __restrict__ a,
+                         const long long* __restrict__ b,
+                         const long long* __restrict__ d,
+                         const long long* __restrict__ omega,
+                         const long long* __restrict__ theta, int rows,
+                         int ks, int km, int kd, int n) {
+  __shared__ ScTables<KS, KM> tb;
+  for (int e = threadIdx.x; e < ks * km + km * kd; e += blockDim.x) {
+    if (e < ks * km)
+      tb.om[e % km][e / km] = (u32)omega[e];
+    else
+      tb.th[(e - ks * km) % kd][(e - ks * km) / kd] =
+          (u32)theta[e - ks * km];
+  }
+  for (int e = threadIdx.x; e < ks + km + kd; e += blockDim.x) {
+    if (e < ks) {
+      const long long* r = a + 8 * e;
+      tb.a[e] = shoup_row(r);
+      tb.af[e] = words128((u64)r[3], (u64)r[4]);
+    } else if (e < ks + km) {
+      const int j = e - ks;
+      const long long* r = b + 8 * j;
+      tb.b[j] = red32((u32)r[0], (u64)r[1]);
+      tb.bn[j] = shoup_row(r);
+      tb.bf[j] = words128((u64)r[3], (u64)r[4]);
+    } else {
+      const int l = e - ks - km;
+      const long long* r = d + 8 * l;
+      tb.d[l] = red32((u32)r[0], (u64)r[1]);
+      tb.dneg[l] = (u32)(r[0] - r[2]);
     }
   }
-  const u64 alpha = fixed_int(fz, true);
-  for (int l = 0; l < kd; ++l) {
-    const Mod dl = load_mod(d, l);
-    const u32 acc = dot_mod<K>(z, km, theta + l, kd, dl.q, dl.m);
-    const u32 corr = reduce64(alpha * tab_at(d, l, 2), dl.q, dl.m);
-    oc[(size_t)l * n] = sub_q(acc, corr, dl.q);
-  }
+  __syncthreads();
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y)
+    scale_convert_column<KS, KM>(tb, x + (size_t)row * ks * n + col,
+                                 out + (size_t)row * kd * n + col, ks, km, kd,
+                                 n);
 }
 
 // x_q rows of k limbs (row stride sq elements, limbs N apart) and x_p rows
@@ -233,10 +389,14 @@ extern "C" int scale_convert(const void* x, void* out, const void* a,
                              const void* b, const void* d, const void* omega,
                              const void* theta, int rows, int ks, int km,
                              int kd, int n, void* stream) {
-  if (ks > MAXK || km > MAXK) return (int)cudaErrorInvalidValue;
-  auto kern = (ks <= 16 && km <= 16) ? &scale_convert_kernel<16>
-                                     : &scale_convert_kernel<MAXK>;
-  kern<<<blocks_for(rows, n), THREADS, 0, (cudaStream_t)stream>>>(
+  if (ks > MAXK || km > MAXK || kd >= ks) return (int)cudaErrorInvalidValue;
+  auto kern = ks <= 16 ? (km <= 8 ? &scale_convert_kernel<16, 8>
+                                  : &scale_convert_kernel<16, 16>)
+                       : (km <= 16 ? &scale_convert_kernel<MAXK, 16>
+                                   : &scale_convert_kernel<MAXK, MAXK>);
+  if (rows == 0) return 0;
+  const dim3 grid((n + THREADS - 1) / THREADS, rows < 65535 ? rows : 65535);
+  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const long long*)x, (long long*)out, (const long long*)a,
       (const long long*)b, (const long long*)d, (const long long*)omega,
       (const long long*)theta, rows, ks, km, kd, n);

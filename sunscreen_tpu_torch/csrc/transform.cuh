@@ -133,9 +133,6 @@ struct Buffers {
   }
 };
 
-// x - m if x >= m, else x, for x < 2m <= 2^31.
-__device__ __forceinline__ u32 csub(u32 x, u32 m) { return min(x, x - m); }
-
 // x w mod q up to one q, in [0, 2q), for any u32 x: wp = (w, floor(w 2^32
 // / q)) from the pair table.
 __device__ __forceinline__ u32 mul_lazy(u32 x, u64 wp, u32 q) {
@@ -286,6 +283,19 @@ __device__ __forceinline__ void to_flat(u32 (&v)[Shape<LOGN>::E], u32* buf,
   for (int s = 0; s < S::E; ++s) v[s] = buf[r0 ^ swz<LOGN, true>(s * S::T)];
 }
 
+// The bit-reversed layout (index tau E + s) from a buffer that holds flat
+// position p at word swz<LOGN, true>(p), written before a barrier: the
+// second half of from_flat.
+template <int LOGN>
+__device__ __forceinline__ void from_flat_read(u32 (&v)[Shape<LOGN>::E],
+                                               const u32* buf, u32 tau) {
+  using S = Shape<LOGN>;
+  const u32 r0 = swz<LOGN, true>(flat_of<LOGN>(tau << S::R));
+#pragma unroll
+  for (int s = 0; s < S::E; ++s)
+    v[s] = buf[r0 ^ swz<LOGN, true>(flat_of<LOGN>(s))];
+}
+
 // Flat layout -> bit-reversed layout: to_flat's inverse.
 template <int LOGN>
 __device__ __forceinline__ void from_flat(u32 (&v)[Shape<LOGN>::E], u32* buf,
@@ -295,10 +305,7 @@ __device__ __forceinline__ void from_flat(u32 (&v)[Shape<LOGN>::E], u32* buf,
 #pragma unroll
   for (int s = 0; s < S::E; ++s) buf[w0 ^ swz<LOGN, true>(s * S::T)] = v[s];
   __syncthreads();
-  const u32 r0 = swz<LOGN, true>(flat_of<LOGN>(tau << S::R));
-#pragma unroll
-  for (int s = 0; s < S::E; ++s)
-    v[s] = buf[r0 ^ swz<LOGN, true>(flat_of<LOGN>(s))];
+  from_flat_read<LOGN>(v, buf, tau);
 }
 
 }  // namespace tf

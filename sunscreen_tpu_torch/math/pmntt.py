@@ -122,8 +122,8 @@ class NttPlanU32:
         self.fwd_gather = dev(fwd_gather)
         self.inv_gather = dev(inv_gather)
         # kernel tables: [k, 4, N] u32 (bits in int32) for the radix-2
-        # kernels, [k, 2, N] twiddle pairs for ntt.cu and tensor3.cu, and
-        # [k, 4] int64
+        # kernels, [k, 2, N] twiddle pairs for ntt.cu, tensor3.cu and
+        # inv_ks.cu, and [k, 4] int64
         self.tw = torch.as_tensor(tw, device=self.device)
         self.twp = torch.as_tensor(twiddle_pairs(tw), device=self.device)
         self.consts = dev(consts)
@@ -310,7 +310,7 @@ class NttPlanU32:
         out = torch.empty(*d_hat.shape[:-3], 2, self.k, self.n,
                           dtype=torch.int64, device=d_hat.device)
         if rows:
-            _build.launch("inv_ks", "inv_ks", d_hat, k0, k1, out, self.tw,
+            _build.launch("inv_ks", "inv_ks", d_hat, k0, k1, out, self.twp,
                           self.consts, rows, kdig, self.k, self.logn)
             _build.LAUNCHES["inv_ks"] += 1
         return out

@@ -4,14 +4,16 @@ PyTorch twins.
 
 A small header stands in for the CUDA runtime: one std::thread per CUDA
 thread, a std::barrier per block for `__syncthreads`, the block's dynamic
-shared memory as a byte array, and the intrinsics the kernels use
-(`__umulhi`, `__umul64hi`, `__brev`, `__ldg`). The sources are compiled
-as they are, after two textual rewrites (`kernel<<<grid, block, smem,
-stream>>>(args)` becomes a call of the emulated launch, `extern
-__shared__` a pointer to the block's bytes). This checks the kernels'
-index arithmetic, layouts, barriers and lazy reductions bit for bit at
-small sizes; what it cannot check (the compiler for `sm_90a`, timing)
-`chip_smoke.py` checks on the card. Needs a C++20 compiler (g++).
+shared memory as a byte array, static `__shared__` variables as function
+statics (the emulated blocks run one after another), and the intrinsics
+the kernels use (`__umulhi`, `__umul64hi`, `__brev`, `__ldg`). The
+sources are compiled as they are, after two textual rewrites
+(`kernel<<<grid, block, smem, stream>>>(args)` becomes a call of the
+emulated launch, `extern __shared__` a pointer to the block's bytes).
+This checks the kernels' index arithmetic, layouts, barriers and lazy
+reductions bit for bit at small sizes; what it cannot check (the
+compiler for `sm_90a`, timing) `chip_smoke.py` checks on the card. Needs
+a C++20 compiler (g++).
 """
 
 from __future__ import annotations
@@ -42,8 +44,16 @@ HOST_CUDA = r"""
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
-struct Dim3 { unsigned x = 0, y = 0, z = 0; };
-inline thread_local Dim3 threadIdx, blockIdx, blockDim;
+#define __align__(n) alignas(n)
+#define __shared__ static
+struct uint3 { unsigned x = 0, y = 0, z = 0; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+inline thread_local uint3 threadIdx, blockIdx, blockDim;
+inline thread_local dim3 gridDim;
 inline thread_local std::barrier<>* host_barrier = nullptr;
 inline thread_local char* host_smem = nullptr;
 inline void __syncthreads() { host_barrier->arrive_and_wait(); }
@@ -69,24 +79,26 @@ inline int host_error = 0;
 inline int cudaGetLastError() { int e = host_error; host_error = 0; return e; }
 // the H100's limits: 1024 threads and 227 KB of shared memory a block
 template <class F, class... A>
-void host_launch(F f, int grid, int block, int smem, cudaStream_t,
+void host_launch(F f, dim3 grid, int block, int smem, cudaStream_t,
                  A... args) {
-  if (block > 1024 || smem > 232448) {
+  if (block > 1024 || smem > 232448 || grid.y > 65535) {
     host_error = cudaErrorInvalidConfiguration;
     return;
   }
   std::vector<char> shared(smem);
-  for (int b = 0; b < grid; ++b) {
-    std::barrier<> barrier(block);
-    std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t)
-      threads.emplace_back([&, t] {
-        threadIdx.x = t; blockIdx.x = b; blockDim.x = block;
-        host_barrier = &barrier; host_smem = shared.data();
-        f(args...);
-      });
-    for (auto& th : threads) th.join();
-  }
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::barrier<> barrier(block);
+      std::vector<std::thread> threads;
+      for (int t = 0; t < block; ++t)
+        threads.emplace_back([&, t] {
+          threadIdx.x = t; blockIdx.x = bx; blockIdx.y = by;
+          blockDim.x = block; gridDim = grid;
+          host_barrier = &barrier; host_smem = shared.data();
+          f(args...);
+        });
+      for (auto& th : threads) th.join();
+    }
 }
 """
 
