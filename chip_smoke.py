@@ -6,8 +6,9 @@
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc` (printing
 ptxas' registers, stack and spills of the kernels in ntt.cu, tensor3.cu,
-inv_ks.cu and rns.cu with each one's threads and shared memory a block,
-and the IMAD-class and total SASS instructions of scale_convert), holds
+inv_ks.cu, ks_full.cu and rns.cu with each one's threads and shared memory
+a block, and the IMAD-class and total SASS instructions of rns_convert and
+scale_convert), holds
 each of the twenty-one kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
 `BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
@@ -19,10 +20,12 @@ encoder's (t,) plan, B17 with broadcast operands; B18 and B19 under the
 moduli of tests/test_pallas_mod.py and a 61-bit prime, edge values and
 broadcast tables included, also against a big-int oracle; B1 and B3
 also at the TFHE step's [384, 4, 1024] and B5 at its [64, 6, 4, 1024],
-B5 and B7 at `default_u32(16384)`'s shapes at batch 64, all timed with
-their bounds), holds B1-B3 and B5 at every N from 256 to 16384 and B4
-and B13 at every N up to 8192 (`transform_checks`: edge residues, raw
-words up to 2^32 - 1, a 30-bit and three small moduli), then drives
+B5, B6 and B7 at `default_u32(16384)`'s shapes at batch 64, all timed
+with their bounds; B14 and B15 also timed beside the two kernels each
+replaces, B2 + B5 and, at the TFHE step, B1 + B5, on the same inputs),
+holds B1-B3, B5, B14 and B15 at every N from 256 to 16384 and B4 and B13
+at every N up to 8192 (`transform_checks`: edge residues, raw words up to
+2^32 - 1, a 30-bit and three small moduli), then drives
 fourteen paths, each with the launch counts set to 0 just before it and
 read just after:
 
@@ -82,7 +85,8 @@ With --against OTHER_TREE (another checkout of this repo, such as a
 this one in turns on the same card (other, this, this, other), keeps the
 four logs under chiprun_out/compare/ and prints each number both report
 (kernel times, rates, each profiled cell's device time by kernel) side
-by side; it fails if any of the four runs fails.
+by side, then each side's SASS counts; it fails if any of the four runs
+fails.
 """
 
 from __future__ import annotations
@@ -233,6 +237,18 @@ def _max_residues(x, q):
     return x
 
 
+def _convert_case(conv, x) -> tuple:
+    """B6 as the multiply's base extension (centered, the source limbs
+    copied ahead) on x [..., ks, N]: (kernel, plain twin, args, bytes,
+    32-bit multiplies)."""
+    ks, kd = conv.ks, conv.kd
+    cols = x.numel() // ks
+    return (lambda v: conv(v, include_src=True, centered=True),
+            lambda v: conv.call_plain(v, include_src=True, centered=True),
+            (x,), cols * (2 * ks + kd) * WORD,
+            cols * (10 * ks + 2 * ks * kd + 2 * kd))
+
+
 def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
     """Every kernel entry point at the shapes `multiply_relin` and the
     rotations give it for `batch` ciphertexts of `ctx`: (name, kernel,
@@ -258,10 +274,8 @@ def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
     src_rns = "sunscreen_tpu_torch/csrc/rns.cu"
     src_ntt = "sunscreen_tpu_torch/csrc/ntt.cu"
     src_pw = "sunscreen_tpu_torch/csrc/pointwise.cu"
-    ks, kd = conv.ks, conv.kd
-    x_cv = _max_digits(_uniform(gen, (batch, 4, ks, n), ctx.q_base.q),
+    x_cv = _max_digits(_uniform(gen, (batch, 4, conv.ks, n), ctx.q_base.q),
                        ctx.q_base)
-    cols_cv = batch * 4 * n
     x_sc = _max_digits(_uniform(gen, (batch, 3, sc.ks, n), ctx.mul_base.q),
                        ctx.mul_base)
     cols_sc = batch * 3 * n
@@ -280,13 +294,10 @@ def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
     polys_fi = rows_fi * km
     cols_pm = batch * km * n
     cols_pk = batch * kk * n
+    kernel, plain, args, nbytes, muls = _convert_case(conv, x_cv)
     cases = [
-        ("convert",
-         lambda x: conv(x, include_src=True, centered=True),
-         lambda x: conv.call_plain(x, include_src=True, centered=True),
-         (x_cv,), src_rns, "sunscreen_tpu/math/prns.py:264",
-         cols_cv * (2 * ks + kd) * WORD,
-         cols_cv * (10 * ks + 2 * ks * kd + 2 * kd)),
+        ("convert", kernel, plain, args, src_rns,
+         "sunscreen_tpu/math/prns.py:264", nbytes, muls),
         ("scale_convert", sc, sc.call_plain, (x_sc,), src_rns,
          "sunscreen_tpu/math/prns.py:608",
          cols_sc * (sc.ks + sc.kd) * WORD,
@@ -705,35 +716,56 @@ def pbs_transform_cases(gen, batch: int) -> list[tuple]:
 
 
 def wide_cases(gen, batch: int) -> list[tuple]:
-    """B5 and B7 at path 3's shapes (`default_u32(16384)`, `batch`
+    """B5, B6 and B7 at path 3's shapes (`default_u32(16384)`, `batch`
     ciphertexts): digits [batch, 14, 15, 16384] with 1024 threads a task,
-    and the 29-limb tensor base [batch, 3, 29, 16384] -> [batch, 3, 14,
-    16384], the all-(q_i - 1) digit column included (name, kernel, plain
-    twin, args, bytes, 32-bit multiplies)."""
+    the extension [batch, 4, 14, 16384] -> [batch, 4, 29, 16384] and the
+    29-limb tensor base [batch, 3, 29, 16384] -> [batch, 3, 14, 16384],
+    the all-(q_i - 1) digit columns included (name, kernel, plain twin,
+    args, bytes, 32-bit multiplies)."""
     from sunscreen_tpu_torch.bfv import BfvParams, get_context
+    from sunscreen_tpu_torch.math import prns
 
     ctx = get_context(BfvParams.default_u32(WIDE_N), DEV)
     sc = ctx.fused_op("scale_convert")
+    conv = prns.fused_converter(ctx.conv_q_to_aux)
     x = _max_digits(_uniform(gen, (batch, 3, sc.ks, WIDE_N), ctx.mul_base.q),
                     ctx.mul_base)
+    x_cv = _max_digits(_uniform(gen, (batch, 4, conv.ks, WIDE_N),
+                                ctx.q_base.q), ctx.q_base)
     cols = batch * 3 * WIDE_N
     return [("inv_ks", ctx.plan_key.inv_ks, ctx.plan_key.inv_ks_plain,
              *_inv_ks_case(ctx.plan_key, gen, batch, ctx.k)),
+            ("convert", *_convert_case(conv, x_cv)),
             ("scale_convert", sc, sc.call_plain, (x,),
              cols * (sc.ks + sc.kd) * WORD,
              cols * (10 * sc.ks + 2 * sc.ks * sc.km + 10 * sc.km
                      + 2 * sc.km * sc.kd + 2 * sc.kd))]
 
 
+def unfused_pairs(ctx) -> dict[str, tuple]:
+    """The two kernels each megakernel replaces, as one call on the
+    megakernel's inputs: B14 = B2 then B5 under the key plan, B15 = B1
+    then B5 under the TFHE step's plan ({name: (label, call)})."""
+    pk, pbs = ctx.plan_key, _pbs_plan()
+    return {"ks_full": ("fwd_broadcast + inv_ks",
+                        lambda d, k0, k1: pk.inv_ks(pk.fwd_broadcast(d),
+                                                    k0, k1)),
+            "ks_full_limbs": ("fwd + inv_ks",
+                              lambda d, k0, k1: pbs.inv_ks(pbs.fwd(d),
+                                                           k0, k1))}
+
+
 def check_kernels(ctx, gen) -> list[dict]:
     """Each kernel entry point against its plain twin at the main-path
     shapes, bit for bit, with both times, the bound and, where one
-    PyTorch expression computes the same function, its time; B1 and B3
-    also at the PBS step's shape, B5 there too, and B5 and B7 at path 3's
-    shapes."""
+    PyTorch expression computes the same function, its time; B14 and B15
+    also against the pair of kernels each replaces, on the same inputs,
+    bit for bit and timed; B1 and B3 also at the PBS step's shape, B5
+    there too, and B5, B6 and B7 at path 3's shapes."""
     rows = []
     from sunscreen_tpu_torch.bfv import BfvParams
 
+    pairs = unfused_pairs(ctx)
     for (name, kern, plain, args, src, repl, nbytes, muls,
          *library) in (kernel_cases(ctx, gen, BATCH)
                        + [pbs_kernel_case(gen, BATCH)]
@@ -745,6 +777,16 @@ def check_kernels(ctx, gen) -> list[dict]:
             "launches": 0, "max_abs_err": err,
             **_timing(name, kern, plain, args, nbytes, muls,
                       library[0] if library else None)})
+        if name in pairs:
+            label, pair = pairs[name]
+            _held(f"{name} == {label}", kern, pair, args)
+            pair_ms = _median_ms(lambda: pair(*args), reps=5,
+                                 iters=KERNEL_ITERS)
+            print(f"time {name} beside {label}: kernel "
+                  f"{rows[-1]['ms']:.4f} ms, the pair {pair_ms:.4f} ms "
+                  f"(kernel / pair {rows[-1]['ms'] / pair_ms:.4f})",
+                  flush=True)
+            rows[-1]["unfused_pair"] = {"kernels": label, "ms": pair_ms}
     at = {}
     for where, cases in (("at_pbs_step", pbs_transform_cases(gen, BATCH)),
                          (f"at_{WIDE_N}", wide_cases(gen, BATCH))):
@@ -781,12 +823,13 @@ def check_wide(gen) -> None:
 
 
 def transform_checks(gen, rows: int = 3) -> None:
-    """B1-B5 and B13 wherever the schedule of csrc/transform.cuh changes:
+    """B1-B5, B13-B15 wherever the schedule of csrc/transform.cuh changes:
     fwd, fwd_broadcast, inv and inv_ks at every N from 256 to 16384
     (radix-8 groups at 256, radix-16 above, 2 to 4 groups, several
     polynomials per block below 8192, a block's spare slots when rows * k
     is not a multiple of them; inv_ks in both of its block shapes, with
-    16 digits and every key word of k0 at q - 1), fwd_tensor3 and
+    16 digits and every key word of k0 at q - 1), ks_full and
+    ks_full_limbs at every N (6 digits, both block shapes), fwd_tensor3 and
     fwd_tensor3_full up to
     TENSOR3_MAX_N; under one limb at the largest 30-bit NTT prime (the
     lazy butterflies' values reach 4q - 1 < 2^32) and three small ones
@@ -823,6 +866,14 @@ def transform_checks(gen, rows: int = 3) -> None:
             top = torch.broadcast_to(plan.q - 1, (16, k, n)).contiguous()
             _held(f"inv_ks{tag}", plan.inv_ks, plan.inv_ks_plain,
                   (d, top, _uniform(gen, (16, k, n), plan.q)))
+            k1 = _uniform(gen, (6, k, n), plan.q)
+            digits = torch.randint(0, 1 << 32, (rows, 6, n), generator=gen,
+                                   device=DEV, dtype=torch.int64)
+            digits[:, 0] = raw
+            _held(f"ks_full{tag}", plan.ks_full, plan.ks_full_plain,
+                  (digits, top[:6], k1))
+            _held(f"ks_full_limbs{tag}", plan.ks_full_limbs,
+                  plan.ks_full_limbs_plain, (d[:, :6], top[:6], k1))
             if n > pmntt.TENSOR3_MAX_N:
                 continue
             ext = _uniform(gen, (rows, 4, k, n), plan.q)
@@ -867,8 +918,11 @@ def _inv_ks_block(logn, split):
     return threads, (3 + split) * (1 << logn) * 4
 
 
+# ks_full.cu (<LOGN, PER_LIMB, SPLIT>) takes inv_ks.cu's two shapes.
 PTXAS_SOURCES = {"ntt": _ntt_block, "tensor3": _tensor3_block,
-                 "inv_ks": _inv_ks_block, "rns": lambda *_: (256, 0)}
+                 "inv_ks": _inv_ks_block,
+                 "ks_full": lambda logn, _, split: _inv_ks_block(logn, split),
+                 "rns": lambda *_: (256, 0)}
 
 
 def _demangle(symbol: str) -> tuple[str, list[int]]:
@@ -884,8 +938,8 @@ def _demangle(symbol: str) -> tuple[str, list[int]]:
 
 def print_ptxas() -> None:
     """ptxas' registers, stack, spills and static shared memory of every
-    kernel instantiation in csrc/ntt.cu, tensor3.cu, inv_ks.cu and rns.cu,
-    with the block's threads and dynamic shared memory."""
+    kernel instantiation in csrc/ntt.cu, tensor3.cu, inv_ks.cu, ks_full.cu
+    and rns.cu, with the block's threads and dynamic shared memory."""
     from sunscreen_tpu_torch import _build
 
     for src, block in PTXAS_SOURCES.items():
@@ -944,13 +998,16 @@ def sass_counts(so: str, kernel: str) -> dict[str, tuple[int, int]]:
     return out
 
 
+SASS_KERNELS = ("rns_convert_kernel", "scale_convert_kernel")
+
+
 def print_sass(so: str, label: str) -> None:
-    """Prints the SASS counts of scale_convert_kernel in `so`."""
-    for sym, (imad, total) in sorted(sass_counts(
-            so, "scale_convert_kernel").items()):
-        name, args = _demangle(sym)
-        print(f"sass {label} {name}<{', '.join(map(str, args))}>: {imad} "
-              f"IMAD-class of {total} instructions", flush=True)
+    """Prints the SASS counts of rns.cu's redesigned kernels in `so`."""
+    for kernel in SASS_KERNELS:
+        for sym, (imad, total) in sorted(sass_counts(so, kernel).items()):
+            name, args = _demangle(sym)
+            print(f"sass {label} {name}<{', '.join(map(str, args))}>: "
+                  f"{imad} IMAD-class of {total} instructions", flush=True)
 
 
 # Each CUDA kernel function of the port and the `_build.LAUNCHES` keys whose
@@ -1907,9 +1964,9 @@ PROFILE_RE = re.compile(r"profile (\S+):\s+([0-9.]+) ms\s+[0-9.]+%\s+(.*)")
 
 def _parse_run(text: str) -> dict[str, float]:
     """The numbers of one run's log that a comparison reads: every entry
-    point's kernel ms (and B1/B3 at the PBS step where the run timed
-    them), every rate, and each profiled cell's device ms per batch by
-    kernel function."""
+    point's kernel ms (at the PBS step and at WIDE_N where the run timed
+    them, and the unfused pair beside B14 and B15), every rate, and each
+    profiled cell's device ms per batch by kernel function."""
     out: dict[str, float] = {}
     for line in text.splitlines():
         if line.startswith('{"kernels"'):
@@ -1919,6 +1976,10 @@ def _parse_run(text: str) -> dict[str, float]:
                     if where in row:
                         out[f"kernel {row['name']}@{where[3:]} ms"] = (
                             row[where]["ms"])
+                if "unfused_pair" in row:
+                    out[f"kernel {row['name']} pair "
+                        f"({row['unfused_pair']['kernels']}) ms"] = (
+                        row["unfused_pair"]["ms"])
         for m in RATE_RE.finditer(line):
             out[f"rate {m.group(1)} {m.group(3)}"] = float(m.group(2))
         m = PROFILE_RE.match(line)
@@ -1934,8 +1995,8 @@ def compare(against: str) -> int:
     this, against, each in its own process on the same card, keeps each
     log under chiprun_out/compare/, and prints every number both runs
     report as the two readings of each side, their means and this / against,
-    and the SASS counts of each side's scale_convert kernels. Fails if any
-    run fails."""
+    and the SASS counts of each side's rns_convert and scale_convert
+    kernels. Fails if any run fails."""
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"against": os.path.abspath(against), "this": here}
     logs = os.path.join(os.getcwd(), "chiprun_out", "compare")

@@ -1,11 +1,12 @@
 // Shared device code of the u32-engine kernels (ntt.cu, tensor3.cu,
 // inv_ks.cu, inv_tensor3.cu, ks_full.cu, pntt.cu, rns.cu, pointwise.cu):
-// modular helpers, the 32-bit reduction of u64 words (inv_ks.cu, rns.cu's
-// scale_convert), the per-modulus tables, the exact 128-bit fixed-point sum
-// of the RNS conversions, the radix-2 transforms on shared memory
-// (inv_tensor3, ks_full, pntt; ntt.cu, tensor3.cu and inv_ks.cu use the
-// register-resident ones of transform.cuh), and the map from the plan's
-// flat NTT domain to the butterflies' bit-reversed order.
+// modular helpers, the 32-bit reduction of u64 words (inv_ks.cu,
+// ks_full.cu, rns.cu's rns_convert and scale_convert), the per-modulus
+// tables, the exact 128-bit fixed-point sum of rns_scale, the radix-2
+// transforms on shared memory (inv_tensor3, pntt; ntt.cu, tensor3.cu,
+// inv_ks.cu and ks_full.cu use the register-resident ones of
+// transform.cuh), and the map from the plan's flat NTT domain to the
+// butterflies' bit-reversed order.
 //
 // Tensors cross the C interface as int64 residues (values < 2^32). Per limb
 // the plan uploads:
@@ -103,8 +104,9 @@ __device__ __forceinline__ u32 shoup32(u32 w, u32 q, u64 m) {
 }
 
 // The constants of a 32-bit reduction of any u64 word mod q < 2^30 (inv_ks.cu,
-// rns.cu's scale_convert): m32 = floor(2^32 / q), c = 2^32 mod q and its
-// Shoup ratio. 16 bytes, so a row of a table in shared memory is one load.
+// ks_full.cu, rns.cu's rns_convert and scale_convert): m32 = floor(2^32 / q),
+// c = 2^32 mod q and its Shoup ratio. 16 bytes, so a row of a table in shared
+// memory is one load.
 struct __align__(16) Red32 {
   u32 q, m32, c, c_sh;
 };

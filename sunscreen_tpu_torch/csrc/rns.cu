@@ -19,18 +19,18 @@
 // every load and store is coalesced), keeps the normalized digits in
 // registers, and writes each output limb once.
 //
-// rns_convert, rns_scale and mod_down: native 64-bit products (__umul64hi)
-// take the place of the TPU's 16-bit-half arithmetic: the fixed-point sums
-// are exact in three u64 words (Fixed192), and the limb contractions fold
-// their raw u64 sums every 16 terms (dot_mod), so both are exact for any
-// base up to MAXK limbs. The tables are a few KB, read through the
-// read-only cache; all threads of a warp read the same entry. rns_scale
-// reads its scale step from scale_digits and scale_limb.
+// rns_scale and mod_down: native 64-bit products (__umul64hi) take the
+// place of the TPU's 16-bit-half arithmetic: the fixed-point sums are exact
+// in three u64 words (Fixed192), and the limb contractions fold their raw
+// u64 sums every 16 terms (dot_mod), so both are exact for any base up to
+// MAXK limbs. The tables are a few KB, read through the read-only cache;
+// all threads of a warp read the same entry. rns_scale reads its scale
+// step from scale_digits and scale_limb.
 //
-// scale_convert is held by its instruction count, not its bytes (about 45
-// u64 Barrett steps, each a 64 x 64-bit product emulated in 32-bit
-// multiply-adds, and 300 table loads a column in the design above). It
-// stages its tables once a block in shared memory as u32 words and works
+// rns_convert and scale_convert were held by their instruction count, not
+// their bytes, in that design (64-bit Barrett steps, each a 64 x 64-bit
+// product emulated in 32-bit multiply-adds, and a table load a term). They
+// stage their tables once a block in shared memory as u32 words and work
 // in 32-bit multiplies: Shoup products for the normalizations (the ratios
 // derived from floor(2^64 / q) at staging), 32 x 32 -> 64-bit multiply-adds
 // for the limb sums, reduced once by 32-bit steps (red2q in common.cuh),
@@ -53,44 +53,166 @@
 
 #define MAXK 32
 
+// Four 32-bit words, one 16-byte load from shared memory.
+struct __align__(16) Words {
+  u32 w0, w1, w2, w3;
+};
+
+__device__ __forceinline__ Words words128(u64 hi, u64 lo) {
+  return {(u32)lo, (u32)(lo >> 32), (u32)hi, (u32)(hi >> 32)};
+}
+
+// (q, w, floor(w 2^32 / q)) of a table row (q, m, w, ...)
+__device__ __forceinline__ Words shoup_row(const long long* row) {
+  const u32 q = (u32)row[0], w = (u32)row[2];
+  return {q, w, shoup32(w, q, (u64)row[1]), 0};
+}
+
+// Exact running sum of y f / 2^128 over terms with y < 2^30 and f a
+// 128-bit fraction (four 32-bit words): word k of the products sums in
+// a[k] (each product below 2^62, so four terms fit a u64 above a carried
+// word); carry() moves every word's bits above 32 into the next, the
+// integer part into hi. Every carry reaches hi, as in the reference's
+// column sums (math/rns.py::fixed_point_dot).
+struct Frac128 {
+  u64 a[4] = {0, 0, 0, 0}, hi = 0;
+  __device__ __forceinline__ void add(u32 y, const Words& f) {
+    a[0] += (u64)y * f.w0;
+    a[1] += (u64)y * f.w1;
+    a[2] += (u64)y * f.w2;
+    a[3] += (u64)y * f.w3;
+  }
+  __device__ __forceinline__ void carry() {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      a[k + 1] += a[k] >> 32;
+      a[k] = (u32)a[k];
+    }
+    hi += a[3] >> 32;
+    a[3] = (u32)a[3];
+  }
+  // floor(total)
+  __device__ __forceinline__ u64 floor() {
+    carry();
+    return hi;
+  }
+  // floor(total + 1/2)
+  __device__ __forceinline__ u64 round() {
+    carry();
+    return hi + ((a[3] + (1ull << 31)) >> 32);
+  }
+};
+
+// Whether a limb sum of up to K terms below (2^30)^2, started from a value
+// below K 2^30 (r, alpha (d_l - B mod d_l)), folds after term i: never for
+// K <= 16 (K 2^30 + 16 (2^30 - 1)^2 < 2^64), else every 15 terms.
+template <int K>
+__device__ __forceinline__ constexpr bool fold(int i) {
+  return K > 16 && i % 15 == 14 && i + 1 < K;
+}
+
+// rns_convert's tables, staged once a block from the int64 tables into
+// shared memory as u32 words (3.2 KB for <16>, 5.8 KB for <32>), the
+// digits' entries zero past ks: all threads of a warp read the same word, a
+// broadcast.
+template <int K>
+struct CvTables {
+  Words s[K];        // q_i, (Q/q_i)^-1 mod q_i, its Shoup ratio
+  Words f[K];        // 1/q_i rounded up, four 32-bit words
+  u32 th[MAXK][K];   // theta transposed: th[j][i] = theta_ij
+  Red32 d[MAXK];     // d_j and its reduction constants
+  u32 dneg[MAXK];    // d_j - (Q mod d_j)
+};
+
+// v = x[row][i][col] for i < ks, 0 past ks or past the last row.
+template <int K>
+__device__ __forceinline__ void load_column(long long (&v)[K],
+                                            const long long* __restrict__ x,
+                                            int row, int rows, int ks, int n,
+                                            int col) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    v[i] = row < rows && i < ks ? x[((size_t)row * ks + i) * n + col] : 0;
+}
+
 // x [rows, ks, N] -> out [rows, kd, N], or [rows, ks + kd, N] with the source
-// limbs copied ahead (include_src). alpha = floor(sum_i y_i / q_i (+ 1/2 if
-// centered)); out_j = sum_i y_i theta_ij - alpha (Q mod d_j) mod d_j.
+// limbs copied ahead (include_src). y_i = x_i (Q/q_i)^-1 mod q_i,
+// alpha = floor(sum_i y_i / q_i (+ 1/2 if centered)); out_j = sum_i y_i
+// theta_ij - alpha (Q mod d_j) mod d_j. One thread a column in
+// CONVERT_ROWS rows (blockIdx.y striding over them), after the block has
+// staged the tables (the Shoup ratios derived from floor(2^64 / q)); the
+// next row's digits are loaded while a row is converted. Each
+// normalization is one 32-bit Shoup product, alpha an exact 128-bit
+// fixed-point sum of four multiply-adds a term (Frac128), each limb a chain
+// of 32 x 32 -> 64-bit multiply-adds started from alpha (d_j - Q mod d_j)
+// and reduced once by 32-bit steps (fold: every 15 terms for K > 16), two
+// limbs at a time. The loops run over all K digits, unguarded: digits past
+// ks are 0. ptxas takes 122-210 registers a thread (<8> to <16>): capped
+// at 80, the spills made the kernel slower on the H100, as did one row a
+// block, no prefetch or one limb at a time.
 //   src [ks]: q_i, m, (Q/q_i)^-1 mod q_i, 1/q_i rounded up (hi, lo word)
 //   dst [kd]: d_j, m, Q mod d_j
 //   theta [ks][kd]: (Q/q_i) mod d_j
 template <int K>
-__global__ void rns_convert_kernel(const long long* __restrict__ x,
-                                   long long* __restrict__ out,
-                                   const long long* __restrict__ src,
-                                   const long long* __restrict__ dst,
-                                   const long long* __restrict__ theta,
-                                   int rows, int ks, int kd, int n,
-                                   int centered, int include_src) {
-  const size_t id = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (id >= (size_t)rows * n) return;
-  const size_t row = id / n, col = id % n;
-  const long long* xc = x + row * ks * n + col;
-  long long* oc = out + row * (include_src ? ks + kd : kd) * n + col;
-  u32 y[K];
-  Fixed192 fp;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    if (i < ks) {
-      const long long xi = xc[(size_t)i * n];
-      if (include_src) oc[(size_t)i * n] = xi;
-      const Mod s = load_mod(src, i);
-      y[i] = reduce64((u64)xi * tab_at(src, i, 2), s.q, s.m);
-      fixed_add(fp, y[i], tab_at(src, i, 3), tab_at(src, i, 4));
+__global__ void __launch_bounds__(256)
+    rns_convert_kernel(const long long* __restrict__ x,
+                       long long* __restrict__ out,
+                       const long long* __restrict__ src,
+                       const long long* __restrict__ dst,
+                       const long long* __restrict__ theta, int rows, int ks,
+                       int kd, int n, int centered, int include_src) {
+  __shared__ CvTables<K> tb;
+  for (int e = threadIdx.x; e < kd * K; e += blockDim.x) {
+    const int j = e / K, i = e % K;
+    tb.th[j][i] = i < ks ? (u32)theta[i * kd + j] : 0u;
+  }
+  for (int e = threadIdx.x; e < K + kd; e += blockDim.x) {
+    if (e < K) {
+      const long long* r = src + 8 * e;
+      tb.s[e] = e < ks ? shoup_row(r) : Words{1, 0, 0, 0};
+      tb.f[e] = e < ks ? words128((u64)r[3], (u64)r[4]) : Words{0, 0, 0, 0};
+    } else {
+      const long long* r = dst + 8 * (e - K);
+      tb.d[e - K] = red32((u32)r[0], (u64)r[1]);
+      tb.dneg[e - K] = (u32)(r[0] - r[2]);
     }
   }
-  const u64 alpha = fixed_int(fp, centered);
-  if (include_src) oc += (size_t)ks * n;
-  for (int j = 0; j < kd; ++j) {
-    const Mod d = load_mod(dst, j);
-    const u32 acc = dot_mod<K>(y, ks, theta + j, kd, d.q, d.m);
-    const u32 corr = reduce64(alpha * tab_at(dst, j, 2), d.q, d.m);
-    oc[(size_t)j * n] = sub_q(acc, corr, d.q);
+  __syncthreads();
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  const int ko = include_src ? ks + kd : kd;
+  long long xn[K];  // the column's digits in the block's next row
+  load_column(xn, x, blockIdx.y, rows, ks, n, col);
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    long long* oc = out + (size_t)row * ko * n + col;
+    u32 y[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (include_src && i < ks) oc[(size_t)i * n] = xn[i];
+      y[i] = (u32)xn[i];
+    }
+    load_column(xn, x, row + gridDim.y, rows, ks, n, col);
+    Frac128 fr;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const Words si = tb.s[i];
+      y[i] = mul_shoup(y[i], si.w1, si.w2, si.w0);
+      fr.add(y[i], tb.f[i]);
+      if ((i & 3) == 3) fr.carry();
+    }
+    const u32 alpha = (u32)(centered ? fr.round() : fr.floor());  // <= ks
+    if (include_src) oc += (size_t)ks * n;
+#pragma unroll 2
+    for (int j = 0; j < kd; ++j) {
+      const Red32 dj = tb.d[j];
+      u64 acc = (u64)alpha * tb.dneg[j];
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        acc += (u64)y[i] * tb.th[j][i];
+        if (fold<K>(i)) acc = red2q(acc, dj);
+      }
+      oc[(size_t)j * n] = red(acc, dj);
+    }
   }
 }
 
@@ -143,11 +265,6 @@ __global__ void rns_scale_kernel(const long long* __restrict__ x,
     oc[(size_t)j * n] = scale_limb<K>(y, ks, r, omega, j, kd, load_mod(d, j));
 }
 
-// Four 32-bit words, one 16-byte load from shared memory.
-struct __align__(16) Words {
-  u32 w0, w1, w2, w3;
-};
-
 // scale_convert's tables, staged once a block from the int64 tables into
 // shared memory as u32 words (3 KB for <16, 8>, 11 KB for <32, 32>): all
 // threads of a warp read the same word, a broadcast.
@@ -163,54 +280,6 @@ struct ScTables {
   Red32 d[KS];     // d_l and its reduction constants
   u32 dneg[KS];    // d_l - (B mod d_l)
 };
-
-__device__ __forceinline__ Words words128(u64 hi, u64 lo) {
-  return {(u32)lo, (u32)(lo >> 32), (u32)hi, (u32)(hi >> 32)};
-}
-
-// (q, w, floor(w 2^32 / q)) of a table row (q, m, w, ...)
-__device__ __forceinline__ Words shoup_row(const long long* row) {
-  const u32 q = (u32)row[0], w = (u32)row[2];
-  return {q, w, shoup32(w, q, (u64)row[1]), 0};
-}
-
-// Exact running sum of y f / 2^128 over terms with y < 2^30 and f a
-// 128-bit fraction (four 32-bit words): word k of the products sums in
-// a[k] (each product below 2^62, so four terms fit a u64 above a carried
-// word); carry() moves every word's bits above 32 into the next, the
-// integer part into hi. Every carry reaches hi, as in the reference's
-// column sums (math/rns.py::fixed_point_dot).
-struct Frac128 {
-  u64 a[4] = {0, 0, 0, 0}, hi = 0;
-  __device__ __forceinline__ void add(u32 y, const Words& f) {
-    a[0] += (u64)y * f.w0;
-    a[1] += (u64)y * f.w1;
-    a[2] += (u64)y * f.w2;
-    a[3] += (u64)y * f.w3;
-  }
-  __device__ __forceinline__ void carry() {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      a[k + 1] += a[k] >> 32;
-      a[k] = (u32)a[k];
-    }
-    hi += a[3] >> 32;
-    a[3] = (u32)a[3];
-  }
-  // floor(total + 1/2)
-  __device__ __forceinline__ u64 round() {
-    carry();
-    return hi + ((a[3] + (1ull << 31)) >> 32);
-  }
-};
-
-// Whether a limb sum of up to K terms below (2^30)^2, started from a value
-// below K 2^30 (r, alpha (d_l - B mod d_l)), folds after term i: never for
-// K <= 16 (K 2^30 + 16 (2^30 - 1)^2 < 2^64), else every 15 terms.
-template <int K>
-__device__ __forceinline__ constexpr bool fold(int i) {
-  return K > 16 && i % 15 == 14 && i + 1 < K;
-}
 
 // One column of scale_convert: x [ks] (limbs n apart) in the tensor base
 // -> out [kd] in Q: s = round(t x / Q) mod each b_j, then the centered
@@ -356,6 +425,7 @@ __global__ void mod_down_kernel(const long long* __restrict__ xq,
 }
 
 static const int THREADS = 256;
+static const int CONVERT_ROWS = 4;  // rows a rns_convert thread converts
 
 static unsigned blocks_for(int rows, int n) {
   return (unsigned)(((size_t)rows * n + THREADS - 1) / THREADS);
@@ -365,9 +435,14 @@ extern "C" int rns_convert(const void* x, void* out, const void* src,
                            const void* dst, const void* theta, int rows,
                            int ks, int kd, int n, int centered,
                            int include_src, void* stream) {
-  if (ks > MAXK) return (int)cudaErrorInvalidValue;
-  auto kern = ks <= 16 ? &rns_convert_kernel<16> : &rns_convert_kernel<MAXK>;
-  kern<<<blocks_for(rows, n), THREADS, 0, (cudaStream_t)stream>>>(
+  if (ks > MAXK || kd > MAXK) return (int)cudaErrorInvalidValue;
+  auto kern = ks <= 8    ? &rns_convert_kernel<8>
+              : ks <= 16 ? &rns_convert_kernel<16>
+                         : &rns_convert_kernel<MAXK>;
+  if (rows == 0) return 0;
+  const int gy = (rows + CONVERT_ROWS - 1) / CONVERT_ROWS;
+  const dim3 grid((n + THREADS - 1) / THREADS, gy < 65535 ? gy : 65535);
+  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const long long*)x, (long long*)out, (const long long*)src,
       (const long long*)dst, (const long long*)theta, rows, ks, kd, n,
       centered, include_src);

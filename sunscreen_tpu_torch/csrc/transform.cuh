@@ -1,8 +1,8 @@
 // Register-resident negacyclic transforms over one u32 limb (ntt.cu,
-// tensor3.cu): the forward Cooley-Tukey transform with merged psi twiddles
-// and the inverse Gentleman-Sande transform with psi^-1 twiddles, with
-// Harvey's lazy butterflies (values below 4q or 2q between stages, exact
-// residues after the caller's last reduction).
+// tensor3.cu, inv_ks.cu, ks_full.cu): the forward Cooley-Tukey transform with
+// merged psi twiddles and the inverse Gentleman-Sande transform with psi^-1
+// twiddles, with Harvey's lazy butterflies (values below 4q or 2q between
+// stages, exact residues after the caller's last reduction).
 //
 // Layout. A polynomial of N = 2^LOGN coefficients is held by T = N / E
 // threads, E = 2^R coefficients each in registers (R = 4; R = 3 at

@@ -122,8 +122,8 @@ class NttPlanU32:
         self.fwd_gather = dev(fwd_gather)
         self.inv_gather = dev(inv_gather)
         # kernel tables: [k, 4, N] u32 (bits in int32) for the radix-2
-        # kernels, [k, 2, N] twiddle pairs for ntt.cu, tensor3.cu and
-        # inv_ks.cu, and [k, 4] int64
+        # kernel inv_tensor3.cu, [k, 2, N] twiddle pairs for ntt.cu,
+        # tensor3.cu, inv_ks.cu and ks_full.cu, and [k, 4] int64
         self.tw = torch.as_tensor(tw, device=self.device)
         self.twp = torch.as_tensor(twiddle_pairs(tw), device=self.device)
         self.consts = dev(consts)
@@ -327,7 +327,7 @@ class NttPlanU32:
         out = torch.empty(*d.shape[:-len(tail)], 2, self.k, self.n,
                           dtype=torch.int64, device=d.device)
         if rows:
-            _build.launch("ks_full", "ks_full", d, *keys, out, self.tw,
+            _build.launch("ks_full", "ks_full", d, *keys, out, self.twp,
                           self.consts, rows, kdig, self.k, self.logn,
                           per_limb)
             _build.LAUNCHES[name] += 1

@@ -37,7 +37,7 @@ from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math.modular import U32_MAX_MODULUS_BITS
 
-MAX_LIMBS = 32       # register arrays of csrc/rns.cu (MAXK)
+MAX_LIMBS = 32       # register arrays and tables of csrc/rns.cu (MAXK)
 MAX_KS_DIGITS = 32   # FusedKsInner digits (its sums fold every 16 terms)
 
 
@@ -140,7 +140,7 @@ class FusedRnsOp:
             return self.call_plain(x, include_src, centered)
         n = x.shape[-1]
         rows = _check(x, self.device, (self.ks, n))
-        _limbs_ok(self.ks)
+        _limbs_ok(self.ks, self.kd if self.mode == "convert" else 0)
         x = x.contiguous()
         ko = self.ks + self.kd if include_src else self.kd
         out = torch.empty(*x.shape[:-2], ko, n, dtype=torch.int64,

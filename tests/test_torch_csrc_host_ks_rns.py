@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import itertools
 import os
 import shutil
 import subprocess
@@ -24,7 +25,7 @@ import torch
 
 from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.bfv import BfvParams, get_context
-from sunscreen_tpu_torch.math import prns
+from sunscreen_tpu_torch.math import prns, rns
 from test_torch_csrc_host import HOST_CUDA, _compile, _host_source, _plan
 
 @pytest.fixture(scope="module")
@@ -84,6 +85,23 @@ def test_inv_ks_kernel_matches_twin(host, n):
         np.testing.assert_array_equal(out, want.numpy())
 
 
+def _convert_input(base, rng, n: int = 256):
+    """[2, 3, k, N] residues of `base`: random, with column 0 at normalized
+    digits y_i = q_i - 1 (the largest limb sums), column 1 at x = -1, and
+    columns 2.. at x = 0, 1, 2 and next to Q / 2, where alpha's floor and
+    its rounding turn."""
+    x = np.stack([rng.integers(0, q, (2, 3, n)) for q in base.moduli],
+                 axis=-2)
+    for i, (q, p) in enumerate(zip(base.moduli, base.punctured)):
+        x[..., i, 0] = (q - 1) * (p % q) % q
+        x[..., i, 1] = q - 1
+    half = base.product // 2
+    for col, v in enumerate((0, 1, 2, half - 2, half - 1, half, half + 1,
+                             half + 2), start=2):
+        x[0, 0, :, col] = [v % q for q in base.moduli]
+    return x
+
+
 def _tensor_input(ctx, rng, rows: int = 2):
     """[rows, 3, ks, N] tensor-base residues: random, with column 0 of each
     row at normalized digits y_i = q_i - 1, column 1 at x = -1 (every
@@ -106,10 +124,11 @@ def _tensor_input(ctx, rng, rows: int = 2):
 
 @pytest.mark.parametrize("limbs", [7, 14])
 def test_rns_kernels_match_twins(host, limbs):
-    """scale_convert (B7), rns_scale (B9), rns_convert (B6, extension with
-    the source limbs and the bare aux -> Q conversion) and mod_down (B8)
-    at the bases of `limbs` 30-bit limbs: ks = 2 limbs + 1 tensor-base
-    limbs (15 as default_u32(8192)'s, 29 as default_u32(16384)'s)."""
+    """scale_convert (B7), rns_scale (B9), rns_convert (B6: q -> aux,
+    aux -> q and the tensor base -> q, with and without the source copy,
+    centered and not) and mod_down (B8) at the bases of `limbs` 30-bit
+    limbs: ks = 2 limbs + 1 tensor-base limbs (15 as default_u32(8192)'s,
+    29 as default_u32(16384)'s)."""
     lib = host["rns"]
     ctx = get_context(BfvParams.insecure(poly_degree=256, limbs=limbs,
                                          limb_bits=30), "cpu")
@@ -140,19 +159,25 @@ def test_rns_kernels_match_twins(host, limbs):
                          scaler.ks, scaler.kd, n, None) == 0
     np.testing.assert_array_equal(out, scaler.call_plain(xt).numpy())
 
-    for conv, src, include_src in ((ctx.conv_q_to_aux, ctx.q_base, 1),
-                                   (ctx.conv_aux_to_q, ctx.aux_base, 0)):
+    # rns_convert (B6): q -> aux, aux -> q and, through the <MAXK>
+    # instantiation (ks > 16 at 14 limbs), the tensor base -> q with every
+    # theta_ij at d_j - 1, each with and without the source copy, centered
+    # and not
+    wide = copy.copy(rns.BaseConverter(ctx.mul_base, ctx.q_base))
+    wide.theta = torch.broadcast_to(ctx.q_base.q - 1, wide.theta.shape)
+    for conv in (ctx.conv_q_to_aux, ctx.conv_aux_to_q, wide):
         op = prns.fused_converter(conv)
-        xs = np.ascontiguousarray(x[..., :op.ks, :] % src.q.numpy())
-        xs[..., 0] = src.q.numpy()[:, 0] - 1
-        out = np.empty((2, 3, op.kd + include_src * op.ks, n),
-                       dtype=np.int64)
-        assert lib.rns_convert(
-            _p(xs), _p(out), _p(_np(op.src_tab)), _p(_np(op.dst_tab)),
-            _p(_np(op.mat)), rows, op.ks, op.kd, n, 1, include_src,
-            None) == 0
-        want = op.call_plain(torch.from_numpy(xs), bool(include_src))
-        np.testing.assert_array_equal(out, want.numpy())
+        xs = _convert_input(conv.src, rng)
+        xt = torch.from_numpy(xs)
+        for include_src, centered in itertools.product((0, 1), (0, 1)):
+            out = np.empty((2, 3, op.kd + include_src * op.ks, n),
+                           dtype=np.int64)
+            assert lib.rns_convert(
+                _p(xs), _p(out), _p(_np(op.src_tab)), _p(_np(op.dst_tab)),
+                _p(_np(op.mat)), rows, op.ks, op.kd, n, centered,
+                include_src, None) == 0
+            want = op.call_plain(xt, bool(include_src), bool(centered))
+            np.testing.assert_array_equal(out, want.numpy())
 
     md = prns.fused_mod_down(ctx.mod_down)
     kb = ctx.key_base.q.numpy()
