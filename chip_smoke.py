@@ -6,10 +6,10 @@
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc` (printing
 ptxas' registers, stack and spills of the kernels in ntt.cu, tensor3.cu,
-inv_ks.cu, ks_full.cu and rns.cu with each one's threads and shared memory
-a block, and the IMAD-class and total SASS instructions of rns_convert and
-scale_convert), holds
-each of the twenty-one kernel entry points bit for bit against its plain
+inv_ks.cu, ks_full.cu, inv_tensor3.cu, pntt.cu and rns.cu with each one's
+threads and shared memory a block, and the IMAD-class and total SASS
+instructions of rns_convert and scale_convert), holds each of the
+twenty-one kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
 `BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
 `ks_full_limbs`; the "pallas_vpu" plan's multiply and encryption shapes
@@ -20,12 +20,13 @@ encoder's (t,) plan, B17 with broadcast operands; B18 and B19 under the
 moduli of tests/test_pallas_mod.py and a 61-bit prime, edge values and
 broadcast tables included, also against a big-int oracle; B1 and B3
 also at the TFHE step's [384, 4, 1024] and B5 at its [64, 6, 4, 1024],
-B5, B6 and B7 at `default_u32(16384)`'s shapes at batch 64, all timed
+B5, B6, B7 and B12 at `default_u32(16384)`'s shapes at batch 64, all timed
 with their bounds; B14 and B15 also timed beside the two kernels each
 replaces, B2 + B5 and, at the TFHE step, B1 + B5, on the same inputs),
-holds B1-B3, B5, B14 and B15 at every N from 256 to 16384 and B4 and B13
-at every N up to 8192 (`transform_checks`: edge residues, raw words up to
-2^32 - 1, a 30-bit and three small moduli), then drives
+holds B1-B3, B5, B12, B14 and B15 at every N from 256 to 16384, B16 from
+128 and B4 and B13 at every N up to 8192 (`transform_checks`: edge
+residues, raw words up to 2^32 - 1, a 30-bit and three small moduli),
+then drives
 fourteen paths, each with the launch counts set to 0 just before it and
 read just after:
 
@@ -333,9 +334,7 @@ def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
         ("inv_tensor3", pm.inv_tensor3, pm.inv_tensor3_plain, (a_hat, b_hat),
          "sunscreen_tpu_torch/csrc/inv_tensor3.cu",
          "sunscreen_tpu/math/pmntt.py:427",
-         (2 + 2 + 3) * cols_pm * WORD,
-         # 4 products of 32x32 -> 64 bits (2 each) + 3 inverse transforms
-         batch * km * (8 * n + 3 * (ntt_muls + 3 * n))),
+         (2 + 2 + 3) * cols_pm * WORD, batch * km * inv_tensor3_muls(n)),
         ("inv_ks", pk.inv_ks, pk.inv_ks_plain, (d_ks, k0, k1),
          "sunscreen_tpu_torch/csrc/inv_ks.cu",
          "sunscreen_tpu/math/pmntt.py:500",
@@ -365,6 +364,12 @@ def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
              # B4's work + 3 inverse transforms with the 1/N scaling
              batch * km * (4 * ntt_muls + 8 * n + 3 * (ntt_muls + 3 * n)))]
     return cases
+
+
+def inv_tensor3_muls(n: int) -> int:
+    """B12's 32-bit multiplies per (row, limb): 4 products of 32x32 -> 64
+    bits (2 each) and 3 inverse transforms with the 1/N scaling."""
+    return 8 * n + 3 * (3 * (n // 2) * (n.bit_length() - 1) + 3 * n)
 
 
 SRC_PNTT = "sunscreen_tpu_torch/csrc/pntt.cu"
@@ -716,12 +721,14 @@ def pbs_transform_cases(gen, batch: int) -> list[tuple]:
 
 
 def wide_cases(gen, batch: int) -> list[tuple]:
-    """B5, B6 and B7 at path 3's shapes (`default_u32(16384)`, `batch`
-    ciphertexts): digits [batch, 14, 15, 16384] with 1024 threads a task,
-    the extension [batch, 4, 14, 16384] -> [batch, 4, 29, 16384] and the
-    29-limb tensor base [batch, 3, 29, 16384] -> [batch, 3, 14, 16384],
-    the all-(q_i - 1) digit columns included (name, kernel, plain twin,
-    args, bytes, 32-bit multiplies)."""
+    """B5, B6, B7 and B12 at path 3's shapes (`default_u32(16384)`,
+    `batch` ciphertexts): digits [batch, 14, 15, 16384] with 1024 threads
+    a task, the extension [batch, 4, 14, 16384] -> [batch, 4, 29, 16384],
+    the 29-limb tensor base [batch, 3, 29, 16384] -> [batch, 3, 14, 16384]
+    and B12's operands, the halves of [batch, 4, 29, 16384] (1024 threads
+    and 192 KB a task), the all-(q_i - 1) digit columns and residues
+    included (name, kernel, plain twin, args, bytes, 32-bit
+    multiplies)."""
     from sunscreen_tpu_torch.bfv import BfvParams, get_context
     from sunscreen_tpu_torch.math import prns
 
@@ -733,13 +740,19 @@ def wide_cases(gen, batch: int) -> list[tuple]:
     x_cv = _max_digits(_uniform(gen, (batch, 4, conv.ks, WIDE_N),
                                 ctx.q_base.q), ctx.q_base)
     cols = batch * 3 * WIDE_N
+    pm = ctx.plan_mul
+    ab = _max_residues(_uniform(gen, (batch, 4, pm.k, WIDE_N), pm.q), pm.q)
     return [("inv_ks", ctx.plan_key.inv_ks, ctx.plan_key.inv_ks_plain,
              *_inv_ks_case(ctx.plan_key, gen, batch, ctx.k)),
             ("convert", *_convert_case(conv, x_cv)),
             ("scale_convert", sc, sc.call_plain, (x,),
              cols * (sc.ks + sc.kd) * WORD,
              cols * (10 * sc.ks + 2 * sc.ks * sc.km + 10 * sc.km
-                     + 2 * sc.km * sc.kd + 2 * sc.kd))]
+                     + 2 * sc.km * sc.kd + 2 * sc.kd)),
+            ("inv_tensor3", pm.inv_tensor3, pm.inv_tensor3_plain,
+             (ab[:, :2], ab[:, 2:]),
+             (2 + 2 + 3) * batch * pm.k * WIDE_N * WORD,
+             batch * pm.k * inv_tensor3_muls(WIDE_N))]
 
 
 def unfused_pairs(ctx) -> dict[str, tuple]:
@@ -823,8 +836,10 @@ def check_wide(gen) -> None:
 
 
 def transform_checks(gen, rows: int = 3) -> None:
-    """B1-B5, B13-B15 wherever the schedule of csrc/transform.cuh changes:
-    fwd, fwd_broadcast, inv and inv_ks at every N from 256 to 16384
+    """B1-B5, B12-B16 wherever the schedule of csrc/transform.cuh changes:
+    fwd, fwd_broadcast, inv, inv_ks and inv_tensor3 (operands the halves
+    of one stack, read through their row strides) at every N from 256 to
+    16384, pntt_fwd and pntt_inv (the [t', s'] exchange) from 128
     (radix-8 groups at 256, radix-16 above, 2 to 4 groups, several
     polynomials per block below 8192, a block's spare slots when rows * k
     is not a multiple of them; inv_ks in both of its block shapes, with
@@ -839,8 +854,20 @@ def transform_checks(gen, rows: int = 3) -> None:
     reduction; below 2^32 they take a 32-bit one); fwd_broadcast's raw
     words include 2^32 - 1 and a row of them."""
     import torch
-    from sunscreen_tpu_torch.math import pmntt, primes
+    from sunscreen_tpu_torch.math import pmntt, pntt, primes
 
+    for logn in range(7, 15):
+        n = 1 << logn
+        for k, bits in ((1, 30), (3, max(17, 17 + logn - 8))):
+            plan = pntt.PallasNttPlan(
+                n, tuple(primes.gen_ntt_primes(bits, k, n)), DEV)
+            x = _uniform(gen, (rows, k, n), plan.q)
+            x[..., 0] = plan.q[:, 0] - 1
+            x[..., 2] = (1 << 62) + 12345   # the loads' 64-bit reduction
+            x[0] = plan.q - 1
+            for name, kern, plain in (("pntt_fwd", plan.fwd, plan.fwd_plain),
+                                      ("pntt_inv", plan.inv, plan.inv_plain)):
+                _held(f"{name}@[{rows},{k},{n}] {bits}b", kern, plain, (x,))
     for logn in range(8, 15):
         n = 1 << logn
         for k, bits in ((1, 30), (3, 17 + logn - 8)):
@@ -874,6 +901,10 @@ def transform_checks(gen, rows: int = 3) -> None:
                   (digits, top[:6], k1))
             _held(f"ks_full_limbs{tag}", plan.ks_full_limbs,
                   plan.ks_full_limbs_plain, (d[:, :6], top[:6], k1))
+            ab = _uniform(gen, (rows, 4, k, n), plan.q)
+            ab[0] = plan.q - 1
+            _held(f"inv_tensor3{tag}", plan.inv_tensor3,
+                  plan.inv_tensor3_plain, (ab[:, :2], ab[:, 2:]))
             if n > pmntt.TENSOR3_MAX_N:
                 continue
             ext = _uniform(gen, (rows, 4, k, n), plan.q)
@@ -889,20 +920,20 @@ def transform_checks(gen, rows: int = 3) -> None:
 
 def transform_shape(n: int) -> tuple[int, int]:
     """(threads per block, polynomials per block) of csrc/transform.cuh's
-    Shape for N = n: N/8 threads a polynomial at N = 256, N/16 above, as
-    many polynomials as fill 512 threads."""
-    threads = n // (8 if n == 256 else 16)
+    Shape for N = n: N/4 threads a polynomial at N = 128, N/8 at 256, N/16
+    above, as many polynomials as fill 512 threads."""
+    threads = n // {128: 4, 256: 8}.get(n, 16)
     polys = max(1, 512 // threads)
     return threads * polys, polys
 
 
 # Per source whose kernels print_ptxas reports: (threads a block, dynamic
 # shared memory in bytes) from an instantiation's template arguments.
-# ntt.cu takes two exchange buffers a polynomial, tensor3.cu an exchange
-# buffer and two stashes, inv_ks.cu (<LOGN, SPLIT>) two exchange buffers a
-# component with twice the threads of a transform (SPLIT) or two and a
-# stash; rns.cu's kernels run 256 threads with static shared memory only
-# (ptxas' "smem").
+# ntt.cu and pntt.cu's B16 take two exchange buffers a polynomial,
+# tensor3.cu and inv_tensor3.cu an exchange buffer and two stashes,
+# inv_ks.cu (<LOGN, SPLIT>) two exchange buffers a component with twice
+# the threads of a transform (SPLIT) or two and a stash; rns.cu's kernels
+# run 256 threads with static shared memory only (ptxas' "smem").
 def _ntt_block(logn, *_):
     threads, polys = transform_shape(1 << logn)
     return threads, 2 * polys * (1 << logn) * 4
@@ -918,8 +949,11 @@ def _inv_ks_block(logn, split):
     return threads, (3 + split) * (1 << logn) * 4
 
 
-# ks_full.cu (<LOGN, PER_LIMB, SPLIT>) takes inv_ks.cu's two shapes.
+# ks_full.cu (<LOGN, PER_LIMB, SPLIT>) takes inv_ks.cu's two shapes,
+# pntt.cu's B17 (no template) 256 threads and no shared memory.
 PTXAS_SOURCES = {"ntt": _ntt_block, "tensor3": _tensor3_block,
+                 "inv_tensor3": _tensor3_block,
+                 "pntt": lambda *a: _ntt_block(*a) if a else (256, 0),
                  "inv_ks": _inv_ks_block,
                  "ks_full": lambda logn, _, split: _inv_ks_block(logn, split),
                  "rns": lambda *_: (256, 0)}
@@ -938,8 +972,8 @@ def _demangle(symbol: str) -> tuple[str, list[int]]:
 
 def print_ptxas() -> None:
     """ptxas' registers, stack, spills and static shared memory of every
-    kernel instantiation in csrc/ntt.cu, tensor3.cu, inv_ks.cu, ks_full.cu
-    and rns.cu, with the block's threads and dynamic shared memory."""
+    kernel instantiation in PTXAS_SOURCES, with the block's threads and
+    dynamic shared memory."""
     from sunscreen_tpu_torch import _build
 
     for src, block in PTXAS_SOURCES.items():

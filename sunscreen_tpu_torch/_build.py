@@ -45,7 +45,7 @@ SIGNATURES = {
     "pointwise": {"tensor3_pointwise": "ppppiiiiip",
                   "ks_inner": "pppppiiiip"},
     "ks_full": {"ks_full": "ppppppiiiiip"},
-    "pntt": {"pntt_fwd": "pppppiiip", "pntt_inv": "pppppiiip",
+    "pntt": {"pntt_fwd": "ppppiiip", "pntt_inv": "ppppiiip",
              "pntt_pmul": "pppp" + "i" * 15 + "p"},
     "u64mod": {"u64_shoup_mul_mod": "ppppppiiup",
                "u64_mul_mod": "pppppiiuuup",

@@ -2,19 +2,15 @@
 // inv_ks.cu, inv_tensor3.cu, ks_full.cu, pntt.cu, rns.cu, pointwise.cu):
 // modular helpers, the 32-bit reduction of u64 words (inv_ks.cu,
 // ks_full.cu, rns.cu's rns_convert and scale_convert), the per-modulus
-// tables, the exact 128-bit fixed-point sum of rns_scale, the radix-2
-// transforms on shared memory (inv_tensor3, pntt; ntt.cu, tensor3.cu,
-// inv_ks.cu and ks_full.cu use the register-resident ones of
-// transform.cuh), and the map from the plan's flat NTT domain to the
-// butterflies' bit-reversed order.
+// tables and the exact 128-bit fixed-point sum of rns_scale. The
+// transforms themselves are transform.cuh's.
 //
 // Tensors cross the C interface as int64 residues (values < 2^32). Per limb
 // the plan uploads:
-//   tw     [k][4][N] u32: psi_rev, its Shoup ratios, psi_inv_rev, its Shoup
-//          ratios, where psi_rev[i] = psi^brev(i) and psi is the minimal
-//          primitive 2N-th root of unity mod q;
-//   twp    [k][2][N] u64: the same pairs (w | w_sh << 32), psi_rev then
-//          psi_inv_rev (transform.cuh);
+//   twp    [k][2][N] u64: pairs (w | w_sh << 32) of psi_rev then
+//          psi_inv_rev, where psi_rev[i] = psi^brev(i), psi is the minimal
+//          primitive 2N-th root of unity mod q and w_sh = floor(w 2^32 / q)
+//          (transform.cuh);
 //   consts [k][4] int64: q, floor(2^64 / q), N^-1 mod q, its Shoup ratio.
 #pragma once
 
@@ -176,66 +172,4 @@ __device__ __forceinline__ u32 dot_mod(const u32 (&y)[K], int k,
     }
   }
   return reduce64(acc, q, m);
-}
-
-// Flat position p = j2 * n1 + j1 of the NTT domain (n1 = N / 128) holds the
-// evaluation at psi * omega^J with J = j2 + 128 j1. The forward transform
-// below leaves that value at bit-reversed index brev(J).
-__device__ __forceinline__ int flat_to_br(int p, int logn) {
-  const int log_n1 = logn - 7;
-  const u32 J = (u32)((p >> log_n1) + ((p & ((1 << log_n1) - 1)) << 7));
-  return (int)(__brev(J) >> (32 - logn));
-}
-
-// Forward negacyclic Cooley-Tukey transform (psi twiddles merged) of `nb`
-// polys of N = 2^logn stored back to back in shared memory: natural order in,
-// bit-reversed order out, values in [0, q). Callers sync before calling; the
-// function syncs after every stage.
-__device__ void fwd_smem(u32* a, int nb, int logn, const u32* __restrict__ tw,
-                         const u32* __restrict__ tw_sh, u32 q) {
-  const int half = 1 << (logn - 1);
-  for (int logt = logn - 1; logt >= 0; --logt) {
-    const int t = 1 << logt;
-    const int m = half >> logt;  // groups in this stage
-    for (int b = threadIdx.x; b < nb * half; b += blockDim.x) {
-      const int bb = b & (half - 1);
-      const int i = bb >> logt;
-      u32* p = a + ((b >> (logn - 1)) << logn) + (i << (logt + 1)) +
-               (bb & (t - 1));
-      const u32 u = p[0];
-      const u32 v = mul_shoup(p[t], __ldg(tw + m + i), __ldg(tw_sh + m + i), q);
-      p[0] = add_q(u, v, q);
-      p[t] = sub_q(u, v, q);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse Gentleman-Sande transform with psi^-1 twiddles: bit-reversed order
-// in, natural order out, WITHOUT the final 1/N (callers fold it into their
-// store). Same sync contract as fwd_smem.
-__device__ void inv_smem(u32* a, int nb, int logn, const u32* __restrict__ tw,
-                         const u32* __restrict__ tw_sh, u32 q) {
-  const int half = 1 << (logn - 1);
-  for (int logt = 0; logt < logn; ++logt) {
-    const int t = 1 << logt;
-    const int h = half >> logt;  // groups in this stage
-    for (int b = threadIdx.x; b < nb * half; b += blockDim.x) {
-      const int bb = b & (half - 1);
-      const int i = bb >> logt;
-      u32* p = a + ((b >> (logn - 1)) << logn) + (i << (logt + 1)) +
-               (bb & (t - 1));
-      const u32 u = p[0];
-      const u32 v = p[t];
-      p[0] = add_q(u, v, q);
-      p[t] = mul_shoup(sub_q(u, v, q), __ldg(tw + h + i), __ldg(tw_sh + h + i),
-                       q);
-    }
-    __syncthreads();
-  }
-}
-
-static inline int ntt_threads(int logn) {
-  const int half = 1 << (logn - 1);
-  return half < 1024 ? half : 1024;
 }

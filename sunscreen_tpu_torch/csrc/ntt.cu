@@ -32,7 +32,8 @@
 // loads stay coalesced. Two exchange buffers alternate, one barrier per
 // exchange. A block takes 64 KB of shared memory and ptxas gives a thread
 // about 64 registers, so two blocks share an SM and one's loads and stores
-// overlap the other's butterflies.
+// overlap the other's butterflies. The kernels' bodies are transform.cuh's
+// fwd_poly and inv_poly, which pntt.cu's B16 runs in its own domain.
 
 #include "transform.cuh"
 
@@ -42,28 +43,9 @@ __global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS)
                    long long* __restrict__ out, const u64* __restrict__ twp,
                    const long long* __restrict__ consts, int k, int polys,
                    int broadcast) {
-  using S = tf::Shape<LOGN>;
   extern __shared__ u32 sm[];
-  const u32 tau = threadIdx.x % S::T;
-  const int slot = threadIdx.x / S::T;
-  const int task = blockIdx.x * S::P + slot;
-  // a block's spare slots redo the last polynomial and store nothing: every
-  // thread reaches every barrier
-  const int poly = task < polys ? task : polys - 1;
-  const int row = poly / k, limb = poly % k;
-  const Limb L = load_limb(consts, limb);
-  // broadcast: every limb of a row transforms the row's single raw poly
-  const long long* src = x + (size_t)(broadcast ? row : poly) * S::N;
-  u32 v[S::E];
-  tf::load_mod(v, src + tau, S::T, L);
-  tf::Buffers<2> bufs{sm + slot * S::N, S::P * S::N, 0};
-  tf::fwd<LOGN>(v, bufs, tau, twp + (size_t)limb * 2 * S::N, L.q);
-  tf::canon(v, L.q);
-  tf::to_flat<LOGN>(v, bufs.next(), tau);
-  if (task >= polys) return;
-  long long* dst = out + (size_t)poly * S::N;
-#pragma unroll
-  for (int s = 0; s < S::E; ++s) dst[tau + s * S::T] = v[s];
+  tf::fwd_poly<LOGN, tf::Flat<LOGN>>(sm, x, out, twp, consts, k, polys,
+                                     broadcast);
 }
 
 template <int LOGN>
@@ -71,25 +53,8 @@ __global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS)
     ntt_inv_kernel(const long long* __restrict__ x,
                    long long* __restrict__ out, const u64* __restrict__ twp,
                    const long long* __restrict__ consts, int k, int polys) {
-  using S = tf::Shape<LOGN>;
   extern __shared__ u32 sm[];
-  const u32 tau = threadIdx.x % S::T;
-  const int slot = threadIdx.x / S::T;
-  const int task = blockIdx.x * S::P + slot;
-  const int poly = task < polys ? task : polys - 1;
-  const Limb L = load_limb(consts, poly % k);
-  const long long* src = x + (size_t)poly * S::N;
-  u32 v[S::E];
-  tf::load_mod(v, src + tau, S::T, L);
-  tf::Buffers<2> bufs{sm + slot * S::N, S::P * S::N, 0};
-  tf::from_flat<LOGN>(v, bufs.next(), tau);
-  tf::inv<LOGN>(v, bufs, tau, twp + ((size_t)(poly % k) * 2 + 1) * S::N,
-                L.q);
-  if (task >= polys) return;
-  long long* dst = out + (size_t)poly * S::N;
-#pragma unroll
-  for (int s = 0; s < S::E; ++s)
-    dst[tau + s * S::T] = mul_shoup(v[s], L.ninv, L.ninv_sh, L.q);
+  tf::inv_poly<LOGN, tf::Flat<LOGN>>(sm, x, out, twp, consts, k, polys);
 }
 
 template <int LOGN, bool INV>

@@ -6,18 +6,22 @@
 // _transform (pallas_call at pntt.py:395; .fwd and .inv) and _pmul
 // (pallas_call at pntt.py:452; .pointwise_mul).
 //
-// B16. The TPU kernel runs a four-step transform, [R, C = 128] rows NTT, mid
-// twiddle, transpose, column NTT, because that keeps every slice a contiguous
-// sublane half on the TPU's vector unit. Its output position p = t' R + s'
-// holds the evaluation at psi^(2J + 1) with J = brev(s') + R brev(t') (bit
-// reversal over log2 R and log2 C bits). The card needs no four-step: one
-// thread block per (row, limb) loads the polynomial into shared memory (32 KB
-// at N = 8192, 64 KB at N = 16384), reducing every input mod q, runs the log2
-// N radix-2 stages with Shoup twiddles (fwd_smem / inv_smem, the same as
-// ntt.cu), and stores once, coalesced, through `pos`, a host-built table of the
-// bit-reversed butterfly slot brev(J(p)) of every output position. The inverse
-// scatters through the same table at load and folds 1/N into its store. One
-// launch does the whole transform, the permutation included.
+// B16. The TPU kernel runs a four-step transform, [R', C = 128] rows NTT,
+// mid twiddle, transpose, column NTT, because that keeps every slice a
+// contiguous sublane half on the TPU's vector unit. Its output position
+// p = t' R' + s' holds the evaluation at psi^(2J + 1) with J = brev(s') +
+// R' brev(t') (bit reversal over log2 R' and log2 C bits), which the
+// one-pass negacyclic transform leaves at bit-reversed slot brev(J) =
+// s' C + t': p is that slot rotated left by log2 R' bits (tf::Rot). So
+// the card needs no four-step: B16 is ntt.cu's kernel (transform.cuh's
+// register-resident radix-16 groups, lazy butterflies, the pair table
+// twp, two swizzled exchange buffers a polynomial, several polynomials a
+// 512-thread block below N = 8192) with the rotation in place of the
+// flat permutation as its last exchange (the first of the inverse), so
+// loads and stores stay coalesced int64 rows with no position table. Both
+// directions reduce any input below 2^63; the inverse folds 1/N into its
+// store. N = 128, which ntt.cu does not hold, takes groups of two stages
+// (Shape<7>: 32 threads a polynomial, 16 polynomials a block).
 //
 // B17. One pass over the broadcast shape [rows, k, N]: each block takes one row
 // and a stretch of its k N residues (8 per thread, so the row's offsets are
@@ -32,47 +36,40 @@
 // 0.04 ms at 16.7 T/s: bound by bytes. B17 on [64, 15, 8192] reads 126 MB per
 // full operand and writes 63 MB, 2 multiplies per residue: bound by bytes.
 
-#include "common.cuh"
+#include "transform.cuh"
 
-__global__ void pntt_fwd_kernel(const long long* __restrict__ x,
-                                long long* __restrict__ out,
-                                const u32* __restrict__ tw,
-                                const long long* __restrict__ consts,
-                                const int* __restrict__ pos, int k,
-                                int logn) {
+template <int LOGN>
+__global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS)
+    pntt_fwd_kernel(const long long* __restrict__ x,
+                    long long* __restrict__ out, const u64* __restrict__ twp,
+                    const long long* __restrict__ consts, int k, int polys) {
   extern __shared__ u32 sm[];
-  const int n = 1 << logn;
-  const int limb = blockIdx.x % k;
-  const Limb L = load_limb(consts, limb);
-  const long long* src = x + (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    sm[i] = reduce64((u64)src[i], L.q, L.m);
-  __syncthreads();
-  const u32* t = tw + (size_t)limb * 4 * n;
-  fwd_smem(sm, 1, logn, t, t + n, L.q);
-  long long* dst = out + (size_t)blockIdx.x * n;
-  for (int p = threadIdx.x; p < n; p += blockDim.x) dst[p] = sm[__ldg(pos + p)];
+  tf::fwd_poly<LOGN, tf::Rot<LOGN>>(sm, x, out, twp, consts, k, polys, 0);
 }
 
-__global__ void pntt_inv_kernel(const long long* __restrict__ x,
-                                long long* __restrict__ out,
-                                const u32* __restrict__ tw,
-                                const long long* __restrict__ consts,
-                                const int* __restrict__ pos, int k,
-                                int logn) {
+template <int LOGN>
+__global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS)
+    pntt_inv_kernel(const long long* __restrict__ x,
+                    long long* __restrict__ out, const u64* __restrict__ twp,
+                    const long long* __restrict__ consts, int k, int polys) {
   extern __shared__ u32 sm[];
-  const int n = 1 << logn;
-  const int limb = blockIdx.x % k;
-  const Limb L = load_limb(consts, limb);
-  const long long* src = x + (size_t)blockIdx.x * n;
-  for (int p = threadIdx.x; p < n; p += blockDim.x)
-    sm[__ldg(pos + p)] = reduce64((u64)src[p], L.q, L.m);
-  __syncthreads();
-  const u32* t = tw + (size_t)limb * 4 * n;
-  inv_smem(sm, 1, logn, t + 2 * n, t + 3 * n, L.q);
-  long long* dst = out + (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    dst[i] = mul_shoup(sm[i], L.ninv, L.ninv_sh, L.q);
+  tf::inv_poly<LOGN, tf::Rot<LOGN>>(sm, x, out, twp, consts, k, polys);
+}
+
+template <int LOGN, bool INV>
+static int launch(const void* x, void* out, const void* twp,
+                  const void* consts, int rows, int k, void* stream) {
+  using S = tf::Shape<LOGN>;
+  const int polys = rows * k;
+  const int blocks = (polys + S::P - 1) / S::P;
+  const int smem = (int)(2 * sizeof(u32) * S::P * S::N);
+  auto kernel = INV ? pntt_inv_kernel<LOGN> : pntt_fwd_kernel<LOGN>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  kernel<<<blocks, S::THREADS, smem, (cudaStream_t)stream>>>(
+      (const long long*)x, (long long*)out, (const u64*)twp,
+      (const long long*)consts, k, polys);
+  return (int)cudaGetLastError();
 }
 
 // Leading dims of the broadcast shape, outermost first, and each operand's
@@ -111,32 +108,24 @@ __global__ void pntt_pmul_kernel(const long long* __restrict__ a,
   }
 }
 
-// x [rows, k, N] coefficients -> out [rows, k, N] in the [t', s'] domain
-extern "C" int pntt_fwd(const void* x, void* out, const void* tw,
-                        const void* consts, const void* pos, int rows, int k,
-                        int logn, void* stream) {
-  const int smem = (int)(sizeof(u32) << logn);
-  cudaFuncSetAttribute(pntt_fwd_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  pntt_fwd_kernel<<<rows * k, ntt_threads(logn), smem,
-                    (cudaStream_t)stream>>>(
-      (const long long*)x, (long long*)out, (const u32*)tw,
-      (const long long*)consts, (const int*)pos, k, logn);
-  return (int)cudaGetLastError();
+// x [rows, k, N] coefficients -> out [rows, k, N] in the [t', s'] domain,
+// 128 <= N <= 16384; twp [k, 2, N] u64 twiddle pairs
+// (math/pmntt.py::twiddle_pairs)
+extern "C" int pntt_fwd(const void* x, void* out, const void* twp,
+                        const void* consts, int rows, int k, int logn,
+                        void* stream) {
+  if (logn == 7) return launch<7, false>(x, out, twp, consts, rows, k, stream);
+  TF_DISPATCH(logn, (launch<LOGN, false>(x, out, twp, consts, rows, k,
+                                         stream)))
 }
 
 // x [rows, k, N] in the [t', s'] domain -> out [rows, k, N] coefficients
-extern "C" int pntt_inv(const void* x, void* out, const void* tw,
-                        const void* consts, const void* pos, int rows, int k,
-                        int logn, void* stream) {
-  const int smem = (int)(sizeof(u32) << logn);
-  cudaFuncSetAttribute(pntt_inv_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  pntt_inv_kernel<<<rows * k, ntt_threads(logn), smem,
-                    (cudaStream_t)stream>>>(
-      (const long long*)x, (long long*)out, (const u32*)tw,
-      (const long long*)consts, (const int*)pos, k, logn);
-  return (int)cudaGetLastError();
+extern "C" int pntt_inv(const void* x, void* out, const void* twp,
+                        const void* consts, int rows, int k, int logn,
+                        void* stream) {
+  if (logn == 7) return launch<7, true>(x, out, twp, consts, rows, k, stream);
+  TF_DISPATCH(logn, (launch<LOGN, true>(x, out, twp, consts, rows, k,
+                                        stream)))
 }
 
 // out [rows, k, N] = a b mod q, a and b read at row offsets given by the

@@ -1,20 +1,21 @@
 // Register-resident negacyclic transforms over one u32 limb (ntt.cu,
-// tensor3.cu, inv_ks.cu, ks_full.cu): the forward Cooley-Tukey transform with
-// merged psi twiddles and the inverse Gentleman-Sande transform with psi^-1
-// twiddles, with Harvey's lazy butterflies (values below 4q or 2q between
-// stages, exact residues after the caller's last reduction).
+// tensor3.cu, inv_ks.cu, ks_full.cu, inv_tensor3.cu, pntt.cu): the forward
+// Cooley-Tukey transform with merged psi twiddles and the inverse
+// Gentleman-Sande transform with psi^-1 twiddles, with Harvey's lazy
+// butterflies (values below 4q or 2q between stages, exact residues after the
+// caller's last reduction).
 //
 // Layout. A polynomial of N = 2^LOGN coefficients is held by T = N / E
-// threads, E = 2^R coefficients each in registers (R = 4; R = 3 at
-// N = 256, so that T is a whole warp). Position p of the bit-reversed
-// array has LOGN bits. A "group" of stages works on R bits [A, A + R) of
-// p that the registers own: register s of thread tau holds
-// p = thread_pos<A>(tau) | s << A, and the thread index fills the other
-// bits in order, so a warp's 32 lanes cover the five lowest bits outside
-// [A, A + R). Each group runs up to R radix-2 stages in registers, one
-// 8-byte load of (w, floor(w 2^32 / q)) per distinct twiddle. Between
-// groups the threads exchange through shared memory: 13 stages at
-// N = 8192 take 4 groups and 3 exchanges, each one barrier.
+// threads, E = 2^R coefficients each in registers (R = 4; R = 3 at N = 256
+// and R = 2 at N = 128, pntt.cu's smallest plan, so that T is a whole
+// warp). Position p of the bit-reversed array has LOGN bits. A "group" of
+// stages works on R bits [A, A + R) of p that the registers own: register
+// s of thread tau holds p = thread_pos<A>(tau) | s << A, and the thread
+// index fills the other bits in order, so a warp's 32 lanes cover the five
+// lowest bits outside [A, A + R). Each group runs up to R radix-2 stages
+// in registers, one 8-byte load of (w, floor(w 2^32 / q)) per distinct
+// twiddle. Between groups the threads exchange through shared memory: 13
+// stages at N = 8192 take 4 groups and 3 exchanges, each one barrier.
 //
 // Forward: the first group owns the top R bits (thread tau loads
 // coefficients tau + s T: coalesced int64 loads), the last owns bits
@@ -23,19 +24,21 @@
 // is already in the inverse's input layout: B13 inverse-transforms its
 // products with no exchange and no permutation between.
 //
-// The plan's flat NTT domain (j2 * n1 + j1) is a bit permutation of the
-// bit-reversed index (flat_of below, an involution), so the forward
-// transform stores through one more exchange that writes each value at its
-// flat position and reads flat positions tau + s T for coalesced int64
-// stores; the inverse loads the same way round.
+// Each plan's NTT domain is a bit permutation of the bit-reversed index:
+// the flat domain (j2 * n1 + j1) of pmntt.py's plan (Flat below, an
+// involution) and the [t', s'] domain of pntt.py's (Rot, a rotation). So
+// the forward transform stores through one more exchange that writes each
+// value at its domain position and reads positions tau + s T for
+// coalesced int64 stores; the inverse loads the same way round.
 //
 // Banks. Every shared access of a warp is one 32-bit word per lane. The
 // buffers are swizzled by an XOR-linear map of the position (swz): bit
 // b >= 5 of the position flips the bank bits ex_col(b) (exchanges, in p
-// order) or perm_col(b) (the flat permutation, in flat order). For every
-// LOGN from 8 to 14 these columns make each group's lane bits, the
-// permutation's lane bits and the coalesced flat order map onto 32
-// distinct banks, so no access has a bank conflict.
+// order) or the domain's col(b) (its permutation, in position order). For
+// every LOGN from 8 to 14 (7 for the exchanges and Rot) these columns
+// make each group's lane bits, the permutation's lane bits and the
+// coalesced position order map onto 32 distinct banks, so no access has a
+// bank conflict.
 #pragma once
 
 #include "common.cuh"
@@ -45,7 +48,7 @@ namespace tf {
 template <int LOGN>
 struct Shape {
   static constexpr int N = 1 << LOGN;
-  static constexpr int R = LOGN == 8 ? 3 : 4;
+  static constexpr int R = LOGN == 7 ? 2 : LOGN == 8 ? 3 : 4;
   static constexpr int E = 1 << R;
   static constexpr int T = N >> R;               // threads per polynomial
   static constexpr int G = (LOGN + R - 1) / R;   // groups of stages
@@ -82,6 +85,7 @@ __device__ __forceinline__ u32 thread_pos(u32 tau) {
 
 template <int LOGN>
 __host__ __device__ constexpr u32 ex_col(int b) {
+  if (LOGN == 7) return b == 5 ? 0xAu : 0x15u;
   if (LOGN == 8) return (1u << (b - 5)) ^ (1u << (b - 3));
   return b == 5 ? 0x2u : b == 6 ? 0x4u : b == 7 ? 0x8u : b == 8 ? 0x11u : 0u;
 }
@@ -89,16 +93,6 @@ __host__ __device__ constexpr u32 ex_col(int b) {
 template <int LOGN>
 __host__ __device__ constexpr u32 perm_col(int b) {
   return LOGN <= 9 ? 1u << (b % 5) : 1u << (4 - (LOGN - 1 - b) % 5);
-}
-
-// Word offset of position p in a swizzled buffer; linear over XOR, so
-// swz(pt | off) = swz(pt) ^ swz(off) for disjoint bits.
-template <int LOGN, bool PERM>
-__host__ __device__ __forceinline__ constexpr u32 swz(u32 p) {
-  u32 f = 0;
-  for (int b = 5; b < LOGN; ++b)
-    if ((p >> b) & 1) f ^= PERM ? perm_col<LOGN>(b) : ex_col<LOGN>(b);
-  return p ^ f;
 }
 
 // Flat NTT-domain position of bit-reversed index p: bit b < n1's bits goes
@@ -111,6 +105,47 @@ __host__ __device__ __forceinline__ constexpr u32 flat_of(u32 p) {
   for (int b = 0; b < LOGN; ++b)
     if ((p >> b) & 1) o |= 1u << (b < L1 ? L1 - 1 - b : 2 * L1 + 6 - b);
   return o;
+}
+
+// The NTT domains a transform is stored in: pos(j) is the position of
+// bit-reversed slot j, col(b) the bank bits that position bit b >= 5
+// flips in the domain's exchange buffer.
+template <int LOGN>
+struct Flat {  // pmntt.py's flat domain
+  __host__ __device__ static constexpr u32 pos(u32 j) {
+    return flat_of<LOGN>(j);
+  }
+  __host__ __device__ static constexpr u32 col(int b) {
+    return perm_col<LOGN>(b);
+  }
+};
+
+// pntt.py's [t', s'] domain: with C = min(128, N / 2) and R' = N / C,
+// position t' R' + s' holds slot s' C + t', so pos(j) is j rotated left by
+// log2 R' bits (its own inverse only at N = 16384, where R' = C). A warp
+// writing in slot order has lanes on j bits [R, R + 5), which land on
+// position bits 0 and 1 (0 alone below N = 512) and the top two or three:
+// col sends those onto the bank bits the low ones leave free.
+template <int LOGN>
+struct Rot {
+  static constexpr int LOG_R = LOGN > 8 ? LOGN - 7 : 1;   // log2 R'
+  __host__ __device__ static constexpr u32 pos(u32 j) {
+    return ((j << LOG_R) | (j >> (LOGN - LOG_R))) & ((1u << LOGN) - 1);
+  }
+  __host__ __device__ static constexpr u32 col(int b) {
+    return LOGN <= 8 ? 1u << (b - 4) : 1u << (4 - (LOGN - 1 - b) % 5);
+  }
+};
+
+// Word offset of position p in a swizzled buffer: an exchange's (PERM
+// false) or domain D's; linear over XOR, so swz(pt | off) = swz(pt) ^
+// swz(off) for disjoint bits.
+template <int LOGN, bool PERM, class D = Flat<LOGN>>
+__host__ __device__ __forceinline__ constexpr u32 swz(u32 p) {
+  u32 f = 0;
+  for (int b = 5; b < LOGN; ++b)
+    if ((p >> b) & 1) f ^= PERM ? D::col(b) : ex_col<LOGN>(b);
+  return p ^ f;
 }
 
 // Exchange buffers of one polynomial. With NBUF = 2 consecutive exchanges
@@ -141,10 +176,10 @@ __device__ __forceinline__ u32 mul_lazy(u32 x, u64 wp, u32 q) {
 
 // The forward stages on bits HI down to A of registers owning [A, A + R).
 // The butterfly on p (bit l clear) and p + 2^l takes psi_rev[m + i] with
-// m = N / 2^(l+1), i = p >> (l + 1), as fwd_smem does. Harvey's lazy
-// butterfly: values stay in [0, 4q) (4q < 2^32 for q < 2^30), with one
-// conditional subtraction and no other correction per butterfly; the
-// caller reduces to [0, q) once at the end (canon).
+// m = N / 2^(l+1), i = p >> (l + 1). Harvey's lazy butterfly: values
+// stay in [0, 4q) (4q < 2^32 for q < 2^30), with one conditional
+// subtraction and no other correction per butterfly; the caller reduces to
+// [0, q) once at the end (canon).
 template <int LOGN, int A, int HI>
 __device__ __forceinline__ void fwd_stages(u32 (&v)[Shape<LOGN>::E], u32 pt,
                                            const u64* __restrict__ tw,
@@ -166,8 +201,9 @@ __device__ __forceinline__ void fwd_stages(u32 (&v)[Shape<LOGN>::E], u32 pt,
   }
 }
 
-// The inverse stages on bits LO up to HI, as inv_smem does, lazily: values
-// in [0, 2q) in and out of every butterfly.
+// The inverse Gentleman-Sande stages on bits LO up to HI, the butterfly on
+// p and p + 2^l taking psi_inv_rev[N / 2^(l+1) + (p >> (l + 1))], lazily:
+// values in [0, 2q) in and out of every butterfly.
 template <int LOGN, int A, int LO, int HI>
 __device__ __forceinline__ void inv_stages(u32 (&v)[Shape<LOGN>::E], u32 pt,
                                            const u64* __restrict__ tw,
@@ -267,45 +303,111 @@ __device__ __forceinline__ void inv(u32 (&v)[Shape<LOGN>::E],
   if constexpr (GRP + 1 < S::G) inv<LOGN, GRP + 1>(v, bufs, tau, tw, q);
 }
 
-// Bit-reversed layout (index tau E + s) -> flat layout (v[s] = flat
+// Bit-reversed layout (index tau E + s) -> domain D's layout (v[s] =
 // position tau + s T).
-template <int LOGN>
+template <int LOGN, class D = Flat<LOGN>>
 __device__ __forceinline__ void to_flat(u32 (&v)[Shape<LOGN>::E], u32* buf,
                                         u32 tau) {
   using S = Shape<LOGN>;
-  const u32 w0 = swz<LOGN, true>(flat_of<LOGN>(tau << S::R));
+  const u32 w0 = swz<LOGN, true, D>(D::pos(tau << S::R));
 #pragma unroll
   for (int s = 0; s < S::E; ++s)
-    buf[w0 ^ swz<LOGN, true>(flat_of<LOGN>(s))] = v[s];
+    buf[w0 ^ swz<LOGN, true, D>(D::pos(s))] = v[s];
   __syncthreads();
-  const u32 r0 = swz<LOGN, true>(tau);
+  const u32 r0 = swz<LOGN, true, D>(tau);
 #pragma unroll
-  for (int s = 0; s < S::E; ++s) v[s] = buf[r0 ^ swz<LOGN, true>(s * S::T)];
+  for (int s = 0; s < S::E; ++s)
+    v[s] = buf[r0 ^ swz<LOGN, true, D>(s * S::T)];
 }
 
-// The bit-reversed layout (index tau E + s) from a buffer that holds flat
-// position p at word swz<LOGN, true>(p), written before a barrier: the
-// second half of from_flat.
-template <int LOGN>
+// The bit-reversed layout (index tau E + s) from a buffer that holds
+// position p of domain D at word swz<LOGN, true, D>(p), written before a
+// barrier: the second half of from_flat.
+template <int LOGN, class D = Flat<LOGN>>
 __device__ __forceinline__ void from_flat_read(u32 (&v)[Shape<LOGN>::E],
                                                const u32* buf, u32 tau) {
   using S = Shape<LOGN>;
-  const u32 r0 = swz<LOGN, true>(flat_of<LOGN>(tau << S::R));
+  const u32 r0 = swz<LOGN, true, D>(D::pos(tau << S::R));
 #pragma unroll
   for (int s = 0; s < S::E; ++s)
-    v[s] = buf[r0 ^ swz<LOGN, true>(flat_of<LOGN>(s))];
+    v[s] = buf[r0 ^ swz<LOGN, true, D>(D::pos(s))];
 }
 
-// Flat layout -> bit-reversed layout: to_flat's inverse.
-template <int LOGN>
+// Domain D's layout -> bit-reversed layout: to_flat's inverse.
+template <int LOGN, class D = Flat<LOGN>>
 __device__ __forceinline__ void from_flat(u32 (&v)[Shape<LOGN>::E], u32* buf,
                                           u32 tau) {
   using S = Shape<LOGN>;
-  const u32 w0 = swz<LOGN, true>(tau);
+  const u32 w0 = swz<LOGN, true, D>(tau);
 #pragma unroll
-  for (int s = 0; s < S::E; ++s) buf[w0 ^ swz<LOGN, true>(s * S::T)] = v[s];
+  for (int s = 0; s < S::E; ++s)
+    buf[w0 ^ swz<LOGN, true, D>(s * S::T)] = v[s];
   __syncthreads();
-  from_flat_read<LOGN>(v, buf, tau);
+  from_flat_read<LOGN, D>(v, buf, tau);
+}
+
+// The forward transform of one polynomial of x [rows, k, N] (with
+// broadcast, of its row's single polynomial of x [rows, N]) into out
+// [rows, k, N] in domain D: a slot of a block of Shape<LOGN>::P slots,
+// with two exchange buffers of N words a slot in `sm` (ntt.cu's B1 and B2,
+// pntt.cu's B16). Each thread loads its coefficients as coalesced int64
+// reads, any value below 2^63, reduced below 2q.
+template <int LOGN, class D>
+__device__ __forceinline__ void fwd_poly(u32* sm,
+                                         const long long* __restrict__ x,
+                                         long long* __restrict__ out,
+                                         const u64* __restrict__ twp,
+                                         const long long* __restrict__ consts,
+                                         int k, int polys, int broadcast) {
+  using S = Shape<LOGN>;
+  const u32 tau = threadIdx.x % S::T;
+  const int slot = threadIdx.x / S::T;
+  const int task = blockIdx.x * S::P + slot;
+  // a block's spare slots redo the last polynomial and store nothing: every
+  // thread reaches every barrier
+  const int poly = task < polys ? task : polys - 1;
+  const int row = poly / k, limb = poly % k;
+  const Limb L = load_limb(consts, limb);
+  const long long* src = x + (size_t)(broadcast ? row : poly) * S::N;
+  u32 v[S::E];
+  load_mod(v, src + tau, S::T, L);
+  Buffers<2> bufs{sm + slot * S::N, S::P * S::N, 0};
+  fwd<LOGN>(v, bufs, tau, twp + (size_t)limb * 2 * S::N, L.q);
+  canon(v, L.q);
+  to_flat<LOGN, D>(v, bufs.next(), tau);
+  if (task >= polys) return;
+  long long* dst = out + (size_t)poly * S::N;
+#pragma unroll
+  for (int s = 0; s < S::E; ++s) dst[tau + s * S::T] = v[s];
+}
+
+// The inverse of fwd_poly (without broadcast): x [rows, k, N] in domain D,
+// any value below 2^63, -> out [rows, k, N] in natural coefficient order,
+// 1/N folded into the store.
+template <int LOGN, class D>
+__device__ __forceinline__ void inv_poly(u32* sm,
+                                         const long long* __restrict__ x,
+                                         long long* __restrict__ out,
+                                         const u64* __restrict__ twp,
+                                         const long long* __restrict__ consts,
+                                         int k, int polys) {
+  using S = Shape<LOGN>;
+  const u32 tau = threadIdx.x % S::T;
+  const int slot = threadIdx.x / S::T;
+  const int task = blockIdx.x * S::P + slot;
+  const int poly = task < polys ? task : polys - 1;
+  const int limb = poly % k;
+  const Limb L = load_limb(consts, limb);
+  u32 v[S::E];
+  load_mod(v, x + (size_t)poly * S::N + tau, S::T, L);
+  Buffers<2> bufs{sm + slot * S::N, S::P * S::N, 0};
+  from_flat<LOGN, D>(v, bufs.next(), tau);
+  inv<LOGN>(v, bufs, tau, twp + ((size_t)limb * 2 + 1) * S::N, L.q);
+  if (task >= polys) return;
+  long long* dst = out + (size_t)poly * S::N;
+#pragma unroll
+  for (int s = 0; s < S::E; ++s)
+    dst[tau + s * S::T] = mul_shoup(v[s], L.ninv, L.ninv_sh, L.q);
 }
 
 }  // namespace tf

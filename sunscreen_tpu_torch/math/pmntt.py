@@ -52,12 +52,13 @@ def _powers(base: int, n: int, q: int) -> np.ndarray:
 
 
 def kernel_tables(n: int, moduli: tuple[int, ...]):
-    """The radix-2 tables of every u32 transform kernel (`csrc/common.cuh`)
-    for N = 2^logn and 17-30-bit moduli q = 1 mod 2N: psi_rev and
-    ipsi_rev [k, N] int64 (psi^brev(i), psi the minimal primitive 2N-th
-    root of unity mod q), tw [k, 4, N] int32 (the u32 bits of psi_rev,
-    its Shoup ratios, ipsi_rev and its Shoup ratios) and consts [k, 4]
-    int64 (q, floor(2^64 / q), N^-1 mod q and its Shoup ratio)."""
+    """The radix-2 tables of the u32 transforms for N = 2^logn and
+    17-30-bit moduli q = 1 mod 2N: psi_rev and ipsi_rev [k, N] int64
+    (psi^brev(i), psi the minimal primitive 2N-th root of unity mod q),
+    tw [k, 4, N] int32 (the u32 bits of psi_rev, its Shoup ratios,
+    ipsi_rev and its Shoup ratios; `twiddle_pairs` packs it for the
+    kernels) and consts [k, 4] int64 (q, floor(2^64 / q), N^-1 mod q and
+    its Shoup ratio, `csrc/common.cuh`)."""
     rev = _bitrev(n)
     psi_rev, ipsi_rev, consts = [], [], []
     for q in moduli:
@@ -121,10 +122,7 @@ class NttPlanU32:
         self.ninv = dev(consts[:, 2:3])
         self.fwd_gather = dev(fwd_gather)
         self.inv_gather = dev(inv_gather)
-        # kernel tables: [k, 4, N] u32 (bits in int32) for the radix-2
-        # kernel inv_tensor3.cu, [k, 2, N] twiddle pairs for ntt.cu,
-        # tensor3.cu, inv_ks.cu and ks_full.cu, and [k, 4] int64
-        self.tw = torch.as_tensor(tw, device=self.device)
+        # kernel tables: [k, 2, N] twiddle pairs and [k, 4] int64
         self.twp = torch.as_tensor(twiddle_pairs(tw), device=self.device)
         self.consts = dev(consts)
 
@@ -380,7 +378,7 @@ class NttPlanU32:
         out = torch.empty(*a_hat.shape[:-3], 3, self.k, self.n,
                           dtype=torch.int64, device=a_hat.device)
         if rows:
-            _build.launch("inv_tensor3", "inv_tensor3", a, b, out, self.tw,
+            _build.launch("inv_tensor3", "inv_tensor3", a, b, out, self.twp,
                           self.consts, rows, self.k, self.logn, sa, sb)
             _build.LAUNCHES["inv_tensor3"] += 1
         return out

@@ -26,7 +26,8 @@ import torch
 from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math import primes
-from sunscreen_tpu_torch.math.pmntt import LANES, _bitrev, kernel_tables
+from sunscreen_tpu_torch.math.pmntt import (LANES, _bitrev, kernel_tables,
+                                            twiddle_pairs)
 from sunscreen_tpu_torch.math.prns import _check, _is_cpu
 
 MIN_N, MAX_N = 128, 16384   # B16 holds one poly in shared memory
@@ -95,8 +96,9 @@ class PallasNttPlan:
             col.append(cw)
             icol.append([pow(w, -1, q) for w in cw])
 
-        def dev(a, dtype=torch.int64):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                                   device=device)
 
         self.q = dev(np.array(self.moduli)[:, None])          # [k, 1]
         self.device = self.q.device
@@ -104,14 +106,14 @@ class PallasNttPlan:
         self.mid, self.imid = dev(mid), dev(imid)             # [k, R, C]
         self.col_tw, self.icol_tw = dev(col), dev(icol)       # [k, C/2]
 
-        # kernel tables: the radix-2 twiddles of every u32 transform kernel
-        # and the butterfly slot brev(J(p)) of each domain position p
+        # kernel tables: the twiddle pairs of every u32 transform kernel
+        # (B16 leaves position p = t' R + s' at butterfly slot
+        # brev(J(p)) = s' C + t', a bit rotation of p: no table)
         _, _, tw, consts = kernel_tables(n, self.moduli)
-        self.tw = dev(tw, torch.int32)
+        self.twp = dev(twiddle_pairs(tw))
         self.consts = dev(consts)
         p = np.arange(n)
         self.slot_j = rev_r[p % r] + r * rev_c[p // r]        # J(p)
-        self.pos = dev(_bitrev(n)[self.slot_j], torch.int32)
 
     # -- plain PyTorch twins (any device) -----------------------------------
 
@@ -175,8 +177,8 @@ class PallasNttPlan:
         x = x.contiguous()
         out = torch.empty_like(x)
         if rows:
-            _build.launch("pntt", fn, x, out, self.tw, self.consts, self.pos,
-                          rows, self.k, self.logn)
+            _build.launch("pntt", fn, x, out, self.twp, self.consts, rows,
+                          self.k, self.logn)
             _build.LAUNCHES[fn] += 1
         return out
 

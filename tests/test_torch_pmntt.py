@@ -157,7 +157,7 @@ def test_twiddle_pairs_match_tw_and_reference(plans):
     assert pairs.shape == (len(mods), 2, n)
     lo = (pairs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     hi = (pairs >> np.uint64(32)).astype(np.uint32)
-    tw = port.tw.numpy().view(np.uint32)
+    tw = pmntt.kernel_tables(n, mods)[2].view(np.uint32)
     np.testing.assert_array_equal(lo, tw[:, 0::2])
     np.testing.assert_array_equal(hi, tw[:, 1::2])
     ref = rntt.NttPlan(n, mods)

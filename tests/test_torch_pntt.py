@@ -64,21 +64,26 @@ def test_plan_matches_reference(n):
 def test_kernel_order_matches_twin():
     """What B16 computes, emulated on the CPU: the radix-2 transform in
     natural order in, bit-reversed order out (the u64 plan's stages, the
-    same as `fwd_smem`), stored through `pos`, is the twin's output; the
-    inverse scatters through `pos` at load. `pos` comes from the closed
-    form J = brev(s') + R brev(t'); the monomial x confirms it."""
+    same as transform.cuh's), read at slot (p % R) C + p // R for position
+    p (the kernel's rotation of the slot's bits), is the twin's output;
+    the inverse scatters through the same map at load. That slot is
+    brev(J(p)) for the closed form J = brev(s') + R brev(t'), and the
+    monomial x confirms J."""
     for n in (128, 256, 1024):
         mods = _moduli(n)
         port = pntt.PallasNttPlan(n, mods, "cpu")
         radix2 = ntt.NttPlan(n, mods, "cpu")
         x = _t(_residues(np.random.default_rng(n + 1), mods, (2,), n))
-        pos = port.pos.long()
+        p = np.arange(n)
+        slot = (p % port.R) * port.C + p // port.R
+        np.testing.assert_array_equal(slot, pmntt._bitrev(n)[port.slot_j])
+        pos = torch.from_numpy(slot)
         want = port.fwd_plain(x)
         assert torch.equal(radix2.fwd(x)[..., pos], want)
         scattered = torch.empty_like(want)
         scattered[..., pos] = want
         assert torch.equal(radix2.inv(scattered), x)
-        assert sorted(port.pos.tolist()) == list(range(n))
+        assert sorted(slot.tolist()) == list(range(n))
         mono = torch.zeros(len(mods), n, dtype=torch.int64)
         mono[:, 1] = 1
         evals = port.fwd_plain(mono)
