@@ -20,22 +20,23 @@ encoder's (t,) plan, B17 with broadcast operands; B18 and B19 under the
 moduli of tests/test_pallas_mod.py and a 61-bit prime, edge values and
 broadcast tables included, also against a big-int oracle; B1 and B3
 also at the TFHE step's [384, 4, 1024] and B5 at its [64, 6, 4, 1024],
-B5, B6, B7 and B12 at `default_u32(16384)`'s shapes at batch 64, all timed
-with their bounds; B14 and B15 also timed beside the two kernels each
-replaces, B2 + B5 and, at the TFHE step, B1 + B5, on the same inputs),
-holds B1-B3, B5, B12, B14 and B15 at every N from 256 to 16384, B16 from
-128 and B4 and B13 at every N up to 8192 (`transform_checks`: edge
-residues, raw words up to 2^32 - 1, a 30-bit and three small moduli),
-then drives
-fourteen paths, each with the launch counts set to 0 just before it and
-read just after:
+B4, B5, B6, B7, B12 and B13 at `default_u32(16384)`'s shapes at batch 64,
+B6, B7, B9, B10, B16 and B17 at the "pallas_vpu" multiply's shapes at
+`default_u32(32768)` (59 limbs in the product base), all timed with their
+bounds; B14 and B15 also timed beside the two kernels each replaces,
+B2 + B5 and, at the TFHE step, B1 + B5, on the same inputs), holds B1-B5,
+B12-B15 at every N from 256 to 16384 and B16 from 128 to 32768
+(`transform_checks`: edge residues, raw words up to 2^32 - 1, a 30-bit
+and three small moduli), then drives sixteen paths, each with the launch
+counts set to 0 just before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
    batch 64, under the default fusion settings;
 2. Galois keygen and the rotations `rotate_rows(ct, 1)` and
    `rotate_columns(ct)` on the same ciphertexts;
-3. `multiply_relin` at `default_u32(16384)`, batch 64: the B4 kernel
-   holds N <= 8192, so the tensor product runs B1, B10 and B3;
+3. `multiply_relin` at `default_u32(16384)`, batch 64: the tensor
+   product runs B4, then B3, as at N=8192; 3b. path 3's `multiply_relin`
+   under `SUNSCREEN_TPU_FUSE_TFULL=1` (B13 alone);
 4. path 1's `multiply_relin` under the reference's unfused settings
    (`SUNSCREEN_TPU_FUSE_FT3=0`, `_SC=0`, `_KS=0`: kernels B9-B11);
 5. path 1's `multiply_relin` under `SUNSCREEN_TPU_FUSE_FT3=0
@@ -64,14 +65,17 @@ read just after:
     launch, and `rotate_rows`;
 14. golden_v1.npz's `bfv_*` vectors decrypted on the card under
     `SUNSCREEN_TPU_NTT=unrolled` and `=compact`, then path 13's
-    `multiply_relin` under "unrolled".
+    `multiply_relin` under "unrolled";
+15. path 9 at `default_u32(32768)` (29 limbs in Q, 59 in the product
+    base), batch 64: B16 at N=32768 and B7 at 59 limbs.
 
 Paths 1-3 and 7 pass a decrypt gate and a card-vs-CPU bit-exact check
-on one ciphertext; paths 4-6 and 10 must give path 1's output and path
-8 path 7's, bit for bit; path 9 passes a slot-wise gate on every row and
-a card-vs-CPU multiply; path 11 a slot-wise gate on every output; paths
-13 and 14 the decrypt gate, a card-vs-CPU check and the rotation or
-golden gates. Paths 1-10 and 12-14 are then timed and profiled; a
+on one ciphertext; paths 4-6 and 10 must give path 1's output, 3b path
+3's and 8 path 7's, bit for bit; paths 9 and 15 pass a slot-wise gate on
+every row and a card-vs-CPU multiply; path 11 a slot-wise gate on every
+output; paths 13 and 14 the decrypt gate, a card-vs-CPU check and the
+rotation or golden gates. Paths 1-10 and 12-15 are then timed and
+profiled; a
 profile window, bounded on the device clock by two marker spins, whose
 kernel events differ from the launch counts is taken again, and the run
 fails if three retries differ too. Kernel times are device times: each
@@ -109,6 +113,7 @@ N = 8192
 BATCH = 64
 ITERS, REPS = 20, 5          # timed ops: median of REPS x ITERS batches
 WIDE_N, WIDE_BATCH = 16384, 2   # kernel checks at the widest bases
+VPU_N = 32768                   # path 15: the largest u32 parameter set
 GATES = ("SUNSCREEN_TPU_FUSED_RNS", "SUNSCREEN_TPU_FUSE_INV",
          "SUNSCREEN_TPU_FUSE_FT3", "SUNSCREEN_TPU_FUSE_T3",
          "SUNSCREEN_TPU_FUSE_TFULL", "SUNSCREEN_TPU_FUSE_SC",
@@ -257,10 +262,9 @@ def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
     Multiplies count 3 per Shoup butterfly and per 1/N scaling, 2 per
     32x32->64 product: in the RNS kernels 2 to normalize a digit, 8 for a
     digit times a 128-bit fraction, 2 per term of a limb contraction or
-    correction. The fwd_tensor3 kernel holds N <= 8192 and is left out
-    above that."""
+    correction."""
     import torch
-    from sunscreen_tpu_torch.math import pmntt, prns
+    from sunscreen_tpu_torch.math import prns
 
     n, logn = ctx.n, ctx.n.bit_length() - 1
     pm, pk = ctx.plan_mul, ctx.plan_key
@@ -346,24 +350,30 @@ def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
          "sunscreen_tpu/math/pmntt.py:620",
          (batch * kdig + 2 * kdig * kk + batch * 2 * kk) * n * WORD,
          ks_full_muls(batch, kdig, kk, n)),
-    ]
-    if n <= pmntt.TENSOR3_MAX_N:
-        x_t3 = _uniform(gen, (batch, 4, km, n), pm.q)
-        cases += [
-            ("fwd_tensor3", pm.fwd_tensor3, pm.fwd_tensor3_plain, (x_t3,),
-             "sunscreen_tpu_torch/csrc/tensor3.cu",
-             "sunscreen_tpu/math/pmntt.py:715",
-             (4 + 3) * cols_pm * WORD,
-             # 4 transforms + 4 products of 32x32 -> 64 bits (2 each)
-             batch * km * (4 * ntt_muls + 8 * n)),
-            ("fwd_tensor3_full", lambda x: pm.fwd_tensor3(x, full=True),
-             pm.fwd_tensor3_full_plain, (x_t3,),
-             "sunscreen_tpu_torch/csrc/tensor3.cu",
-             "sunscreen_tpu/math/pmntt.py:715",
-             (4 + 3) * cols_pm * WORD,
-             # B4's work + 3 inverse transforms with the 1/N scaling
-             batch * km * (4 * ntt_muls + 8 * n + 3 * (ntt_muls + 3 * n)))]
+        *tensor3_cases(pm, gen, batch)]
     return cases
+
+
+SRC_TENSOR3 = "sunscreen_tpu_torch/csrc/tensor3.cu"
+
+
+def tensor3_cases(pm, gen, batch: int) -> list[tuple]:
+    """B4 and B13 on the multiply's operand stack [batch, 4, k, N] of the
+    plan `pm`: (name, kernel, plain twin, args, source, replaces, bytes,
+    32-bit multiplies)."""
+    n = pm.n
+    ntt_muls = 3 * (n // 2) * pm.logn
+    x = _uniform(gen, (batch, 4, pm.k, n), pm.q)
+    nbytes = (4 + 3) * batch * pm.k * n * WORD
+    return [("fwd_tensor3", pm.fwd_tensor3, pm.fwd_tensor3_plain, (x,),
+             SRC_TENSOR3, "sunscreen_tpu/math/pmntt.py:715", nbytes,
+             # 4 transforms + 4 products of 32x32 -> 64 bits (2 each)
+             batch * pm.k * (4 * ntt_muls + 8 * n)),
+            ("fwd_tensor3_full", lambda v: pm.fwd_tensor3(v, full=True),
+             pm.fwd_tensor3_full_plain, (x,), SRC_TENSOR3,
+             "sunscreen_tpu/math/pmntt.py:715", nbytes,
+             # B4's work + 3 inverse transforms with the 1/N scaling
+             batch * pm.k * (4 * ntt_muls + 8 * n + 3 * (ntt_muls + 3 * n)))]
 
 
 def inv_tensor3_muls(n: int) -> int:
@@ -721,13 +731,14 @@ def pbs_transform_cases(gen, batch: int) -> list[tuple]:
 
 
 def wide_cases(gen, batch: int) -> list[tuple]:
-    """B5, B6, B7 and B12 at path 3's shapes (`default_u32(16384)`,
-    `batch` ciphertexts): digits [batch, 14, 15, 16384] with 1024 threads
-    a task, the extension [batch, 4, 14, 16384] -> [batch, 4, 29, 16384],
-    the 29-limb tensor base [batch, 3, 29, 16384] -> [batch, 3, 14, 16384]
-    and B12's operands, the halves of [batch, 4, 29, 16384] (1024 threads
-    and 192 KB a task), the all-(q_i - 1) digit columns and residues
-    included (name, kernel, plain twin, args, bytes, 32-bit
+    """B4, B5, B6, B7, B12 and B13 at path 3's shapes
+    (`default_u32(16384)`, `batch` ciphertexts): digits [batch, 14, 15,
+    16384] with 1024 threads a task, the extension [batch, 4, 14, 16384]
+    -> [batch, 4, 29, 16384], the 29-limb tensor base [batch, 3, 29,
+    16384] -> [batch, 3, 14, 16384], B12's operands, the halves of
+    [batch, 4, 29, 16384], and B4's and B13's [batch, 4, 29, 16384]
+    (1024 threads and 192 KB a task), the all-(q_i - 1) digit columns and
+    residues included (name, kernel, plain twin, args, bytes, 32-bit
     multiplies)."""
     from sunscreen_tpu_torch.bfv import BfvParams, get_context
     from sunscreen_tpu_torch.math import prns
@@ -752,7 +763,55 @@ def wide_cases(gen, batch: int) -> list[tuple]:
             ("inv_tensor3", pm.inv_tensor3, pm.inv_tensor3_plain,
              (ab[:, :2], ab[:, 2:]),
              (2 + 2 + 3) * batch * pm.k * WIDE_N * WORD,
-             batch * pm.k * inv_tensor3_muls(WIDE_N))]
+             batch * pm.k * inv_tensor3_muls(WIDE_N)),
+            *((name, kern, plain, args, nbytes, muls) for
+              name, kern, plain, args, _, _, nbytes, muls in
+              tensor3_cases(pm, gen, batch))]
+
+
+def vpu_wide_cases(gen, batch: int) -> list[tuple]:
+    """Path 15's kernels at its shapes (`default_u32(32768)` under
+    "pallas_vpu", `batch` ciphertexts): the extension [batch, 4, 29, N]
+    -> [batch, 4, 59, N], B16 on [4 batch, 59, N] (1024 threads of 32
+    coefficients and 128 KB a polynomial), B10 on the halves of
+    [batch, 4, 59, N], the 59-limb tensor base [batch, 3, 59, N] ->
+    [batch, 3, 29, N] (B7, B9 into the 30 limbs of B), and B17 on the
+    plaintext against both components, [batch, 2, 29, N] by
+    [batch, 1, 29, N], with `a * b % q` as its library call (name,
+    kernel, plain twin, args, bytes, 32-bit multiplies[, library])."""
+    from sunscreen_tpu_torch.bfv import BfvParams, get_context
+    from sunscreen_tpu_torch.math import ntt, prns
+
+    ctx = get_context(BfvParams.default_u32(VPU_N), DEV, "pallas_vpu")
+    n, qb, mb = VPU_N, ctx.q_base, ctx.mul_base
+    conv = prns.fused_converter(ctx.conv_q_to_aux)
+    sc = ctx.fused_op("scale_convert")
+    scaler = prns.fused_scaler(ctx.scale_mul_to_aux)
+    t3 = ctx.fused_op("tensor3")
+    x_cv = _max_digits(_uniform(gen, (batch, 4, qb.k, n), qb.q), qb)
+    x_sc = _max_digits(_uniform(gen, (batch, 3, mb.k, n), mb.q), mb)
+    ab = _max_residues(_uniform(gen, (batch, 4, mb.k, n), mb.q), mb.q)
+    cols = batch * 3 * n
+    pq = ntt.get_plan(n, qb.moduli, DEV, "pallas_vpu")
+    ct = _max_residues(_uniform(gen, (batch, 2, qb.k, n), qb.q), qb.q)
+    pt = _uniform(gen, (batch, 1, qb.k, n), qb.q)
+    return [("convert", *_convert_case(conv, x_cv)),
+            *((name, kern, plain, args, nbytes, muls) for
+              name, kern, plain, args, _, _, nbytes, muls in
+              pntt_checks(ctx.plan_mul, gen, 4 * batch)),
+            ("tensor3", t3, t3.call_plain, (ab[:, :2], ab[:, 2:]),
+             (2 + 2 + 3) * batch * mb.k * n * WORD, 8 * batch * mb.k * n),
+            ("scale_convert", sc, sc.call_plain, (x_sc,),
+             cols * (sc.ks + sc.kd) * WORD,
+             cols * (10 * sc.ks + 2 * sc.ks * sc.km + 10 * sc.km
+                     + 2 * sc.km * sc.kd + 2 * sc.kd)),
+            ("scale", scaler, scaler.call_plain, (x_sc,),
+             cols * (scaler.ks + scaler.kd) * WORD,
+             cols * (10 * scaler.ks + 2 * scaler.ks * scaler.kd
+                     + 2 * scaler.kd)),
+            ("pntt_pmul", pq.pointwise_mul, pq.pointwise_mul_plain, (ct, pt),
+             (2 + 1 + 2) * batch * qb.k * n * WORD, 2 * 2 * batch * qb.k * n,
+             lambda x, y: x * y % pq.q)]
 
 
 def unfused_pairs(ctx) -> dict[str, tuple]:
@@ -774,7 +833,8 @@ def check_kernels(ctx, gen) -> list[dict]:
     PyTorch expression computes the same function, its time; B14 and B15
     also against the pair of kernels each replaces, on the same inputs,
     bit for bit and timed; B1 and B3 also at the PBS step's shape, B5
-    there too, and B5, B6 and B7 at path 3's shapes."""
+    there too, B4-B7, B12 and B13 at path 3's shapes, and B6, B7, B9,
+    B10, B16 and B17 at path 15's."""
     rows = []
     from sunscreen_tpu_torch.bfv import BfvParams
 
@@ -801,14 +861,16 @@ def check_kernels(ctx, gen) -> list[dict]:
                   flush=True)
             rows[-1]["unfused_pair"] = {"kernels": label, "ms": pair_ms}
     at = {}
-    for where, cases in (("at_pbs_step", pbs_transform_cases(gen, BATCH)),
-                         (f"at_{WIDE_N}", wide_cases(gen, BATCH))):
-        for name, kern, plain, args, nbytes, muls in cases:
+    for where, cases in (("at_pbs_step", pbs_transform_cases),
+                         (f"at_{WIDE_N}", wide_cases),
+                         (f"at_{VPU_N}", vpu_wide_cases)):
+        for name, kern, plain, args, nbytes, muls, *library in cases(
+                gen, BATCH):
             shape = list(args[0].shape)
             _held(f"{name}@{shape}", kern, plain, args)
             at.setdefault(name, {})[where] = {
                 "shape": shape, **_timing(f"{name} at {shape}", kern, plain,
-                                          args, nbytes, muls)}
+                                          args, nbytes, muls, *library)}
     extra_checks(ctx, gen, BATCH)
     ks_full_extremes(_pbs_plan(), gen, 2)
     vpu_extra_checks(ctx.params, gen, BATCH)
@@ -837,16 +899,16 @@ def check_wide(gen) -> None:
 
 def transform_checks(gen, rows: int = 3) -> None:
     """B1-B5, B12-B16 wherever the schedule of csrc/transform.cuh changes:
-    fwd, fwd_broadcast, inv, inv_ks and inv_tensor3 (operands the halves
-    of one stack, read through their row strides) at every N from 256 to
-    16384, pntt_fwd and pntt_inv (the [t', s'] exchange) from 128
-    (radix-8 groups at 256, radix-16 above, 2 to 4 groups, several
-    polynomials per block below 8192, a block's spare slots when rows * k
-    is not a multiple of them; inv_ks in both of its block shapes, with
-    16 digits and every key word of k0 at q - 1), ks_full and
-    ks_full_limbs at every N (6 digits, both block shapes), fwd_tensor3 and
-    fwd_tensor3_full up to
-    TENSOR3_MAX_N; under one limb at the largest 30-bit NTT prime (the
+    fwd, fwd_broadcast, inv, inv_ks, inv_tensor3 (operands the halves
+    of one stack, read through their row strides), fwd_tensor3 and
+    fwd_tensor3_full at every N from 256 to 16384, pntt_fwd and pntt_inv
+    (the [t', s'] exchange) from 128 to 32768 (radix-8 groups at 256,
+    radix-16 above, radix-32 and one exchange buffer at 32768, 2 to 4
+    groups, several polynomials per block below 8192, a block's spare
+    slots when rows * k is not a multiple of them; inv_ks in both of its
+    block shapes, with 16 digits and every key word of k0 at q - 1),
+    ks_full and ks_full_limbs at every N (6 digits, both block shapes);
+    under one limb at the largest 30-bit NTT prime (the
     lazy butterflies' values reach 4q - 1 < 2^32) and three small ones
     (17 + log2 N - 8 bits).
     Residues include 0 and q - 1 in every polynomial and a polynomial of
@@ -856,7 +918,7 @@ def transform_checks(gen, rows: int = 3) -> None:
     import torch
     from sunscreen_tpu_torch.math import pmntt, pntt, primes
 
-    for logn in range(7, 15):
+    for logn in range(7, 16):
         n = 1 << logn
         for k, bits in ((1, 30), (3, max(17, 17 + logn - 8))):
             plan = pntt.PallasNttPlan(
@@ -905,8 +967,6 @@ def transform_checks(gen, rows: int = 3) -> None:
             ab[0] = plan.q - 1
             _held(f"inv_tensor3{tag}", plan.inv_tensor3,
                   plan.inv_tensor3_plain, (ab[:, :2], ab[:, 2:]))
-            if n > pmntt.TENSOR3_MAX_N:
-                continue
             ext = _uniform(gen, (rows, 4, k, n), plan.q)
             ext[..., 0] = plan.q[:, 0] - 1
             ext[..., 2] = (1 << 62) + 12345
@@ -920,23 +980,24 @@ def transform_checks(gen, rows: int = 3) -> None:
 
 def transform_shape(n: int) -> tuple[int, int]:
     """(threads per block, polynomials per block) of csrc/transform.cuh's
-    Shape for N = n: N/4 threads a polynomial at N = 128, N/8 at 256, N/16
-    above, as many polynomials as fill 512 threads."""
-    threads = n // {128: 4, 256: 8}.get(n, 16)
+    Shape for N = n: N/4 threads a polynomial at N = 128, N/8 at 256, N/32
+    at 32768, N/16 between, as many polynomials as fill 512 threads."""
+    threads = n // {128: 4, 256: 8, 32768: 32}.get(n, 16)
     polys = max(1, 512 // threads)
     return threads * polys, polys
 
 
 # Per source whose kernels print_ptxas reports: (threads a block, dynamic
 # shared memory in bytes) from an instantiation's template arguments.
-# ntt.cu and pntt.cu's B16 take two exchange buffers a polynomial,
+# ntt.cu and pntt.cu's B16 take two exchange buffers a polynomial (B16 one
+# at N = 32768),
 # tensor3.cu and inv_tensor3.cu an exchange buffer and two stashes,
 # inv_ks.cu (<LOGN, SPLIT>) two exchange buffers a component with twice
 # the threads of a transform (SPLIT) or two and a stash; rns.cu's kernels
 # run 256 threads with static shared memory only (ptxas' "smem").
 def _ntt_block(logn, *_):
     threads, polys = transform_shape(1 << logn)
-    return threads, 2 * polys * (1 << logn) * 4
+    return threads, (1 if logn == 15 else 2) * polys * (1 << logn) * 4
 
 
 def _tensor3_block(logn, *_):
@@ -1262,6 +1323,12 @@ DEFAULT_MUL = ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks",
                "convert", "scale_convert", "mod_down")
 MEGAKERNELS = ("ks_full", "ks_full_limbs")     # opt-in B14, B15
 NEW_KERNELS = ("scale", "tensor3", "ks_inner", "inv_tensor3") + MEGAKERNELS
+TFULL = {"SUNSCREEN_TPU_FUSE_TFULL": "1"}
+TFULL_NEEDED = ("fwd_tensor3_full", "convert", "scale_convert",
+                "fwd_broadcast", "inv_ks", "mod_down")
+TFULL_ABSENT = ("fwd_tensor3", "inv", "fwd", "tensor3", "inv_tensor3",
+                "scale", "ks_inner", "pntt_fwd", "pntt_inv",
+                "pntt_pmul") + MEGAKERNELS
 
 
 def multiply_path(label, ctx, seed: int, smi: str, needed, absent):
@@ -1499,22 +1566,27 @@ def _slot_gate(label, enc, sk, ctx, ct, want) -> None:
 
 
 def vpu_path(params, smi: str):
-    """Path 9, under SUNSCREEN_TPU_NTT=pallas_vpu (with FUSE_FT3=0, the
-    one setting under which the reference's plan multiplies): keygen,
-    BatchEncoder encode, encryption of BATCH slot vectors twice, the
-    3-component `multiply` and `multiply_plain`, both decrypted and
-    decoded against numpy slot-wise products mod t; `multiply` on the
-    card against the CPU, bit for bit; `relinearize` must raise the
-    port's error. Then both rates, launch counts and profiles."""
+    """Paths 9 (N = 8192) and 15 (N = 32768), under
+    SUNSCREEN_TPU_NTT=pallas_vpu (with FUSE_FT3=0, the one setting under
+    which the reference's plan multiplies): keygen, BatchEncoder encode,
+    encryption of BATCH slot vectors twice, the 3-component `multiply`
+    and `multiply_plain`, both decrypted and decoded against numpy
+    slot-wise products mod t; `multiply` on the card against the CPU, bit
+    for bit; `relinearize` must raise the port's error. Then both rates,
+    launch counts and profiles."""
     import torch
     from sunscreen_tpu_torch import _build
     from sunscreen_tpu_torch.bfv import BatchEncoder, get_context, keys, ops
 
-    t = params.plain_modulus
+    t, n = params.plain_modulus, params.poly_degree
+    label, at = ("vpu", "") if n == N else (f"vpu@{n}", f"@{n}")
     with _gates(VPU):
         ctx = get_context(params, DEV)
         if ctx.mode != "pallas_vpu":
             raise SystemExit(f"vpu path got NTT mode {ctx.mode}")
+        print(f"{label}: N={n} k={ctx.k}, B16 at log2 N = "
+              f"{ctx.plan_mul.logn} on {ctx.mul_base.k} limbs, B7 from "
+              f"{ctx.fused_op('scale_convert').ks} limbs", flush=True)
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         gen = torch.Generator(device=DEV).manual_seed(9)
@@ -1522,35 +1594,36 @@ def vpu_path(params, smi: str):
         pk = keys.gen_public_key(ctx, sk, gen)
         rlk = keys.gen_relin_key(ctx, sk, gen)
         enc = BatchEncoder(ctx)
-        slots = np.random.default_rng(9).integers(0, t, (2, BATCH, N))
+        slots = np.random.default_rng(9).integers(0, t, (2, BATCH, n))
         pts = enc.encode(slots)
         cta = ops.encrypt(ctx, pk, pts[0], gen)
         ctb = ops.encrypt(ctx, pk, pts[1], gen)
         want = slots[0] * slots[1] % t
         prod = ops.multiply(ctx, cta, ctb)
-        _slot_gate("vpu multiply", enc, sk, ctx, prod, want)
+        _slot_gate(f"{label} multiply", enc, sk, ctx, prod, want)
         mp = ops.multiply_plain(ctx, cta, pts[1])
-        _slot_gate("vpu multiply_plain", enc, sk, ctx, mp, want)
-        print(f"vpu decrypt gate: {BATCH} multiply and {BATCH} "
+        _slot_gate(f"{label} multiply_plain", enc, sk, ctx, mp, want)
+        print(f"{label} decrypt gate: {BATCH} multiply and {BATCH} "
               f"multiply_plain results decode to the numpy slot-wise "
               f"products mod t", flush=True)
         ctx_cpu = get_context(params, "cpu")
         if not torch.equal(ops.multiply(ctx, cta[:1], ctb[:1]).cpu(),
                            ops.multiply(ctx_cpu, cta[:1].cpu(),
                                         ctb[:1].cpu())):
-            raise SystemExit("vpu multiply on the card differs from the CPU")
-        print("vpu multiply: card kernels == CPU plain path, bit for bit",
-              flush=True)
+            raise SystemExit(f"{label} multiply on the card differs from "
+                             f"the CPU")
+        print(f"{label} multiply: card kernels == CPU plain path, bit for "
+              f"bit", flush=True)
         try:
             ops.relinearize(ctx, prod, rlk)
         except NotImplementedError as e:
             if "pntt.py:222" not in str(e):
-                raise SystemExit(f"vpu relinearize raised the wrong error: "
-                                 f"{e}") from e
-            print(f"vpu relinearize raises as the reference does: "
+                raise SystemExit(f"{label} relinearize raised the wrong "
+                                 f"error: {e}") from e
+            print(f"{label} relinearize raises as the reference does: "
                   f"{str(e)[:72]}...", flush=True)
         else:
-            raise SystemExit("vpu relinearize did not raise")
+            raise SystemExit(f"{label} relinearize did not raise")
 
         def mul_step():
             ops.multiply(ctx, cta, ctb)
@@ -1563,20 +1636,20 @@ def vpu_path(params, smi: str):
         per_mp = _per_op(mp_step)
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
-        print(f"vpu multiply: {mul_rate:.1f} ops/s, multiply_plain: "
-              f"{mp_rate:.1f} ops/s (N={N}, batch {BATCH}, median of "
+        print(f"{label} multiply: {mul_rate:.1f} ops/s, multiply_plain{at}: "
+              f"{mp_rate:.1f} ops/s (N={n}, batch {BATCH}, median of "
               f"{REPS} x {ITERS}) on {smi}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
-        _path_counts("vpu", launches,
+        _path_counts(label, launches,
                      ("pntt_fwd", "pntt_inv", "pntt_pmul", "convert",
                       "tensor3", "scale_convert"),
                      U32_PLAN + ("fwd_tensor3_full", "inv_tensor3", "mod_down")
                      + MEGAKERNELS)
-        print(f"launches per vpu multiply: {json.dumps(per_op)}; per "
+        print(f"launches per {label} multiply: {json.dumps(per_op)}; per "
               f"multiply_plain: {json.dumps(per_mp)}", flush=True)
-        profile_breakdown("vpu multiply", mul_step)
-        profile_breakdown("vpu multiply_plain", mp_step)
+        profile_breakdown(f"{label} multiply", mul_step)
+        profile_breakdown(f"{label} multiply_plain", mp_step)
     return launches, per_op
 
 
@@ -1915,12 +1988,14 @@ def main() -> int:
 
     # --- path 3: multiply_relin at default_u32(16384) ----------------
     wide = get_context(BfvParams.default_u32(WIDE_N), DEV)
-    _, _, launches, per_op = multiply_path(
-        f"multiply_relin@{WIDE_N}", wide, 3, smi,
-        ("tensor3", "fwd", "fwd_broadcast", "inv", "inv_ks", "convert",
-         "scale_convert", "mod_down"),
-        ("fwd_tensor3", "scale", "ks_inner", "inv_tensor3") + MEGAKERNELS)
+    inputs3, prod3, launches, per_op = multiply_path(
+        f"multiply_relin@{WIDE_N}", wide, 3, smi, DEFAULT_MUL, NEW_KERNELS)
     paths[f"multiply_relin@{WIDE_N}"] = (launches, per_op)
+    # --- path 3b: path 3's multiply under FUSE_TFULL=1 (B13) -------------
+    paths[f"tfull@{WIDE_N}"] = gated_path(
+        f"tfull@{WIDE_N}", TFULL, wide, inputs3, prod3, smi, TFULL_NEEDED,
+        TFULL_ABSENT)
+    del inputs3, prod3
 
     # --- paths 4 and 5: path 1's multiply under other settings -----------
     paths["unfused"] = gated_path(
@@ -1958,12 +2033,8 @@ def main() -> int:
     paths["vpu"] = vpu_path(params, smi)
 
     # --- path 10: path 1's multiply under FUSE_TFULL=1 (B13) -------------
-    paths["tfull"] = gated_path(
-        "tfull", {"SUNSCREEN_TPU_FUSE_TFULL": "1"}, ctx, inputs, prod, smi,
-        ("fwd_tensor3_full", "convert", "scale_convert", "fwd_broadcast",
-         "inv_ks", "mod_down"),
-        ("fwd_tensor3", "inv", "fwd", "tensor3", "inv_tensor3", "scale",
-         "ks_inner", "pntt_fwd", "pntt_inv", "pntt_pmul") + MEGAKERNELS)
+    paths["tfull"] = gated_path("tfull", TFULL, ctx, inputs, prod, smi,
+                                TFULL_NEEDED, TFULL_ABSENT)
 
     # --- path 11: the BFV user flow, default settings, batch 8 ----------
     paths["flow"] = flow_path(ctx, smi)
@@ -1973,6 +2044,10 @@ def main() -> int:
     paths["u64_mulmod"] = u64_mulmod_path(u64, smi)
     paths["multiply_relin_u64"] = u64_multiply_path(u64, smi)
     paths["golden_u64"] = golden_u64_path(u64, smi)
+
+    # --- path 15: path 9 at default_u32(32768) (B16 at N=32768, B7 at 59
+    # limbs) ---------------------------------------------------------------
+    paths[f"vpu@{VPU_N}"] = vpu_path(BfvParams.default_u32(VPU_N), smi)
 
     for row in table:
         name = row["name"]
@@ -2006,7 +2081,7 @@ def _parse_run(text: str) -> dict[str, float]:
         if line.startswith('{"kernels"'):
             for row in json.loads(line)["kernels"]:
                 out[f"kernel {row['name']} ms"] = row["ms"]
-                for where in ("at_pbs_step", f"at_{WIDE_N}"):
+                for where in ("at_pbs_step", f"at_{WIDE_N}", f"at_{VPU_N}"):
                     if where in row:
                         out[f"kernel {row['name']}@{where[3:]} ms"] = (
                             row[where]["ms"])

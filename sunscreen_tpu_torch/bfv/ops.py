@@ -291,10 +291,11 @@ def multiply_route(n: int, na: int, nb: int, device_type: str,
     transform, the cross terms summed per component and reduced once,
     the inverse transform. Else, in the reference's order:
     "fwd_tensor3" (B4, then B3) unless FUSE_INV or FUSE_FT3 is off or,
-    on CUDA, N > pmntt.TENSOR3_MAX_N, "fwd_tensor3_full" (B13 alone) in
-    its place under FUSE_TFULL=1; else "inv_tensor3" (B1, then B12)
-    under FUSE_T3=1; else "tensor3" (B1, B10, B3) for 2 x 2 components;
-    else "loop" (B1, plain products per component, B3).
+    on CUDA, N > pmntt.TENSOR3_MAX_N (every N of a "pallas" plan fits),
+    "fwd_tensor3_full" (B13 alone) in its place under FUSE_TFULL=1; else
+    "inv_tensor3" (B1, then B12) under FUSE_T3=1; else "tensor3" (B1,
+    B10, B3) for 2 x 2 components; else "loop" (B1, plain products per
+    component, B3).
 
     Under mode "pallas_vpu" a 2 x 2 multiply raises unless FUSE_FT3=0 or
     FUSE_INV=0, and also under FUSE_T3=1, as the reference does; else it

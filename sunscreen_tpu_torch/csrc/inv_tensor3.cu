@@ -29,7 +29,7 @@
 // NTT-domain tensor never reaches device memory. A task takes 3 N words of
 // shared memory: 96 KB at N = 8192, two blocks an SM as tensor3.cu runs,
 // and 192 KB for the 1024 threads at N = 16384, one block an SM, so the
-// kernel holds every N of the plan from 256 (INV_TENSOR3_MAX_N). ptxas
+// kernel holds every N of the plan from 256 (TENSOR3_MAX_N). ptxas
 // keeps it within 64 registers with at most a few bytes of spills.
 
 #include "transform.cuh"

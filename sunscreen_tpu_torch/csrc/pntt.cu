@@ -21,7 +21,12 @@
 // loads and stores stay coalesced int64 rows with no position table. Both
 // directions reduce any input below 2^63; the inverse folds 1/N into its
 // store. N = 128, which ntt.cu does not hold, takes groups of two stages
-// (Shape<7>: 32 threads a polynomial, 16 polynomials a block).
+// (Shape<7>: 32 threads a polynomial, 16 polynomials a block). N = 32768,
+// which ntt.cu does not hold either (the reference's pmntt plan stops at
+// 16384; BfvParams.default_u32(32768) runs under this plan), takes 1024
+// threads of 32 coefficients each, three groups of five stages
+// (Shape<15>), and one exchange buffer of 128 KB (two would not fit a
+// block), so each exchange waits at a barrier before it writes.
 //
 // B17. One pass over the broadcast shape [rows, k, N]: each block takes one row
 // and a stretch of its k N residues (8 per thread, so the row's offsets are
@@ -33,10 +38,16 @@
 //
 // Bounds on the H100 (int64 residues in and out): B16 on [256, 15, 8192] moves
 // 2 * 252 MB, about 0.15 ms at 3.35 TB/s, against 0.61 G 32-bit multiplies,
-// 0.04 ms at 16.7 T/s: bound by bytes. B17 on [64, 15, 8192] reads 126 MB per
-// full operand and writes 63 MB, 2 multiplies per residue: bound by bytes.
+// 0.04 ms at 16.7 T/s: bound by bytes; at BfvParams.default_u32(32768)'s
+// multiply, [256, 59, 32768], 2 * 3.96 GB, about 2.4 ms. B17 on
+// [64, 15, 8192] reads 126 MB per full operand and writes 63 MB, 2
+// multiplies per residue: bound by bytes.
 
 #include "transform.cuh"
+
+// exchange buffers a polynomial
+template <int LOGN>
+constexpr int NBUF = LOGN < 15 ? 2 : 1;
 
 template <int LOGN>
 __global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS)
@@ -44,7 +55,8 @@ __global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS)
                     long long* __restrict__ out, const u64* __restrict__ twp,
                     const long long* __restrict__ consts, int k, int polys) {
   extern __shared__ u32 sm[];
-  tf::fwd_poly<LOGN, tf::Rot<LOGN>>(sm, x, out, twp, consts, k, polys, 0);
+  tf::fwd_poly<LOGN, tf::Rot<LOGN>, NBUF<LOGN>>(sm, x, out, twp, consts, k,
+                                                polys, 0);
 }
 
 template <int LOGN>
@@ -53,7 +65,8 @@ __global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS)
                     long long* __restrict__ out, const u64* __restrict__ twp,
                     const long long* __restrict__ consts, int k, int polys) {
   extern __shared__ u32 sm[];
-  tf::inv_poly<LOGN, tf::Rot<LOGN>>(sm, x, out, twp, consts, k, polys);
+  tf::inv_poly<LOGN, tf::Rot<LOGN>, NBUF<LOGN>>(sm, x, out, twp, consts, k,
+                                                polys);
 }
 
 template <int LOGN, bool INV>
@@ -62,7 +75,7 @@ static int launch(const void* x, void* out, const void* twp,
   using S = tf::Shape<LOGN>;
   const int polys = rows * k;
   const int blocks = (polys + S::P - 1) / S::P;
-  const int smem = (int)(2 * sizeof(u32) * S::P * S::N);
+  const int smem = (int)(NBUF<LOGN> * sizeof(u32) * S::P * S::N);
   auto kernel = INV ? pntt_inv_kernel<LOGN> : pntt_fwd_kernel<LOGN>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
@@ -109,12 +122,14 @@ __global__ void pntt_pmul_kernel(const long long* __restrict__ a,
 }
 
 // x [rows, k, N] coefficients -> out [rows, k, N] in the [t', s'] domain,
-// 128 <= N <= 16384; twp [k, 2, N] u64 twiddle pairs
+// 128 <= N <= 32768; twp [k, 2, N] u64 twiddle pairs
 // (math/pmntt.py::twiddle_pairs)
 extern "C" int pntt_fwd(const void* x, void* out, const void* twp,
                         const void* consts, int rows, int k, int logn,
                         void* stream) {
   if (logn == 7) return launch<7, false>(x, out, twp, consts, rows, k, stream);
+  if (logn == 15)
+    return launch<15, false>(x, out, twp, consts, rows, k, stream);
   TF_DISPATCH(logn, (launch<LOGN, false>(x, out, twp, consts, rows, k,
                                          stream)))
 }
@@ -124,6 +139,8 @@ extern "C" int pntt_inv(const void* x, void* out, const void* twp,
                         const void* consts, int rows, int k, int logn,
                         void* stream) {
   if (logn == 7) return launch<7, true>(x, out, twp, consts, rows, k, stream);
+  if (logn == 15)
+    return launch<15, true>(x, out, twp, consts, rows, k, stream);
   TF_DISPATCH(logn, (launch<LOGN, true>(x, out, twp, consts, rows, k,
                                         stream)))
 }

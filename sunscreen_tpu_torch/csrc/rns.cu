@@ -21,11 +21,12 @@
 //
 // rns_scale and mod_down: native 64-bit products (__umul64hi) take the
 // place of the TPU's 16-bit-half arithmetic: the fixed-point sums are exact
-// in three u64 words (Fixed192), and the limb contractions fold their raw
-// u64 sums every 16 terms (dot_mod), so both are exact for any base up to
-// MAXK limbs. The tables are a few KB, read through the read-only cache;
-// all threads of a warp read the same entry. rns_scale reads its scale
-// step from scale_digits and scale_limb.
+// in three u64 words (Fixed192: k terms below 2^160 sum below 2^192 for any
+// k < 2^32), and the limb contractions fold their raw u64 sums every 16
+// terms (dot_mod), so both are exact for any base up to MAXK limbs. The
+// tables are a few KB, read through the read-only cache; all threads of a
+// warp read the same entry. rns_scale reads its scale step from
+// scale_digits and scale_limb.
 //
 // rns_convert and scale_convert were held by their instruction count, not
 // their bytes, in that design (64-bit Barrett steps, each a 64 x 64-bit
@@ -41,6 +42,14 @@
 // floor(2^64 / q), then the op's constants (below). Residues cross the
 // interface as int64 values < 2^30.
 //
+// Exactness of scale_convert (and rns_convert) at any base size up to MAXK
+// (64) limbs: a Frac128 word holds below 2^32 after a carry, and the four
+// terms added before the next are each below 2^30 2^32, so no word passes
+// 2^64 whatever the count; the integer part, r or alpha, is below
+// k 2^30 <= 2^36. A limb sum starts from below 2^36 and adds at most 15
+// products below 2^60 before it folds (fold below), 2^36 + 15 2^60 < 2^64.
+// BfvParams.default_u32(32768) reaches 59 limbs in the product base.
+//
 // Bound on the H100 at the main-path shapes (N = 8192, batch 64,
 // default_u32(8192)), int64 in and out: rns_convert [64,4,7,N] ->
 // [64,4,15,N] moves 369 MB (0.110 ms at 3.35 TB/s); scale_convert
@@ -48,10 +57,14 @@
 // -> [64,3,8,N] moves 289 MB (0.086 ms); mod_down [64,2,8,N] -> [64,2,7,N]
 // moves 126 MB (0.038 ms). Their 32-bit multiplies (chip_smoke.py counts
 // them) take under 0.06 ms at 16.7 T/s, so all four are bound by bytes.
+// At default_u32(32768)'s multiply, scale_convert [64,3,59,32768] ->
+// [64,3,29,32768] moves 4.4 GB (1.32 ms) but takes 39 G multiplies
+// (2.34 ms): bound by operations.
 
 #include "common.cuh"
 
-#define MAXK 32
+#define MAXK 64          // the source base of rns_scale and scale_convert
+#define CONVERT_MAXK 32  // both bases of rns_convert, B of scale_convert
 
 // Four 32-bit words, one 16-byte load from shared memory.
 struct __align__(16) Words {
@@ -105,7 +118,8 @@ struct Frac128 {
 
 // Whether a limb sum of up to K terms below (2^30)^2, started from a value
 // below K 2^30 (r, alpha (d_l - B mod d_l)), folds after term i: never for
-// K <= 16 (K 2^30 + 16 (2^30 - 1)^2 < 2^64), else every 15 terms.
+// K <= 16 (K 2^30 + 16 (2^30 - 1)^2 < 2^64), else every 15 terms
+// (K 2^30 + 15 (2^30 - 1)^2 < 2^64 for K <= 64).
 template <int K>
 __device__ __forceinline__ constexpr bool fold(int i) {
   return K > 16 && i % 15 == 14 && i + 1 < K;
@@ -119,9 +133,9 @@ template <int K>
 struct CvTables {
   Words s[K];        // q_i, (Q/q_i)^-1 mod q_i, its Shoup ratio
   Words f[K];        // 1/q_i rounded up, four 32-bit words
-  u32 th[MAXK][K];   // theta transposed: th[j][i] = theta_ij
-  Red32 d[MAXK];     // d_j and its reduction constants
-  u32 dneg[MAXK];    // d_j - (Q mod d_j)
+  u32 th[CONVERT_MAXK][K];  // theta transposed: th[j][i] = theta_ij
+  Red32 d[CONVERT_MAXK];     // d_j and its reduction constants
+  u32 dneg[CONVERT_MAXK];    // d_j - (Q mod d_j)
 };
 
 // v = x[row][i][col] for i < ks, 0 past ks or past the last row.
@@ -266,8 +280,9 @@ __global__ void rns_scale_kernel(const long long* __restrict__ x,
 }
 
 // scale_convert's tables, staged once a block from the int64 tables into
-// shared memory as u32 words (3 KB for <16, 8>, 11 KB for <32, 32>): all
-// threads of a warp read the same word, a broadcast.
+// shared memory as u32 words (3 KB for <16, 8>, 11 KB for <32, 32>, 20 KB
+// for <64, 32>, under the 48 KB of static shared memory a block may have):
+// all threads of a warp read the same word, a broadcast.
 template <int KS, int KM>
 struct ScTables {
   Words a[KS];     // q_i, (A/q_i)^-1 mod q_i, its Shoup ratio
@@ -435,10 +450,11 @@ extern "C" int rns_convert(const void* x, void* out, const void* src,
                            const void* dst, const void* theta, int rows,
                            int ks, int kd, int n, int centered,
                            int include_src, void* stream) {
-  if (ks > MAXK || kd > MAXK) return (int)cudaErrorInvalidValue;
+  if (ks > CONVERT_MAXK || kd > CONVERT_MAXK)
+    return (int)cudaErrorInvalidValue;
   auto kern = ks <= 8    ? &rns_convert_kernel<8>
               : ks <= 16 ? &rns_convert_kernel<16>
-                         : &rns_convert_kernel<MAXK>;
+                         : &rns_convert_kernel<CONVERT_MAXK>;
   if (rows == 0) return 0;
   const int gy = (rows + CONVERT_ROWS - 1) / CONVERT_ROWS;
   const dim3 grid((n + THREADS - 1) / THREADS, gy < 65535 ? gy : 65535);
@@ -453,7 +469,9 @@ extern "C" int rns_scale(const void* x, void* out, const void* a,
                          const void* d, const void* omega, int rows, int ks,
                          int kd, int n, void* stream) {
   if (ks > MAXK) return (int)cudaErrorInvalidValue;
-  auto kern = ks <= 16 ? &rns_scale_kernel<16> : &rns_scale_kernel<MAXK>;
+  auto kern = ks <= 16   ? &rns_scale_kernel<16>
+              : ks <= 32 ? &rns_scale_kernel<32>
+                         : &rns_scale_kernel<MAXK>;
   kern<<<blocks_for(rows, n), THREADS, 0, (cudaStream_t)stream>>>(
       (const long long*)x, (long long*)out, (const long long*)a,
       (const long long*)d, (const long long*)omega, rows, ks, kd, n);
@@ -464,11 +482,13 @@ extern "C" int scale_convert(const void* x, void* out, const void* a,
                              const void* b, const void* d, const void* omega,
                              const void* theta, int rows, int ks, int km,
                              int kd, int n, void* stream) {
-  if (ks > MAXK || km > MAXK || kd >= ks) return (int)cudaErrorInvalidValue;
-  auto kern = ks <= 16 ? (km <= 8 ? &scale_convert_kernel<16, 8>
-                                  : &scale_convert_kernel<16, 16>)
-                       : (km <= 16 ? &scale_convert_kernel<MAXK, 16>
-                                   : &scale_convert_kernel<MAXK, MAXK>);
+  if (ks > MAXK || km > CONVERT_MAXK || kd >= ks)
+    return (int)cudaErrorInvalidValue;
+  auto kern = ks <= 16   ? (km <= 8 ? &scale_convert_kernel<16, 8>
+                                    : &scale_convert_kernel<16, 16>)
+              : ks <= 32 ? (km <= 16 ? &scale_convert_kernel<32, 16>
+                                     : &scale_convert_kernel<32, 32>)
+                         : &scale_convert_kernel<MAXK, CONVERT_MAXK>;
   if (rows == 0) return 0;
   const dim3 grid((n + THREADS - 1) / THREADS, rows < 65535 ? rows : 65535);
   kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(

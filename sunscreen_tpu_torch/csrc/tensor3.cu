@@ -19,7 +19,8 @@
 // 1.21 G in all, 0.07 ms. Both are bound by bytes.
 //
 // Design (transform.cuh): one (row, limb) per N / 16 threads (several per
-// 512-thread block below N = 8192). The four operands are transformed one
+// 512-thread block below N = 8192, 1024 threads at N = 16384). The four
+// operands are transformed one
 // after the other in registers, with the exchange buffer of one polynomial
 // in shared memory; a0's and a1's transforms wait in shared memory (each
 // thread reads back only its own words, so with no barrier), a1 b0 in
@@ -32,16 +33,19 @@
 // B13, the NTT-domain tensor ever reaches device memory. Shared memory per
 // block is 3 N words (96 KB at N = 8192, against the earlier four-operand
 // 128 KB), so two blocks share an SM and one's loads overlap the other's
-// butterflies. N <= 8192 here (TENSOR3_MAX_N); N = 16384 would take 192 KB
-// for 1024 threads, one block per SM.
+// butterflies; at N = 16384 (TENSOR3_MAX_N) a block takes 192 KB and 1024
+// threads, one block an SM, as inv_tensor3.cu's B12 does. The bound there,
+// rows = 64 and k = 29 (default_u32(16384)'s product base): 1703 MB moved,
+// about 0.51 ms.
 
 #include "transform.cuh"
 
-// Two 512-thread blocks per SM: at most 64 registers a thread. ptxas then
-// spills a few words a thread to local memory; two blocks an SM still ran
-// faster than one on the H100.
+// Two 512-thread blocks per SM below N = 16384, one 1024-thread block
+// there: at most 64 registers a thread either way. ptxas then spills a few
+// words a thread to local memory; two blocks an SM still ran faster than
+// one on the H100.
 template <int LOGN, bool FULL>
-__global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS, 2)
+__global__ void __launch_bounds__(tf::Shape<LOGN>::THREADS, LOGN < 14 ? 2 : 1)
     fwd_tensor3_kernel(const long long* __restrict__ x,
                        long long* __restrict__ out,
                        const u64* __restrict__ twp,
@@ -116,22 +120,18 @@ template <int LOGN>
 static int launch(const void* x, void* out, const void* twp,
                   const void* consts, int rows, int k, int full,
                   void* stream) {
-  if constexpr (LOGN > 13) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    using S = tf::Shape<LOGN>;
-    const int tasks = rows * k;
-    const int blocks = (tasks + S::P - 1) / S::P;
-    const int smem = (int)(3 * sizeof(u32) * S::P * S::N);
-    auto kernel = full ? fwd_tensor3_kernel<LOGN, true>
-                       : fwd_tensor3_kernel<LOGN, false>;
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-    kernel<<<blocks, S::THREADS, smem, (cudaStream_t)stream>>>(
-        (const long long*)x, (long long*)out, (const u64*)twp,
-        (const long long*)consts, k, tasks);
-    return (int)cudaGetLastError();
-  }
+  using S = tf::Shape<LOGN>;
+  const int tasks = rows * k;
+  const int blocks = (tasks + S::P - 1) / S::P;
+  const int smem = (int)(3 * sizeof(u32) * S::P * S::N);
+  auto kernel = full ? fwd_tensor3_kernel<LOGN, true>
+                     : fwd_tensor3_kernel<LOGN, false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  kernel<<<blocks, S::THREADS, smem, (cudaStream_t)stream>>>(
+      (const long long*)x, (long long*)out, (const u64*)twp,
+      (const long long*)consts, k, tasks);
+  return (int)cudaGetLastError();
 }
 
 // x [rows, 4, k, N] -> out [rows, 3, k, N]; full selects B13 over B4;

@@ -8,7 +8,9 @@
 // Layout. A polynomial of N = 2^LOGN coefficients is held by T = N / E
 // threads, E = 2^R coefficients each in registers (R = 4; R = 3 at N = 256
 // and R = 2 at N = 128, pntt.cu's smallest plan, so that T is a whole
-// warp). Position p of the bit-reversed array has LOGN bits. A "group" of
+// warp; R = 5 at N = 32768, pntt.cu's largest, so that T is 1024, the most
+// a block holds: three groups of five stages). Position p of the
+// bit-reversed array has LOGN bits. A "group" of
 // stages works on R bits [A, A + R) of p that the registers own: register
 // s of thread tau holds p = thread_pos<A>(tau) | s << A, and the thread
 // index fills the other bits in order, so a warp's 32 lanes cover the five
@@ -35,10 +37,13 @@
 // buffers are swizzled by an XOR-linear map of the position (swz): bit
 // b >= 5 of the position flips the bank bits ex_col(b) (exchanges, in p
 // order) or the domain's col(b) (its permutation, in position order). For
-// every LOGN from 8 to 14 (7 for the exchanges and Rot) these columns
-// make each group's lane bits, the permutation's lane bits and the
+// every LOGN from 8 to 14 (7 and 15 for the exchanges and Rot) these
+// columns make each group's lane bits, the permutation's lane bits and the
 // coalesced position order map onto 32 distinct banks, so no access has a
-// bank conflict.
+// bank conflict. At N = 32768 (pntt.cu only) the exchanges have columns
+// of their own, and one exchange buffer of N words (128 KB) serves
+// every exchange, each write after a barrier (Buffers<1>): two would take
+// 256 KB, more than a block's 227 KB.
 #pragma once
 
 #include "common.cuh"
@@ -48,7 +53,7 @@ namespace tf {
 template <int LOGN>
 struct Shape {
   static constexpr int N = 1 << LOGN;
-  static constexpr int R = LOGN == 7 ? 2 : LOGN == 8 ? 3 : 4;
+  static constexpr int R = LOGN == 7 ? 2 : LOGN == 8 ? 3 : LOGN == 15 ? 5 : 4;
   static constexpr int E = 1 << R;
   static constexpr int T = N >> R;               // threads per polynomial
   static constexpr int G = (LOGN + R - 1) / R;   // groups of stages
@@ -87,6 +92,8 @@ template <int LOGN>
 __host__ __device__ constexpr u32 ex_col(int b) {
   if (LOGN == 7) return b == 5 ? 0xAu : 0x15u;
   if (LOGN == 8) return (1u << (b - 5)) ^ (1u << (b - 3));
+  // the first inverse group's lanes own bits 5-9: one bank bit each
+  if (LOGN == 15) return b < 10 ? 1u << (b - 5) : 0u;
   return b == 5 ? 0x2u : b == 6 ? 0x4u : b == 7 ? 0x8u : b == 8 ? 0x11u : 0u;
 }
 
@@ -226,13 +233,20 @@ __device__ __forceinline__ void inv_stages(u32 (&v)[Shape<LOGN>::E], u32 pt,
 
 // v[s] = x[s * stride] up to a multiple of q, below 2q (the input bound of
 // both transforms), for any int64 x in [0, 2^63). While every word of the
-// thread is below 2^32, a 32-bit Barrett step with m32 = floor(2^32 / q)
+// thread (of each 16, at E = 32: 32 words in flight would not fit the
+// registers) is below 2^32, a 32-bit Barrett step with m32 = floor(2^32 / q)
 // (the quotient is at most 1 short, so the rest is below 2q); else the
 // exact 64-bit reduction.
 template <int E>
 __device__ __forceinline__ void load_mod(u32 (&v)[E],
                                          const long long* __restrict__ x,
                                          int stride, const Limb& L) {
+  if constexpr (E > 16) {
+    load_mod(*reinterpret_cast<u32(*)[16]>(&v[0]), x, stride, L);
+    load_mod(*reinterpret_cast<u32(*)[16]>(&v[16]), x + 16 * stride, stride,
+             L);
+    return;
+  }
   u64 w[E];
   u32 hi = 0;
 #pragma unroll
@@ -349,10 +363,10 @@ __device__ __forceinline__ void from_flat(u32 (&v)[Shape<LOGN>::E], u32* buf,
 // The forward transform of one polynomial of x [rows, k, N] (with
 // broadcast, of its row's single polynomial of x [rows, N]) into out
 // [rows, k, N] in domain D: a slot of a block of Shape<LOGN>::P slots,
-// with two exchange buffers of N words a slot in `sm` (ntt.cu's B1 and B2,
+// with NBUF exchange buffers of N words a slot in `sm` (ntt.cu's B1 and B2,
 // pntt.cu's B16). Each thread loads its coefficients as coalesced int64
 // reads, any value below 2^63, reduced below 2q.
-template <int LOGN, class D>
+template <int LOGN, class D, int NBUF = 2>
 __device__ __forceinline__ void fwd_poly(u32* sm,
                                          const long long* __restrict__ x,
                                          long long* __restrict__ out,
@@ -371,7 +385,7 @@ __device__ __forceinline__ void fwd_poly(u32* sm,
   const long long* src = x + (size_t)(broadcast ? row : poly) * S::N;
   u32 v[S::E];
   load_mod(v, src + tau, S::T, L);
-  Buffers<2> bufs{sm + slot * S::N, S::P * S::N, 0};
+  Buffers<NBUF> bufs{sm + slot * S::N, S::P * S::N, 0};
   fwd<LOGN>(v, bufs, tau, twp + (size_t)limb * 2 * S::N, L.q);
   canon(v, L.q);
   to_flat<LOGN, D>(v, bufs.next(), tau);
@@ -384,7 +398,7 @@ __device__ __forceinline__ void fwd_poly(u32* sm,
 // The inverse of fwd_poly (without broadcast): x [rows, k, N] in domain D,
 // any value below 2^63, -> out [rows, k, N] in natural coefficient order,
 // 1/N folded into the store.
-template <int LOGN, class D>
+template <int LOGN, class D, int NBUF = 2>
 __device__ __forceinline__ void inv_poly(u32* sm,
                                          const long long* __restrict__ x,
                                          long long* __restrict__ out,
@@ -400,7 +414,7 @@ __device__ __forceinline__ void inv_poly(u32* sm,
   const Limb L = load_limb(consts, limb);
   u32 v[S::E];
   load_mod(v, x + (size_t)poly * S::N + tau, S::T, L);
-  Buffers<2> bufs{sm + slot * S::N, S::P * S::N, 0};
+  Buffers<NBUF> bufs{sm + slot * S::N, S::P * S::N, 0};
   from_flat<LOGN, D>(v, bufs.next(), tau);
   inv<LOGN>(v, bufs, tau, twp + ((size_t)limb * 2 + 1) * S::N, L.q);
   if (task >= polys) return;

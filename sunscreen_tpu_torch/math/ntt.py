@@ -38,8 +38,9 @@ from sunscreen_tpu_torch import resolve_device
 from sunscreen_tpu_torch.errors import Unsupported
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math import primes
+from sunscreen_tpu_torch.math import pmntt
 from sunscreen_tpu_torch.math.pmntt import NttPlanU32, _bitrev, _powers
-from sunscreen_tpu_torch.math.pntt import MAX_N, PallasNttPlan
+from sunscreen_tpu_torch.math.pntt import PallasNttPlan
 from sunscreen_tpu_torch.math.rns import _col
 
 
@@ -85,8 +86,9 @@ def degrade(n: int, moduli: tuple[int, ...], mode: str) -> str:
 @lru_cache(maxsize=64)
 def _plan_cached(n: int, moduli: tuple[int, ...], device: torch.device,
                  mode: str):
-    if mode in ("pallas", "pallas_vpu") and n > MAX_N:
-        raise Unsupported(f"the u32 NTT kernels hold N <= {MAX_N}, got {n}")
+    if mode == "pallas" and n > pmntt.MAX_N:
+        raise Unsupported(f'NTT mode "pallas" holds N <= {pmntt.MAX_N}, '
+                          f"got {n}")
     if mode == "pallas":
         return NttPlanU32(n, moduli, device)
     if mode == "pallas_vpu":

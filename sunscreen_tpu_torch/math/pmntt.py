@@ -29,8 +29,8 @@ from sunscreen_tpu_torch.math.prns import _check, _strided_rows
 
 LANES = 128            # n2 of the reference's four-step layout
 MAX_KDIG = 16          # kdig * q^2 < 2^64 for q < 2^30 (inv_ks.cu)
-TENSOR3_MAX_N = 8192   # four polys of N u32 in one block's shared memory
-INV_TENSOR3_MAX_N = 16384  # three polys: 192 KB of the 227 KB a block holds
+MAX_N = 16384          # the reference asserts N <= 16384 (pmntt.py:782)
+TENSOR3_MAX_N = 16384  # B4, B12, B13: three polys, 192 KB of a block's 227 KB
 
 
 def _bitrev(n: int) -> np.ndarray:
@@ -93,7 +93,7 @@ class NttPlanU32:
     Tensors are int64 [..., k, N] on the plan's device."""
 
     def __init__(self, n: int, moduli: tuple[int, ...], device):
-        assert n & (n - 1) == 0 and 256 <= n <= 16384, n
+        assert n & (n - 1) == 0 and 256 <= n <= MAX_N, n
         assert max(q.bit_length() for q in moduli) <= 30
         assert min(q.bit_length() for q in moduli) >= 17
         self.n = n
@@ -364,9 +364,9 @@ class NttPlanU32:
         in place."""
         if self._cpu(a_hat):
             return self.inv_tensor3_plain(a_hat, b_hat)
-        if self.n > INV_TENSOR3_MAX_N:
+        if self.n > TENSOR3_MAX_N:
             raise ValueError(f"inv_tensor3 kernel holds N <= "
-                             f"{INV_TENSOR3_MAX_N}, got {self.n}")
+                             f"{TENSOR3_MAX_N}, got {self.n}")
         tail = (2, self.k, self.n)
         rows = _check(a_hat, self.device, tail)
         if a_hat.shape != b_hat.shape:

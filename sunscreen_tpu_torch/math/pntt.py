@@ -24,13 +24,15 @@ import numpy as np
 import torch
 
 from sunscreen_tpu_torch import _build
+from sunscreen_tpu_torch.errors import Unsupported
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math import primes
 from sunscreen_tpu_torch.math.pmntt import (LANES, _bitrev, kernel_tables,
                                             twiddle_pairs)
 from sunscreen_tpu_torch.math.prns import _check, _is_cpu
 
-MIN_N, MAX_N = 128, 16384   # B16 holds one poly in shared memory
+MIN_N = 128
+KERNEL_MAX_N = 32768        # B16 holds one poly in a block's shared memory
 LEAD_DIMS = 4               # leading dims B17 reads through strides
 
 
@@ -50,14 +52,18 @@ def _merge_lead(sizes, sa, sb):
 
 class PallasNttPlan:
     """Negacyclic NTT plan for 17-30-bit NTT-friendly moduli and
-    128 <= N <= 16384 in the reference's [t', s'] domain, with its call
-    surface: `fwd`, `inv`, `pointwise_mul` (broadcasting) and
-    `negacyclic_mul` over int64 [..., k, N] stacks on the plan's device.
+    N >= 128 (on CUDA N <= KERNEL_MAX_N, B16's largest size) in the
+    reference's [t', s'] domain, with its call surface: `fwd`, `inv`,
+    `pointwise_mul` (broadcasting) and `negacyclic_mul` over int64
+    [..., k, N] stacks on the plan's device.
     `mode` is "pallas_vpu"; the reference's plan calls itself "pallas"
     (`pntt.py:222`), which `bfv/ops.py` accounts for."""
 
     def __init__(self, n: int, moduli: tuple[int, ...], device):
-        assert n & (n - 1) == 0 and MIN_N <= n <= MAX_N, n
+        assert n & (n - 1) == 0 and n >= MIN_N, n
+        if torch.device(device).type == "cuda" and n > KERNEL_MAX_N:
+            raise Unsupported(f"the B16 kernel holds N <= {KERNEL_MAX_N}, "
+                              f"got {n}")
         assert max(q.bit_length() for q in moduli) <= 30
         assert min(q.bit_length() for q in moduli) >= 17
         self.n = n

@@ -37,7 +37,8 @@ from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math.modular import U32_MAX_MODULUS_BITS
 
-MAX_LIMBS = 32       # register arrays and tables of csrc/rns.cu (MAXK)
+MAX_LIMBS = 64       # the scale kernels' source base (csrc/rns.cu MAXK)
+MAX_CONVERT_LIMBS = 32   # rns_convert's bases, B of scale_convert
 MAX_KS_DIGITS = 32   # FusedKsInner digits (its sums fold every 16 terms)
 
 
@@ -77,10 +78,10 @@ def _check(x, device, tail) -> int:
     return rows
 
 
-def _limbs_ok(*ks) -> None:
-    if max(ks) > MAX_LIMBS:
-        raise ValueError(f"the fused RNS kernels hold at most {MAX_LIMBS} "
-                         f"limbs per base, got {max(ks)}")
+def _limbs_ok(limit: int, *ks) -> None:
+    if max(ks) > limit:
+        raise ValueError(f"the fused RNS kernels hold at most {limit} "
+                         f"limbs in this base, got {max(ks)}")
 
 
 def _strided_rows(x, inner_dims: int):
@@ -140,7 +141,10 @@ class FusedRnsOp:
             return self.call_plain(x, include_src, centered)
         n = x.shape[-1]
         rows = _check(x, self.device, (self.ks, n))
-        _limbs_ok(self.ks, self.kd if self.mode == "convert" else 0)
+        if self.mode == "convert":
+            _limbs_ok(MAX_CONVERT_LIMBS, self.ks, self.kd)
+        else:
+            _limbs_ok(MAX_LIMBS, self.ks)
         x = x.contiguous()
         ko = self.ks + self.kd if include_src else self.kd
         out = torch.empty(*x.shape[:-2], ko, n, dtype=torch.int64,
@@ -184,7 +188,8 @@ class FusedScaleConvert:
             return self.call_plain(x)
         n = x.shape[-1]
         rows = _check(x, self.device, (self.ks, n))
-        _limbs_ok(self.ks, self.km)
+        _limbs_ok(MAX_LIMBS, self.ks)
+        _limbs_ok(MAX_CONVERT_LIMBS, self.km)
         x = x.contiguous()
         out = torch.empty(*x.shape[:-2], self.kd, n, dtype=torch.int64,
                           device=x.device)

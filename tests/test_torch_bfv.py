@@ -169,16 +169,22 @@ def test_gates_match_golden(golden, port, monkeypatch, gate):
 
 def test_routes_by_size_and_device(monkeypatch):
     """The route is a pure function of N, the component counts, the
-    device and the environment: on CUDA the B4 kernel holds N <= 8192,
-    so N=16384 takes B10 (or B12 under FUSE_T3=1); the CPU twin of B4
-    holds any N; other component counts take the plain loop."""
-    assert ops.multiply_route(8192, 2, 2, "cuda") == "fwd_tensor3"
-    assert ops.multiply_route(16384, 2, 2, "cuda") == "tensor3"
-    assert ops.multiply_route(16384, 2, 2, "cpu") == "fwd_tensor3"
+    device and the environment: on CUDA the B4 and B13 kernels hold every
+    N of the "pallas" plans (up to 16384), as the CPU twins do, so
+    default_u32(16384) takes B4 (B13 under FUSE_TFULL=1) as the
+    reference does; FUSE_T3=1 takes B12 only with FUSE_FT3 off, and
+    FUSE_INV=0 takes B10; other component counts take the plain loop."""
+    for device_type in ("cuda", "cpu"):
+        for n in (8192, 16384):
+            assert ops.multiply_route(n, 2, 2, device_type) == "fwd_tensor3"
     assert ops.multiply_route(8192, 3, 2, "cuda") == "loop"
+    monkeypatch.setenv("SUNSCREEN_TPU_FUSE_TFULL", "1")
+    assert ops.multiply_route(16384, 2, 2, "cuda") == "fwd_tensor3_full"
+    monkeypatch.delenv("SUNSCREEN_TPU_FUSE_TFULL")
     monkeypatch.setenv("SUNSCREEN_TPU_FUSE_T3", "1")
+    assert ops.multiply_route(16384, 2, 2, "cuda") == "fwd_tensor3"
+    monkeypatch.setenv("SUNSCREEN_TPU_FUSE_FT3", "0")
     assert ops.multiply_route(16384, 2, 2, "cuda") == "inv_tensor3"
-    assert ops.multiply_route(8192, 2, 2, "cuda") == "fwd_tensor3"
     monkeypatch.setenv("SUNSCREEN_TPU_FUSE_INV", "0")
     assert ops.multiply_route(16384, 2, 2, "cuda") == "tensor3"
 

@@ -176,6 +176,34 @@ def test_multiply_matches_reference(ref, port, monkeypatch):
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
+def test_multiply_above_16384_matches_reference(monkeypatch):
+    """A whole pallas_vpu `multiply` at N = 32768, past the reference's
+    "pallas" plans (insecure_u32(32768, limbs=1): 3 limbs in the product
+    base), on the reference's ciphertexts: the port's product is the
+    reference's, bit for bit, and decrypts under the reference's secret
+    to the reference's plaintext."""
+    n = 32768
+    t = rprimes.gen_ntt_primes(20, 1, n)[0]
+    with _env(SUNSCREEN_TPU_NTT="pallas_vpu"):
+        rc = ref_context.__wrapped__(
+            RefParams.insecure_u32(n, plain_modulus=t, limbs=1))
+    key = jax.random.key(32)
+    sk = rkeys.gen_secret_key(rc, jax.random.fold_in(key, 0))
+    pk = rkeys.gen_public_key(rc, sk, jax.random.fold_in(key, 1))
+    pts = np.random.default_rng(32).integers(0, t, (2, n))
+    a, b = (rops.encrypt(rc, pk, pts[i], jax.random.fold_in(key, 2 + i))
+            for i in range(2))
+    monkeypatch.setenv("SUNSCREEN_TPU_FUSE_FT3", "0")
+    prod = rops.multiply(rc, a, b)
+    ctx = get_context(BfvParams.insecure_u32(n, plain_modulus=t, limbs=1),
+                      "cpu", "pallas_vpu")
+    got = ops.multiply(ctx, _t(a), _t(b))
+    np.testing.assert_array_equal(got.numpy(), _np(prod))
+    port_sk, _, _ = keys.from_reference(ctx, s=np.asarray(sk.s))
+    np.testing.assert_array_equal(ops.decrypt(ctx, port_sk, got).numpy(),
+                                  _np(rops.decrypt(rc, sk, prod)))
+
+
 def test_raises_where_reference_raises(ref, port, monkeypatch):
     """FUSE_FT3 on (the default), FUSE_T3=1, and every keyswitch: the
     reference raises AttributeError, the port a NotImplementedError that
@@ -321,6 +349,6 @@ def test_user_flow_default_mode(monkeypatch):
     monkeypatch.setenv("SUNSCREEN_TPU_FUSE_TFULL", "1")
     assert ops.multiply_route(N, 2, 2, "cpu") == "fwd_tensor3_full"
     assert ops.multiply_route(8192, 2, 2, "cuda") == "fwd_tensor3_full"
-    assert ops.multiply_route(16384, 2, 2, "cuda") == "tensor3"
+    assert ops.multiply_route(16384, 2, 2, "cuda") == "fwd_tensor3_full"
     assert torch.equal(ops.square(ctx, cts[2]), default)
     np.testing.assert_array_equal(dec(default), slots[2] ** 2 % T)

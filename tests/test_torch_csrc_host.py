@@ -257,10 +257,11 @@ def test_ntt_kernels_match_twins(host, n):
     np.testing.assert_array_equal(out, plan.inv(torch.from_numpy(x)).numpy())
 
 
-@pytest.mark.parametrize("n", [256, 2048, 8192])
+@pytest.mark.parametrize("n", [256, 2048, 8192, 16384])
 def test_tensor3_kernels_match_twins(host, n):
     """fwd_tensor3 without (B4) and with (B13) the inverse transforms on
-    [2, 4, 2, N] operands, every operand of the first row at q - 1."""
+    [2, 4, 2, N] operands (at N = 16384 a task takes 1024 threads and
+    192 KB of shared memory), every operand of the first row at q - 1."""
     _, libs = host
     plan = _plan(n, 2)
     ext = _residues(np.random.default_rng(n + 1), plan, (2, 4))
@@ -285,8 +286,8 @@ def test_transform_layouts_have_no_bank_conflict(host):
 
 
 def test_entry_points_refuse_unsupported_sizes(host):
-    """No kernel runs outside 256 <= N <= 16384 (N <= 8192 for the fused
-    tensor): the C entry returns cudaErrorInvalidValue."""
+    """No kernel runs outside 256 <= N <= 16384: the C entry returns
+    cudaErrorInvalidValue."""
     _, libs = host
     x = np.zeros(1 << 15, dtype=np.int64)
     twp = consts = np.zeros(8, dtype=np.int64)
@@ -295,7 +296,7 @@ def test_entry_points_refuse_unsupported_sizes(host):
                                    1, 1, logn, 0, None) == 1
         assert libs["ntt"].ntt_inv(_ptr(x), _ptr(x), _ptr(twp), _ptr(consts),
                                    1, 1, logn, None) == 1
-    for logn in (7, 14):
+    for logn in (7, 15):
         assert libs["tensor3"].fwd_tensor3(_ptr(x), _ptr(x), _ptr(twp),
                                            _ptr(consts), 1, 1, logn, 0,
                                            None) == 1

@@ -3,8 +3,9 @@
 `tests/test_torch_csrc_host.py` and run against the plain PyTorch twins,
 bit for bit, at small sizes: inv_ks (B5) in both of its block shapes,
 with up to 16 digits and residues at q - 1; scale_convert (B7) and the
-other entry points of rns.cu at the bases of 7 and 14 limbs (15 and 29
-limbs in the tensor base, the two register bounds of each kernel), with
+other entry points of rns.cu at the bases of 7, 14, 17 and 29 limbs (15,
+29, 35 and 59 limbs in the tensor base, the register bounds of each
+kernel up to its largest, 64 limbs), with
 columns whose normalized digits are all q_i - 1, so that every carry of
 the fixed-point sums reaches the integer word, and columns next to the
 rounding boundary; and common.cuh's 32-bit reductions against 128-bit
@@ -122,13 +123,14 @@ def _tensor_input(ctx, rng, rows: int = 2):
     return x
 
 
-@pytest.mark.parametrize("limbs", [7, 14])
+@pytest.mark.parametrize("limbs", [7, 14, 17, 29])
 def test_rns_kernels_match_twins(host, limbs):
     """scale_convert (B7), rns_scale (B9), rns_convert (B6: q -> aux,
-    aux -> q and the tensor base -> q, with and without the source copy,
-    centered and not) and mod_down (B8) at the bases of `limbs` 30-bit
-    limbs: ks = 2 limbs + 1 tensor-base limbs (15 as default_u32(8192)'s,
-    29 as default_u32(16384)'s)."""
+    aux -> q and, while it has at most 32 limbs, the tensor base -> q,
+    with and without the source copy, centered and not) and mod_down (B8)
+    at the bases of `limbs` 30-bit limbs: ks = 2 limbs + 1 tensor-base
+    limbs (15 as default_u32(8192)'s, 29 as default_u32(16384)'s, 59 as
+    default_u32(32768)'s)."""
     lib = host["rns"]
     ctx = get_context(BfvParams.insecure(poly_degree=256, limbs=limbs,
                                          limb_bits=30), "cpu")
@@ -159,13 +161,16 @@ def test_rns_kernels_match_twins(host, limbs):
                          scaler.ks, scaler.kd, n, None) == 0
     np.testing.assert_array_equal(out, scaler.call_plain(xt).numpy())
 
-    # rns_convert (B6): q -> aux, aux -> q and, through the <MAXK>
+    # rns_convert (B6): q -> aux, aux -> q and, through the <32>
     # instantiation (ks > 16 at 14 limbs), the tensor base -> q with every
     # theta_ij at d_j - 1, each with and without the source copy, centered
     # and not
-    wide = copy.copy(rns.BaseConverter(ctx.mul_base, ctx.q_base))
-    wide.theta = torch.broadcast_to(ctx.q_base.q - 1, wide.theta.shape)
-    for conv in (ctx.conv_q_to_aux, ctx.conv_aux_to_q, wide):
+    convs = [ctx.conv_q_to_aux, ctx.conv_aux_to_q]
+    if ctx.mul_base.k <= prns.MAX_CONVERT_LIMBS:
+        wide = copy.copy(rns.BaseConverter(ctx.mul_base, ctx.q_base))
+        wide.theta = torch.broadcast_to(ctx.q_base.q - 1, wide.theta.shape)
+        convs.append(wide)
+    for conv in convs:
         op = prns.fused_converter(conv)
         xs = _convert_input(conv.src, rng)
         xt = torch.from_numpy(xs)
@@ -193,16 +198,23 @@ def test_rns_kernels_match_twins(host, limbs):
 
 
 def test_entry_points_refuse_unsupported_shapes(host):
-    """inv_ks runs no kernel outside 256 <= N <= 16384, scale_convert none
-    above 32 limbs a base: the C entry returns cudaErrorInvalidValue."""
+    """inv_ks runs no kernel outside 256 <= N <= 16384; scale_convert and
+    rns_scale none above 64 limbs in the tensor base (scale_convert none
+    above 32 in B), rns_convert none above 32 limbs a base: the C entry
+    returns cudaErrorInvalidValue."""
     x = np.zeros(1 << 15, dtype=np.int64)
     for logn in (7, 15):
         assert host["inv_ks"].inv_ks(_p(x), _p(x), _p(x), _p(x), _p(x),
                                      _p(x), 1, 1, 1, logn, None) == 1
-    for ks, km in ((33, 8), (16, 33)):
+    for ks, km in ((65, 8), (16, 33)):
         assert host["rns"].scale_convert(
             _p(x), _p(x), _p(x), _p(x), _p(x), _p(x), _p(x), 1, ks, km, 7,
             256, None) == 1
+    assert host["rns"].rns_scale(_p(x), _p(x), _p(x), _p(x), _p(x), 1, 65,
+                                 8, 256, None) == 1
+    for ks, kd in ((33, 8), (8, 33)):
+        assert host["rns"].rns_convert(_p(x), _p(x), _p(x), _p(x), _p(x), 1,
+                                       ks, kd, 256, 0, 0, None) == 1
 
 
 REDUCTIONS = r"""

@@ -2,10 +2,11 @@
 `pntt_fwd`/`pntt_inv`, `csrc/inv_tensor3.cu`'s B12) compiled for the host
 with the stand-in CUDA runtime of `tests/test_torch_csrc_host.py` and run
 against the plain PyTorch twins, bit for bit, at small sizes: B16 at
-N = 128 (its own two-stage groups), 256, 1024 and 8192, forward inputs up
-to 2^62 and above; B12 up to N = 16384 on operands that are views of one
-[rows, 4, k, N] stack; the swizzles of pntt.cu's [t', s'] exchange and of
-the N = 128 groups, warp by warp; and the sizes each entry point refuses.
+N = 128 (its own two-stage groups), 256, 1024, 8192 and 32768 (five-stage
+groups, one exchange buffer), forward inputs up to 2^62 and above; B12 up
+to N = 16384 on operands that are views of one [rows, 4, k, N] stack; the
+swizzles of pntt.cu's [t', s'] exchange and of the N = 128 and N = 32768
+groups, warp by warp; and the sizes each entry point refuses.
 Needs a C++20 compiler (g++)."""
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.math import pntt, primes
 from test_torch_csrc_host import HOST_CUDA, _compile, _host_source, _plan
 
-# pntt.cu's [t', s'] exchange at every N it holds, and the N = 128 groups:
+# pntt.cu's [t', s'] exchange at every N it holds, and the groups of the
+# sizes ntt.cu does not hold (N = 128 and 32768):
 # every warp access hits 32 distinct banks, the swizzle is a bijection of
 # [0, N), and Rot::pos puts slot s' C + t' at position t' R' + s'.
 BANKS = r"""
@@ -79,9 +81,9 @@ template <int LOGN> void size() {
   }
 }
 int main() {
-  groups<7>();
+  groups<7>(); groups<15>();
   size<7>(); size<8>(); size<9>(); size<10>(); size<11>(); size<12>();
-  size<13>(); size<14>();
+  size<13>(); size<14>(); size<15>();
   return bad != 0;
 }
 """
@@ -108,13 +110,14 @@ def _p(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
-@pytest.mark.parametrize("n", [128, 256, 1024, 8192])
+@pytest.mark.parametrize("n", [128, 256, 1024, 8192, 32768])
 def test_pntt_kernels_match_twins(host, n):
     """pntt_fwd and pntt_inv (B16) on 2 rows of 3 limbs (a 30-bit limb,
     whose lazy butterflies reach 4q - 1 < 2^32, and two small ones): each
     polynomial holds 0, q - 1 and a word above 2^62, the second row is
     q - 1 throughout. At N = 128 and 256 six of a block's sixteen slots
-    hold a polynomial."""
+    hold a polynomial; at N = 32768 a polynomial takes 1024 threads, 32
+    coefficients each, and one 128 KB exchange buffer."""
     _, libs = host
     small = max(17, 17 + n.bit_length() - 9)
     plan = pntt.PallasNttPlan(
@@ -163,10 +166,10 @@ def test_inv_tensor3_kernel_matches_twin(host, n, rows, k):
 
 def test_pntt_layouts_have_no_bank_conflict(host):
     """Every warp access of pntt.cu's [t', s'] exchange (slot order and
-    position order) at every N from 128 to 16384, and of the N = 128
-    groups' exchanges, hits 32 distinct banks; the exchange writes slot
-    s' C + t' at position t' R' + s'. (inv_tensor3.cu's accesses are
-    ntt.cu's, flat order and exchanges, checked in
+    position order) at every N from 128 to 32768, and of the N = 128 and
+    N = 32768 groups' exchanges, hits 32 distinct banks; the exchange
+    writes slot s' C + t' at position t' R' + s'. (inv_tensor3.cu's
+    accesses are ntt.cu's, flat order and exchanges, checked in
     test_torch_csrc_host.py.)"""
     out, _ = host
     exe = _compile(out, "banks_pntt", BANKS, False)
@@ -175,12 +178,12 @@ def test_pntt_layouts_have_no_bank_conflict(host):
 
 
 def test_entry_points_refuse_unsupported_sizes(host):
-    """B16 runs at 128 <= N <= 16384 and B12 at 256 <= N <= 16384 only:
+    """B16 runs at 128 <= N <= 32768 and B12 at 256 <= N <= 16384 only:
     outside, the C entry returns cudaErrorInvalidValue."""
     _, libs = host
-    x = np.zeros(1 << 15, dtype=np.int64)
+    x = np.zeros(1 << 16, dtype=np.int64)
     twp = consts = np.zeros(8, dtype=np.int64)
-    for logn in (6, 15):
+    for logn in (6, 16):
         for fn in ("pntt_fwd", "pntt_inv"):
             assert getattr(libs["pntt"], fn)(_p(x), _p(x), _p(twp),
                                              _p(consts), 1, 1, logn,

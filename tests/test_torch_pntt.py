@@ -16,6 +16,7 @@ from sunscreen_tpu.math import pntt as rpntt
 from sunscreen_tpu.math import primes as rprimes
 from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.bfv import BfvParams, get_context
+from sunscreen_tpu_torch.errors import Unsupported
 from sunscreen_tpu_torch.math import mntt, ntt, pmntt, pntt
 
 
@@ -59,6 +60,34 @@ def test_plan_matches_reference(n):
     assert torch.equal(port.inv(fwd), _t(x))
     assert torch.equal(port.fwd_plain(_t(x)), fwd)
     assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+def test_plan_above_16384_matches_reference():
+    """At N = 32768, past the reference's "pallas" plans, the port's
+    "pallas_vpu" plan computes on the CPU as the reference's does: fwd,
+    inv and negacyclic_mul on one row of two 28-bit limbs, bit for bit.
+    "pallas" stays a named raise there, as the reference asserts
+    (pmntt.py:782), and so does "pallas_vpu" on CUDA above the largest N
+    the B16 kernel holds."""
+    n = 32768
+    mods = tuple(rprimes.gen_ntt_primes(28, 2, n))
+    ref = rpntt.PallasNttPlan(n, mods)
+    port = ntt.get_plan(n, mods, "cpu", "pallas_vpu")
+    rng = np.random.default_rng(n)
+    x, y = (_residues(rng, mods, (1,), n) for _ in range(2))
+    np.testing.assert_array_equal(port.fwd(_t(x)).numpy(),
+                                  np.asarray(ref.fwd(jnp.asarray(x))))
+    np.testing.assert_array_equal(port.inv(_t(x)).numpy(),
+                                  np.asarray(ref.inv(jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        port.negacyclic_mul(_t(x), _t(y)).numpy(),
+        np.asarray(ref.negacyclic_mul(jnp.asarray(x), jnp.asarray(y))))
+    with pytest.raises(Unsupported, match="pallas"):
+        ntt.get_plan(n, mods, "cpu", "pallas")
+    big = 2 * pntt.KERNEL_MAX_N
+    with pytest.raises(Unsupported, match="B16"):
+        pntt.PallasNttPlan(big, tuple(rprimes.gen_ntt_primes(28, 1, big)),
+                           "cuda")
 
 
 def test_kernel_order_matches_twin():

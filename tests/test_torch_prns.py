@@ -248,6 +248,37 @@ def test_wide_bases_match_unfused_reference():
                                   np.asarray(want).astype(np.int64))
 
 
+@pytest.mark.parametrize("params", [
+    BfvParams.insecure_u32(1024, limbs=17),
+    BfvParams.default_u32(32768)], ids=["35_limbs", "59_limbs"])
+def test_scale_past_32_limbs_matches_unfused_reference(params):
+    """B7's and B9's twins past 32 tensor-base limbs (the kernels'
+    <64, 32> and <64>): insecure_u32(1024, limbs=17)'s 35 and
+    default_u32(32768)'s 59, on random residues, a column whose digits
+    are all q_i - 1 and values whose t x / Q lies next to a
+    half-integer, against the reference's unfused rns.py scale and
+    centered conversion."""
+    port = get_context(params, "cpu", "pallas_vpu")
+    qs, aux = port.q_base.moduli, port.aux_base.moduli
+    mb = port.mul_base
+    assert mb.k == 2 * len(qs) + 1 > prns.MAX_CONVERT_LIMBS
+    rq, ra = _ref_base(qs), _ref_base(aux)
+    rsc = rrns.ScaleAndRound(_ref_base(mb.moduli), rq, ra, port.t)
+    x = _rand(mb.moduli, (2,), 256, np.random.default_rng(mb.k))
+    _half_integer_columns(x, port, 1)
+    for i, (q, p) in enumerate(zip(mb.moduli, mb.punctured)):
+        x[0, i, 0] = (q - 1) * (p % q) % q       # every y_i = q_i - 1
+    scaled = rsc.apply(jnp.asarray(x))
+    op = prns.fused_scaler(port.scale_mul_to_aux)
+    np.testing.assert_array_equal(op(_t(x)).numpy(),
+                                  np.asarray(scaled).astype(np.int64))
+    want = rrns.BaseConverter(ra, rq).convert(scaled, centered=True)
+    sc = port.fused_op("scale_convert")
+    assert (sc.ks, sc.km, sc.kd) == (mb.k, len(aux), len(qs))
+    np.testing.assert_array_equal(sc(_t(x)).numpy(),
+                                  np.asarray(want).astype(np.int64))
+
+
 def test_cpu_tensors_never_launch(ctxs):
     _, port = ctxs
     _build.reset_launches()
