@@ -8,7 +8,7 @@ Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc` (printing
 ptxas' registers, stack and spills of the kernels in ntt.cu, tensor3.cu,
 inv_ks.cu, ks_full.cu, inv_tensor3.cu, pntt.cu and rns.cu with each one's
 threads and shared memory a block, and the IMAD-class and total SASS
-instructions of rns_convert and scale_convert), holds each of the
+instructions of rns_convert, rns_scale and scale_convert), holds each of the
 twenty-one kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
 `BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
@@ -20,14 +20,14 @@ encoder's (t,) plan, B17 with broadcast operands; B18 and B19 under the
 moduli of tests/test_pallas_mod.py and a 61-bit prime, edge values and
 broadcast tables included, also against a big-int oracle; B1 and B3
 also at the TFHE step's [384, 4, 1024] and B5 at its [64, 6, 4, 1024],
-B4, B5, B6, B7, B12 and B13 at `default_u32(16384)`'s shapes at batch 64,
+B4, B5, B6, B7, B9, B12 and B13 at `default_u32(16384)`'s shapes at batch 64,
 B6, B7, B9, B10, B16 and B17 at the "pallas_vpu" multiply's shapes at
 `default_u32(32768)` (59 limbs in the product base), all timed with their
 bounds; B14 and B15 also timed beside the two kernels each replaces,
 B2 + B5 and, at the TFHE step, B1 + B5, on the same inputs), holds B1-B5,
 B12-B15 at every N from 256 to 16384 and B16 from 128 to 32768
 (`transform_checks`: edge residues, raw words up to 2^32 - 1, a 30-bit
-and three small moduli), then drives sixteen paths, each with the launch
+and three small moduli), then drives seventeen paths, each with the launch
 counts set to 0 just before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
@@ -67,21 +67,22 @@ counts set to 0 just before it and read just after:
     `SUNSCREEN_TPU_NTT=unrolled` and `=compact`, then path 13's
     `multiply_relin` under "unrolled";
 15. path 9 at `default_u32(32768)` (29 limbs in Q, 59 in the product
-    base), batch 64: B16 at N=32768 and B7 at 59 limbs.
+    base), batch 64: B16 at N=32768 and B7 at 59 limbs; 15b. path 15's
+    `multiply` under `SUNSCREEN_TPU_FUSE_SC=0` on its ciphertexts: B9
+    from 59 limbs into B, then B6 back to Q, in place of B7.
 
 Paths 1-3 and 7 pass a decrypt gate and a card-vs-CPU bit-exact check
 on one ciphertext; paths 4-6 and 10 must give path 1's output, 3b path
-3's and 8 path 7's, bit for bit; paths 9 and 15 pass a slot-wise gate on
-every row and a card-vs-CPU multiply; path 11 a slot-wise gate on every
-output; paths 13 and 14 the decrypt gate, a card-vs-CPU check and the
-rotation or golden gates. Paths 1-10 and 12-15 are then timed and
-profiled; a
-profile window, bounded on the device clock by two marker spins, whose
-kernel events differ from the launch counts is taken again, and the run
-fails if three retries differ too. Kernel times are device times: each
-timed run is queued behind a spin that outlasts the host's launches.
-Prints the card, each kernel's times
-and launch counts as one JSON line, the rates, and as the last line
+3's, 8 path 7's and 15b path 15's, bit for bit; paths 9 and 15 pass a
+slot-wise gate on every row and a card-vs-CPU multiply; path 11 a
+slot-wise gate on every output; paths 13 and 14 the decrypt gate, a
+card-vs-CPU check and the rotation or golden gates. Paths 1-10 and
+12-15b are then timed and profiled; a profile window, bounded on the
+device clock by two marker spins, whose kernel events differ from the
+launch counts is taken again, and the run fails if three retries differ
+too. Kernel times are device times: each timed run is queued behind a
+spin that outlasts the host's launches. Prints the card, each kernel's
+times and launch counts as one JSON line, the rates, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no GPU is visible or any check fails.
 
@@ -243,6 +244,15 @@ def _max_residues(x, q):
     return x
 
 
+def _scale_counts(scaler, cols: int) -> tuple[int, int]:
+    """B9's bytes and 32-bit multiplies on `cols` columns: each digit
+    normalized (2) and times a 128-bit fraction (8), each digit into each
+    limb sum (2), r into each limb (2)."""
+    return (cols * (scaler.ks + scaler.kd) * WORD,
+            cols * (10 * scaler.ks + 2 * scaler.ks * scaler.kd
+                    + 2 * scaler.kd))
+
+
 def _convert_case(conv, x) -> tuple:
     """B6 as the multiply's base extension (centered, the source limbs
     copied ahead) on x [..., ks, N]: (kernel, plain twin, args, bytes,
@@ -314,10 +324,7 @@ def kernel_cases(ctx, gen, batch: int) -> list[tuple]:
          (both,), src_rns, "sunscreen_tpu/math/prns.py:495",
          cols_md * (2 * k + 1) * WORD, cols_md * 2 * k),
         ("scale", scaler, scaler.call_plain, (x_sc,), src_rns,
-         "sunscreen_tpu/math/prns.py:264",
-         cols_sc * (scaler.ks + scaler.kd) * WORD,
-         cols_sc * (10 * scaler.ks + 2 * scaler.ks * scaler.kd
-                    + 2 * scaler.kd)),
+         "sunscreen_tpu/math/prns.py:264", *_scale_counts(scaler, cols_sc)),
         ("tensor3", t3, t3.call_plain, (a_hat, b_hat), src_pw,
          "sunscreen_tpu/math/prns.py:343",
          (2 + 2 + 3) * cols_pm * WORD, 8 * cols_pm),
@@ -731,11 +738,12 @@ def pbs_transform_cases(gen, batch: int) -> list[tuple]:
 
 
 def wide_cases(gen, batch: int) -> list[tuple]:
-    """B4, B5, B6, B7, B12 and B13 at path 3's shapes
+    """B4, B5, B6, B7, B9, B12 and B13 at path 3's shapes
     (`default_u32(16384)`, `batch` ciphertexts): digits [batch, 14, 15,
     16384] with 1024 threads a task, the extension [batch, 4, 14, 16384]
     -> [batch, 4, 29, 16384], the 29-limb tensor base [batch, 3, 29,
-    16384] -> [batch, 3, 14, 16384], B12's operands, the halves of
+    16384] -> [batch, 3, 14, 16384] (B7; B9 into the 15 limbs of B, as
+    under `SUNSCREEN_TPU_FUSE_SC=0`), B12's operands, the halves of
     [batch, 4, 29, 16384], and B4's and B13's [batch, 4, 29, 16384]
     (1024 threads and 192 KB a task), the all-(q_i - 1) digit columns and
     residues included (name, kernel, plain twin, args, bytes, 32-bit
@@ -745,6 +753,7 @@ def wide_cases(gen, batch: int) -> list[tuple]:
 
     ctx = get_context(BfvParams.default_u32(WIDE_N), DEV)
     sc = ctx.fused_op("scale_convert")
+    scaler = prns.fused_scaler(ctx.scale_mul_to_aux)
     conv = prns.fused_converter(ctx.conv_q_to_aux)
     x = _max_digits(_uniform(gen, (batch, 3, sc.ks, WIDE_N), ctx.mul_base.q),
                     ctx.mul_base)
@@ -760,6 +769,8 @@ def wide_cases(gen, batch: int) -> list[tuple]:
              cols * (sc.ks + sc.kd) * WORD,
              cols * (10 * sc.ks + 2 * sc.ks * sc.km + 10 * sc.km
                      + 2 * sc.km * sc.kd + 2 * sc.kd)),
+            ("scale", scaler, scaler.call_plain, (x,),
+             *_scale_counts(scaler, cols)),
             ("inv_tensor3", pm.inv_tensor3, pm.inv_tensor3_plain,
              (ab[:, :2], ab[:, 2:]),
              (2 + 2 + 3) * batch * pm.k * WIDE_N * WORD,
@@ -806,9 +817,7 @@ def vpu_wide_cases(gen, batch: int) -> list[tuple]:
              cols * (10 * sc.ks + 2 * sc.ks * sc.km + 10 * sc.km
                      + 2 * sc.km * sc.kd + 2 * sc.kd)),
             ("scale", scaler, scaler.call_plain, (x_sc,),
-             cols * (scaler.ks + scaler.kd) * WORD,
-             cols * (10 * scaler.ks + 2 * scaler.ks * scaler.kd
-                     + 2 * scaler.kd)),
+             *_scale_counts(scaler, cols)),
             ("pntt_pmul", pq.pointwise_mul, pq.pointwise_mul_plain, (ct, pt),
              (2 + 1 + 2) * batch * qb.k * n * WORD, 2 * 2 * batch * qb.k * n,
              lambda x, y: x * y % pq.q)]
@@ -833,7 +842,7 @@ def check_kernels(ctx, gen) -> list[dict]:
     PyTorch expression computes the same function, its time; B14 and B15
     also against the pair of kernels each replaces, on the same inputs,
     bit for bit and timed; B1 and B3 also at the PBS step's shape, B5
-    there too, B4-B7, B12 and B13 at path 3's shapes, and B6, B7, B9,
+    there too, B4-B7, B9, B12 and B13 at path 3's shapes, and B6, B7, B9,
     B10, B16 and B17 at path 15's."""
     rows = []
     from sunscreen_tpu_torch.bfv import BfvParams
@@ -1093,7 +1102,8 @@ def sass_counts(so: str, kernel: str) -> dict[str, tuple[int, int]]:
     return out
 
 
-SASS_KERNELS = ("rns_convert_kernel", "scale_convert_kernel")
+SASS_KERNELS = ("rns_convert_kernel", "rns_scale_kernel",
+                "scale_convert_kernel")
 
 
 def print_sass(so: str, label: str) -> None:
@@ -1573,7 +1583,8 @@ def vpu_path(params, smi: str):
     and `multiply_plain`, both decrypted and decoded against numpy
     slot-wise products mod t; `multiply` on the card against the CPU, bit
     for bit; `relinearize` must raise the port's error. Then both rates,
-    launch counts and profiles."""
+    launch counts and profiles. Returns (the path's launches, those of one
+    `multiply`) and the context, ciphertexts and `multiply` product."""
     import torch
     from sunscreen_tpu_torch import _build
     from sunscreen_tpu_torch.bfv import BatchEncoder, get_context, keys, ops
@@ -1650,6 +1661,57 @@ def vpu_path(params, smi: str):
               f"multiply_plain: {json.dumps(per_mp)}", flush=True)
         profile_breakdown(f"{label} multiply", mul_step)
         profile_breakdown(f"{label} multiply_plain", mp_step)
+    return (launches, per_op), {"ctx": ctx, "cta": cta, "ctb": ctb,
+                                "prod": prod}
+
+
+VPU_SC = {**VPU, "SUNSCREEN_TPU_FUSE_SC": "0"}
+
+
+def vpu_sc_path(label, state, smi: str):
+    """Path 15b: path 15's `multiply` on its ciphertexts under
+    SUNSCREEN_TPU_FUSE_SC=0, a setting of the reference at any N: the
+    scale back to Q runs B9 into B, then the centered conversion B -> Q
+    through B6, in place of B7. Its products must be path 15's, bit for
+    bit, as both routes compute the same exact function; then the rate,
+    launch counts (B6 twice and B9 once an op, no B7) and profile."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.bfv import ops
+
+    ctx, cta, ctb = state["ctx"], state["cta"], state["ctb"]
+    with _gates(VPU_SC):
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        if not torch.equal(ops.multiply(ctx, cta, ctb), state["prod"]):
+            raise SystemExit(f"{label}: multiply differs from path 15's "
+                             f"product")
+        print(f"{label} ({json.dumps(VPU_SC)}): {BATCH} products == path "
+              f"15's multiply, bit for bit", flush=True)
+
+        def step():
+            ops.multiply(ctx, cta, ctb)
+
+        rate = _rate(step)
+        per_op = _per_op(step)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        print(f"{label}: {rate:.1f} ops/s (N={ctx.n}, batch {BATCH}, median "
+              f"of {REPS} x {ITERS}) on {smi}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        _path_counts(label, launches,
+                     ("pntt_fwd", "pntt_inv", "convert", "tensor3", "scale"),
+                     U32_PLAN + ("scale_convert", "pntt_pmul",
+                                 "fwd_tensor3_full", "inv_tensor3",
+                                 "mod_down", "ks_inner") + MEGAKERNELS)
+        if (per_op["convert"], per_op["scale"]) != (2, 1):
+            raise SystemExit(f"{label}: an op launched B6 "
+                             f"{per_op['convert']} and B9 {per_op['scale']} "
+                             f"times, not 2 and 1")
+        print(f"launches per {label} multiply: {json.dumps(per_op)}",
+              flush=True)
+        profile_breakdown(label, step)
     return launches, per_op
 
 
@@ -2030,7 +2092,7 @@ def main() -> int:
     paths["pbs_ksfull"] = (launches, per_pbs)
 
     # --- path 9: the pallas_vpu NTT plan (B16, B17) ----------------------
-    paths["vpu"] = vpu_path(params, smi)
+    paths["vpu"], _ = vpu_path(params, smi)
 
     # --- path 10: path 1's multiply under FUSE_TFULL=1 (B13) -------------
     paths["tfull"] = gated_path("tfull", TFULL, ctx, inputs, prod, smi,
@@ -2047,7 +2109,12 @@ def main() -> int:
 
     # --- path 15: path 9 at default_u32(32768) (B16 at N=32768, B7 at 59
     # limbs) ---------------------------------------------------------------
-    paths[f"vpu@{VPU_N}"] = vpu_path(BfvParams.default_u32(VPU_N), smi)
+    paths[f"vpu@{VPU_N}"], vpu15 = vpu_path(BfvParams.default_u32(VPU_N),
+                                            smi)
+    # --- path 15b: path 15's multiply under FUSE_SC=0 (B9 from 59 limbs,
+    # then B6, in place of B7) -----------------------------------------------
+    paths[f"vpu_sc@{VPU_N}"] = vpu_sc_path(f"vpu_sc@{VPU_N}", vpu15, smi)
+    del vpu15
 
     for row in table:
         name = row["name"]
@@ -2104,8 +2171,8 @@ def compare(against: str) -> int:
     this, against, each in its own process on the same card, keeps each
     log under chiprun_out/compare/, and prints every number both runs
     report as the two readings of each side, their means and this / against,
-    and the SASS counts of each side's rns_convert and scale_convert
-    kernels. Fails if any run fails."""
+    and the SASS counts of each side's rns_convert, rns_scale and
+    scale_convert kernels. Fails if any run fails."""
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"against": os.path.abspath(against), "this": here}
     logs = os.path.join(os.getcwd(), "chiprun_out", "compare")

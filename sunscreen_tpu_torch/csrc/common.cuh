@@ -1,9 +1,8 @@
 // Shared device code of the u32-engine kernels (ntt.cu, tensor3.cu,
 // inv_ks.cu, inv_tensor3.cu, ks_full.cu, pntt.cu, rns.cu, pointwise.cu):
 // modular helpers, the 32-bit reduction of u64 words (inv_ks.cu,
-// ks_full.cu, rns.cu's rns_convert and scale_convert), the per-modulus
-// tables and the exact 128-bit fixed-point sum of rns_scale. The
-// transforms themselves are transform.cuh's.
+// ks_full.cu, rns.cu's rns_convert, rns_scale and scale_convert) and the
+// per-modulus tables. The transforms themselves are transform.cuh's.
 //
 // Tensors cross the C interface as int64 residues (values < 2^32). Per limb
 // the plan uploads:
@@ -100,9 +99,9 @@ __device__ __forceinline__ u32 shoup32(u32 w, u32 q, u64 m) {
 }
 
 // The constants of a 32-bit reduction of any u64 word mod q < 2^30 (inv_ks.cu,
-// ks_full.cu, rns.cu's rns_convert and scale_convert): m32 = floor(2^32 / q),
-// c = 2^32 mod q and its Shoup ratio. 16 bytes, so a row of a table in shared
-// memory is one load.
+// ks_full.cu, rns.cu's rns_convert, rns_scale and scale_convert):
+// m32 = floor(2^32 / q), c = 2^32 mod q and its Shoup ratio. 16 bytes, so a
+// row of a table in shared memory is one load.
 struct __align__(16) Red32 {
   u32 q, m32, c, c_sh;
 };
@@ -124,52 +123,4 @@ __device__ __forceinline__ u32 red2q(u64 x, const Red32& r) {
 
 __device__ __forceinline__ u32 red(u64 x, const Red32& r) {
   return csub(red2q(x, r), r.q);
-}
-
-// Exact running sum of y * f / 2^128 over terms with y < 2^32 and f a
-// 128-bit fraction (f_hi, f_lo): the 192-bit total is (w2, w1, w0), w2 its
-// integer part. Every carry out of the fractional words reaches w2, as in
-// the reference's six 32-bit column sums (math/rns.py::fixed_point_dot).
-struct Fixed192 {
-  u64 w0 = 0, w1 = 0, w2 = 0;
-};
-
-__device__ __forceinline__ void fixed_add(Fixed192& a, u64 y, u64 f_hi,
-                                          u64 f_lo) {
-  const u64 l0 = y * f_lo, h0 = __umul64hi(y, f_lo);
-  const u64 l1 = y * f_hi, h1 = __umul64hi(y, f_hi);
-  a.w0 += l0;
-  const u64 c0 = a.w0 < l0;
-  u64 mid = h0 + l1;
-  u64 c1 = mid < l1;
-  mid += c0;
-  c1 += mid < c0;
-  a.w1 += mid;
-  c1 += a.w1 < mid;
-  a.w2 += h1 + c1;
-}
-
-// Integer part of the total, plus 1/2 first when rounding. The total of k
-// terms is below k * 2^160, so no bit lies above w2.
-__device__ __forceinline__ u64 fixed_int(Fixed192 a, bool add_half) {
-  if (add_half) a.w2 += a.w1 + (1ull << 63) < a.w1;
-  return a.w2;
-}
-
-// sum_i y[i] * w[i * stride] mod q for y, w < 2^30 and i < k <= K. The raw
-// u64 sum is folded mod q every 16 terms (q + 16 (2^30 - 1)^2 < 2^64), so it
-// is exact for any k. K is a compile-time bound so that y stays in registers.
-template <int K>
-__device__ __forceinline__ u32 dot_mod(const u32 (&y)[K], int k,
-                                       const long long* __restrict__ w,
-                                       int stride, u32 q, u64 m) {
-  u64 acc = 0;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    if (i < k) {
-      acc += (u64)y[i] * (u32)__ldg(w + i * stride);
-      if ((i & 15) == 15) acc = reduce64(acc, q, m);
-    }
-  }
-  return reduce64(acc, q, m);
 }

@@ -16,38 +16,34 @@
 //
 // Design: one thread per (row, coefficient). A thread reads its column's
 // source limbs once (neighbouring threads on neighbouring coefficients, so
-// every load and store is coalesced), keeps the normalized digits in
-// registers, and writes each output limb once.
+// every load and store is coalesced) and writes each output limb once.
 //
-// rns_scale and mod_down: native 64-bit products (__umul64hi) take the
-// place of the TPU's 16-bit-half arithmetic: the fixed-point sums are exact
-// in three u64 words (Fixed192: k terms below 2^160 sum below 2^192 for any
-// k < 2^32), and the limb contractions fold their raw u64 sums every 16
-// terms (dot_mod), so both are exact for any base up to MAXK limbs. The
-// tables are a few KB, read through the read-only cache; all threads of a
-// warp read the same entry. rns_scale reads its scale step from
-// scale_digits and scale_limb.
+// mod_down: native 64-bit Barrett steps (reduce64) on tables read through
+// the read-only cache; all threads of a warp read the same entry.
 //
-// rns_convert and scale_convert were held by their instruction count, not
-// their bytes, in that design (64-bit Barrett steps, each a 64 x 64-bit
-// product emulated in 32-bit multiply-adds, and a table load a term). They
-// stage their tables once a block in shared memory as u32 words and work
-// in 32-bit multiplies: Shoup products for the normalizations (the ratios
-// derived from floor(2^64 / q) at staging), 32 x 32 -> 64-bit multiply-adds
-// for the limb sums, reduced once by 32-bit steps (red2q in common.cuh),
-// and four multiply-adds a term for the exact 128-bit fixed-point sums
-// (Frac128), as the reference's 32-bit column sums.
+// With mod_down's arithmetic (64-bit Barrett steps, each a 64 x 64-bit
+// product emulated in 32-bit multiply-adds, and a table load a term),
+// rns_convert, rns_scale and scale_convert were held by their instruction
+// count, not their bytes. They stage their tables once a block in shared memory as u32
+// words and work in 32-bit multiplies: Shoup products for the
+// normalizations (the ratios derived from floor(2^64 / q) at staging),
+// 32 x 32 -> 64-bit multiply-adds for the limb sums, reduced once by
+// 32-bit steps (red2q in common.cuh), and four multiply-adds a term for
+// the exact 128-bit fixed-point sums (Frac128), as the reference's 32-bit
+// column sums. rns_scale runs its sums digit-major, every limb sum at
+// once, reading omega four words a load.
 //
 // Tables are int64, one row of 8 per modulus (load_mod in common.cuh): q,
 // floor(2^64 / q), then the op's constants (below). Residues cross the
 // interface as int64 values < 2^30.
 //
-// Exactness of scale_convert (and rns_convert) at any base size up to MAXK
-// (64) limbs: a Frac128 word holds below 2^32 after a carry, and the four
-// terms added before the next are each below 2^30 2^32, so no word passes
-// 2^64 whatever the count; the integer part, r or alpha, is below
-// k 2^30 <= 2^36. A limb sum starts from below 2^36 and adds at most 15
-// products below 2^60 before it folds (fold below), 2^36 + 15 2^60 < 2^64.
+// Exactness of rns_scale, scale_convert and rns_convert at any base size
+// up to MAXK (64) limbs: a Frac128 word holds below 2^32 after a carry, and
+// the four terms added before the next are each below 2^30 2^32, so no word
+// passes 2^64 whatever the count; the integer part, r or alpha, is below
+// k 2^30 <= 2^36. A limb sum holds a value below 2^36 (its start, or the r
+// that rns_scale adds at its end) and at most 15 products below 2^60 past
+// its last fold (fold below), 2^36 + 15 2^60 < 2^64.
 // BfvParams.default_u32(32768) reaches 59 limbs in the product base.
 //
 // Bound on the H100 at the main-path shapes (N = 8192, batch 64,
@@ -59,7 +55,8 @@
 // them) take under 0.06 ms at 16.7 T/s, so all four are bound by bytes.
 // At default_u32(32768)'s multiply, scale_convert [64,3,59,32768] ->
 // [64,3,29,32768] moves 4.4 GB (1.32 ms) but takes 39 G multiplies
-// (2.34 ms): bound by operations.
+// (2.34 ms), rns_scale into the 30 limbs of B 26 G (1.57 ms): bound by
+// operations.
 
 #include "common.cuh"
 
@@ -116,9 +113,10 @@ struct Frac128 {
   }
 };
 
-// Whether a limb sum of up to K terms below (2^30)^2, started from a value
-// below K 2^30 (r, alpha (d_l - B mod d_l)), folds after term i: never for
-// K <= 16 (K 2^30 + 16 (2^30 - 1)^2 < 2^64), else every 15 terms
+// Whether a limb sum of up to K terms below (2^30)^2, plus a value below
+// K 2^30 (r, alpha (d_l - B mod d_l): its start, or rns_scale's r at its
+// end), folds after term i: never for K <= 16
+// (K 2^30 + 16 (2^30 - 1)^2 < 2^64), else every 15 terms
 // (K 2^30 + 15 (2^30 - 1)^2 < 2^64 for K <= 64).
 template <int K>
 __device__ __forceinline__ constexpr bool fold(int i) {
@@ -230,53 +228,151 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The scale step of rns_scale and scale_convert for the column at xc (limbs
-// n apart) in the tensor base A = Q u B: y_i = x_i (A/q_i)^-1 mod q_i into
-// y, and r = floor(sum_i y_i phi_i + 1/2) as returned, r < ks 2^30.
-//   a [ks]: q_i, m, (A/q_i)^-1 mod q_i, phi_i = frac(t (A/q_i) / Q) (hi, lo)
+// rns_scale's tables, staged once a block from the int64 tables into
+// shared memory as u32 words (1.1 KB for <16>, 3.3 KB for <32>, 10.5 KB
+// for <64>), the entries zero past ks and kd: all threads of a warp read
+// the same word, a broadcast.
 template <int K>
-__device__ __forceinline__ u64 scale_digits(const long long* xc, size_t n,
-                                            const long long* a, int ks,
-                                            u32 (&y)[K]) {
-  Fixed192 fr;
+struct ScaleTables {
+  Words a[K];           // q_i, (A/q_i)^-1 mod q_i, its Shoup ratio
+  Words af[K];          // phi_i, four 32-bit words, lowest first
+  Words om[K][K / 8];   // omega_ij, four limbs a word: om[i][g] = j 4g..4g+3
+  Red32 b[K / 2];       // b_j and its reduction constants
+};
+
+// v[u] = x[row][c G + u][col] as u32 for c G + u < ks, 0 past ks or past
+// the last row.
+template <int G>
+__device__ __forceinline__ void load_digits(u32 (&v)[G],
+                                            const long long* __restrict__ x,
+                                            int row, int rows, int ks, int n,
+                                            int col, int c) {
 #pragma unroll
-  for (int i = 0; i < K; ++i) {
-    if (i < ks) {
-      const Mod s = load_mod(a, i);
-      y[i] = reduce64((u64)xc[i * n] * tab_at(a, i, 2), s.q, s.m);
-      fixed_add(fr, y[i], tab_at(a, i, 3), tab_at(a, i, 4));
+  for (int u = 0; u < G; ++u) {
+    const int i = c * G + u;
+    v[u] = row < rows && i < ks ? (u32)x[((size_t)row * ks + i) * n + col]
+                                : 0u;
+  }
+}
+
+// x [rows, ks, N] in the tensor base A -> out [rows, kd, N] =
+// round(t x / Q) mod each b_j of a base B dividing A / Q (ks <= K,
+// kd <= K / 2). With y_i = x_i (A/q_i)^-1 mod q_i and
+// r = floor(sum_i y_i phi_i + 1/2): out_j = sum_i y_i omega_ij + r mod b_j.
+// One thread a column in the rows blockIdx.y strides over, after the
+// block has staged the tables (the Shoup ratios derived from
+// floor(2^64 / q)). Digit-major: each digit is normalized by one 32-bit
+// Shoup product, added into r's exact 128-bit fixed-point sum (Frac128)
+// and into all K / 2 limb sums at once, 32 x 32 -> 64-bit multiply-adds
+// reading omega's row four limbs a 16-byte load; the sums fold every 15
+// digits (fold) and take r before their one reduction. The digits are
+// loaded G at a time, each group while the one before is scaled, the
+// next row's first group while the last is.
+//   a [ks]: q_i, m, (A/q_i)^-1 mod q_i, phi_i = frac(t (A/q_i) / Q) (hi, lo)
+//   d [kd]: b_j, m; omega [ks][kd]
+template <int K>
+__device__ __forceinline__ void scale_rows(const long long* __restrict__ x,
+                                           long long* __restrict__ out,
+                                           const long long* __restrict__ a,
+                                           const long long* __restrict__ d,
+                                           const long long* __restrict__ omega,
+                                           int rows, int ks, int kd, int n) {
+  constexpr int KD = K / 2, G = K > 32 ? 8 : 16;
+  __shared__ ScaleTables<K> tb;
+  for (int e = threadIdx.x; e < K * KD / 4; e += blockDim.x) {
+    const int i = e / (KD / 4), j = 4 * (e % (KD / 4));
+    u32 w[4];
+#pragma unroll
+    for (int l = 0; l < 4; ++l)
+      w[l] = i < ks && j + l < kd ? (u32)omega[i * kd + j + l] : 0u;
+    tb.om[i][e % (KD / 4)] = {w[0], w[1], w[2], w[3]};
+  }
+  for (int e = threadIdx.x; e < K + KD; e += blockDim.x) {
+    if (e < K) {
+      const long long* r = a + 8 * e;
+      tb.a[e] = e < ks ? shoup_row(r) : Words{1, 0, 0, 0};
+      tb.af[e] = e < ks ? words128((u64)r[3], (u64)r[4]) : Words{0, 0, 0, 0};
+    } else {
+      const int j = e - K;
+      tb.b[j] = j < kd ? red32((u32)d[8 * j], (u64)d[8 * j + 1])
+                       : Red32{1, 0, 0, 0};
     }
   }
-  return fixed_int(fr, true);
+  __syncthreads();
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  u32 v[G];  // the next group of the column's digits
+  load_digits<G>(v, x, blockIdx.y, rows, ks, n, col, 0);
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    // the table words are read anew each row: held across rows in
+    // registers, they spilled
+    asm volatile("" ::: "memory");
+    u64 acc[KD] = {};
+    Frac128 fr;
+#pragma unroll
+    for (int c = 0; c < K / G; ++c) {
+      u32 y[G];
+#pragma unroll
+      for (int u = 0; u < G; ++u) y[u] = v[u];
+      if (c + 1 < K / G)
+        load_digits<G>(v, x, row, rows, ks, n, col, c + 1);
+      else
+        load_digits<G>(v, x, row + gridDim.y, rows, ks, n, col, 0);
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int i = c * G + u;
+        if (i < ks) {
+          const Words ai = tb.a[i];
+          const u32 yi = mul_shoup(y[u], ai.w1, ai.w2, ai.w0);
+          fr.add(yi, tb.af[i]);
+#pragma unroll
+          for (int g = 0; g < KD / 4; ++g) {
+            const Words w = tb.om[i][g];
+            acc[4 * g] += (u64)yi * w.w0;
+            acc[4 * g + 1] += (u64)yi * w.w1;
+            acc[4 * g + 2] += (u64)yi * w.w2;
+            acc[4 * g + 3] += (u64)yi * w.w3;
+          }
+        }
+        if ((i & 3) == 3) fr.carry();
+        if (fold<K>(i) && i + 1 < ks) {
+#pragma unroll
+          for (int j = 0; j < KD; ++j) acc[j] = red2q(acc[j], tb.b[j]);
+        }
+      }
+    }
+    const u64 r = fr.round();
+    long long* oc = out + (size_t)row * kd * n + col;
+#pragma unroll
+    for (int j = 0; j < KD; ++j)
+      if (j < kd) oc[(size_t)j * n] = red(acc[j] + r, tb.b[j]);
+  }
 }
 
-// round(t x / Q) mod b_j = sum_i y_i omega_ij + r mod b_j.
+// ptxas takes 79 registers at <16>, 112 at <32>; asked for two blocks an
+// SM, it took more and ran slower on the H100.
 template <int K>
-__device__ __forceinline__ u32 scale_limb(const u32 (&y)[K], int ks, u64 r,
-                                          const long long* omega, int j,
-                                          int km, Mod bj) {
-  return add_q(dot_mod<K>(y, ks, omega + j, km, bj.q, bj.m),
-               reduce64(r, bj.q, bj.m), bj.q);
+__global__ void __launch_bounds__(256)
+    rns_scale_kernel(const long long* __restrict__ x,
+                     long long* __restrict__ out,
+                     const long long* __restrict__ a,
+                     const long long* __restrict__ d,
+                     const long long* __restrict__ omega, int rows, int ks,
+                     int kd, int n) {
+  scale_rows<K>(x, out, a, d, omega, rows, ks, kd, n);
 }
 
-// x [rows, ks, N] in the tensor base -> out [rows, kd, N] = round(t x / Q)
-// mod each d_j of a base D dividing A / Q.
-//   a [ks] as for scale_digits; d [kd]: d_j, m; omega [ks][kd]
-template <int K>
-__global__ void rns_scale_kernel(const long long* __restrict__ x,
-                                 long long* __restrict__ out,
-                                 const long long* __restrict__ a,
-                                 const long long* __restrict__ d,
-                                 const long long* __restrict__ omega, int rows,
-                                 int ks, int kd, int n) {
-  const size_t id = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (id >= (size_t)rows * n) return;
-  const size_t row = id / n, col = id % n;
-  u32 y[K];
-  const u64 r = scale_digits<K>(x + row * ks * n + col, n, a, ks, y);
-  long long* oc = out + row * kd * n + col;
-  for (int j = 0; j < kd; ++j)
-    oc[(size_t)j * n] = scale_limb<K>(y, ks, r, omega, j, kd, load_mod(d, j));
+// <64>: at most 128 registers, two blocks an SM (a few hundred bytes of
+// spills); one block at 166 registers ran slower on the H100.
+template <>
+__global__ void __launch_bounds__(256, 2)
+    rns_scale_kernel<MAXK>(const long long* __restrict__ x,
+                           long long* __restrict__ out,
+                           const long long* __restrict__ a,
+                           const long long* __restrict__ d,
+                           const long long* __restrict__ omega,
+                           int rows, int ks, int kd, int n) {
+  scale_rows<MAXK>(x, out, a, d, omega, rows, ks, kd, n);
 }
 
 // scale_convert's tables, staged once a block from the int64 tables into
@@ -441,6 +537,9 @@ __global__ void mod_down_kernel(const long long* __restrict__ xq,
 
 static const int THREADS = 256;
 static const int CONVERT_ROWS = 4;  // rows a rns_convert thread converts
+// rows a rns_scale thread scales up to 32 limbs (one at <64>: the H100 ran
+// <64> fastest so, <16> and <32> at four)
+static const int SCALE_ROWS = 4;
 
 static unsigned blocks_for(int rows, int n) {
   return (unsigned)(((size_t)rows * n + THREADS - 1) / THREADS);
@@ -468,11 +567,16 @@ extern "C" int rns_convert(const void* x, void* out, const void* src,
 extern "C" int rns_scale(const void* x, void* out, const void* a,
                          const void* d, const void* omega, int rows, int ks,
                          int kd, int n, void* stream) {
-  if (ks > MAXK) return (int)cudaErrorInvalidValue;
-  auto kern = ks <= 16   ? &rns_scale_kernel<16>
-              : ks <= 32 ? &rns_scale_kernel<32>
-                         : &rns_scale_kernel<MAXK>;
-  kern<<<blocks_for(rows, n), THREADS, 0, (cudaStream_t)stream>>>(
+  if (ks > MAXK || 2 * kd > MAXK) return (int)cudaErrorInvalidValue;
+  const int k = ks > 2 * kd ? ks : 2 * kd;
+  auto kern = k <= 16   ? &rns_scale_kernel<16>
+              : k <= 32 ? &rns_scale_kernel<32>
+                        : &rns_scale_kernel<MAXK>;
+  if (rows == 0) return 0;
+  const int per = k > 32 ? 1 : SCALE_ROWS;
+  const int gy = (rows + per - 1) / per;
+  const dim3 grid((n + THREADS - 1) / THREADS, gy < 65535 ? gy : 65535);
+  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const long long*)x, (long long*)out, (const long long*)a,
       (const long long*)d, (const long long*)omega, rows, ks, kd, n);
   return (int)cudaGetLastError();

@@ -38,7 +38,7 @@ from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math.modular import U32_MAX_MODULUS_BITS
 
 MAX_LIMBS = 64       # the scale kernels' source base (csrc/rns.cu MAXK)
-MAX_CONVERT_LIMBS = 32   # rns_convert's bases, B of scale_convert
+MAX_CONVERT_LIMBS = 32   # rns_convert's bases, B of both scale kernels
 MAX_KS_DIGITS = 32   # FusedKsInner digits (its sums fold every 16 terms)
 
 
@@ -145,6 +145,7 @@ class FusedRnsOp:
             _limbs_ok(MAX_CONVERT_LIMBS, self.ks, self.kd)
         else:
             _limbs_ok(MAX_LIMBS, self.ks)
+            _limbs_ok(MAX_CONVERT_LIMBS, self.kd)
         x = x.contiguous()
         ko = self.ks + self.kd if include_src else self.kd
         out = torch.empty(*x.shape[:-2], ko, n, dtype=torch.int64,

@@ -154,12 +154,22 @@ def test_rns_kernels_match_twins(host, limbs):
             rows, sc.ks, sc.km, sc.kd, n, None) == 0
         np.testing.assert_array_equal(out, sc.call_plain(xt).numpy())
 
-    scaler = prns.fused_scaler(ctx.scale_mul_to_aux)
-    out = np.empty((2, 3, scaler.kd, n), dtype=np.int64)
-    assert lib.rns_scale(_p(x), _p(out), _p(_np(scaler.src_tab)),
-                         _p(_np(scaler.dst_tab)), _p(_np(scaler.mat)), rows,
-                         scaler.ks, scaler.kd, n, None) == 0
-    np.testing.assert_array_equal(out, scaler.call_plain(xt).numpy())
+    # rns_scale (B9) on the same columns, with every omega_ij at b_j - 1
+    # too, and on 7 rows: two blocks of rows (4 a block), 4 and 3 each
+    x7 = np.ascontiguousarray(
+        _tensor_input(ctx, rng, rows=3).reshape(9, -1, n)[:7])
+    for op in (ctx.scale_mul_to_aux, top):
+        scaler = prns.FusedRnsOp(op, "scale")
+        assert (scaler.ks, scaler.kd) == (2 * limbs + 1, limbs + 1)
+        for xs in (x, x7):
+            out = np.empty((*xs.shape[:-2], scaler.kd, n), dtype=np.int64)
+            assert lib.rns_scale(
+                _p(xs), _p(out), _p(_np(scaler.src_tab)),
+                _p(_np(scaler.dst_tab)), _p(_np(scaler.mat)),
+                out.size // (scaler.kd * n), scaler.ks, scaler.kd, n,
+                None) == 0
+            want = scaler.call_plain(torch.from_numpy(xs))
+            np.testing.assert_array_equal(out, want.numpy())
 
     # rns_convert (B6): q -> aux, aux -> q and, through the <32>
     # instantiation (ks > 16 at 14 limbs), the tensor base -> q with every
@@ -199,9 +209,9 @@ def test_rns_kernels_match_twins(host, limbs):
 
 def test_entry_points_refuse_unsupported_shapes(host):
     """inv_ks runs no kernel outside 256 <= N <= 16384; scale_convert and
-    rns_scale none above 64 limbs in the tensor base (scale_convert none
-    above 32 in B), rns_convert none above 32 limbs a base: the C entry
-    returns cudaErrorInvalidValue."""
+    rns_scale none above 64 limbs in the tensor base nor above 32 in B,
+    rns_convert none above 32 limbs a base: the C entry returns
+    cudaErrorInvalidValue."""
     x = np.zeros(1 << 15, dtype=np.int64)
     for logn in (7, 15):
         assert host["inv_ks"].inv_ks(_p(x), _p(x), _p(x), _p(x), _p(x),
@@ -210,8 +220,9 @@ def test_entry_points_refuse_unsupported_shapes(host):
         assert host["rns"].scale_convert(
             _p(x), _p(x), _p(x), _p(x), _p(x), _p(x), _p(x), 1, ks, km, 7,
             256, None) == 1
-    assert host["rns"].rns_scale(_p(x), _p(x), _p(x), _p(x), _p(x), 1, 65,
-                                 8, 256, None) == 1
+    for ks, kd in ((65, 8), (40, 33)):
+        assert host["rns"].rns_scale(_p(x), _p(x), _p(x), _p(x), _p(x), 1,
+                                     ks, kd, 256, None) == 1
     for ks, kd in ((33, 8), (8, 33)):
         assert host["rns"].rns_convert(_p(x), _p(x), _p(x), _p(x), _p(x), 1,
                                        ks, kd, 256, 0, 0, None) == 1
