@@ -20,15 +20,17 @@ encoder's (t,) plan, B17 with broadcast operands; B18 and B19 under the
 moduli of tests/test_pallas_mod.py and a 61-bit prime, edge values and
 broadcast tables included, also against a big-int oracle; B1 and B3
 also at the TFHE step's [384, 4, 1024] and B5 at its [64, 6, 4, 1024],
+B1 at the 16-digit step's [1024, 4, 1024] and B5 and B15 on its digits
+[64, 16, 4, 1024],
 B4, B5, B6, B7, B9, B12 and B13 at `default_u32(16384)`'s shapes at batch 64,
 B6, B7, B9, B10, B16 and B17 at the "pallas_vpu" multiply's shapes at
 `default_u32(32768)` (59 limbs in the product base), all timed with their
 bounds; B14 and B15 also timed beside the two kernels each replaces,
-B2 + B5 and, at the TFHE step, B1 + B5, on the same inputs), holds B1-B5,
+B2 + B5 and, at both TFHE steps, B1 + B5, on the same inputs), holds B1-B5,
 B12-B15 at every N from 256 to 16384 and B16 from 128 to 32768
 (`transform_checks`: edge residues, raw words up to 2^32 - 1, a 30-bit
-and three small moduli), then drives seventeen paths, each with the launch
-counts set to 0 just before it and read just after:
+and three small moduli), then drives twenty-two paths, each with the
+launch counts set to 0 just before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
    batch 64, under the default fusion settings;
@@ -69,15 +71,27 @@ counts set to 0 just before it and read just after:
 15. path 9 at `default_u32(32768)` (29 limbs in Q, 59 in the product
     base), batch 64: B16 at N=32768 and B7 at 59 limbs; 15b. path 15's
     `multiply` under `SUNSCREEN_TPU_FUSE_SC=0` on its ciphertexts: B9
-    from 59 limbs into B, then B6 back to Q, in place of B7.
+    from 59 limbs into B, then B6 back to Q, in place of B7;
+16. the multifunctional PBS of three functions on path 7's keys and
+    ciphertexts (one blind rotation, three outputs a row);
+17. keygen at radix (8, 4) (16 digits a blind-rotation step) and the
+    bivariate PBS a AND b of 64 pairs;
+18. circuit bootstrapping of 64 bits on path 17's keys (out radix
+    (2, 8)); 18b. one batch of it under `SUNSCREEN_TPU_TFHE_KSFULL=1`
+    (B15 at 16 digits);
+19. the rest of TFHE at batch 8 on path 17's keys: the generalized PBS,
+    GLEV encryption and CMUX, the scheme switch, the GLWE and public
+    functional keyswitches, LWE and RLWE public-key encryption.
 
-Paths 1-3 and 7 pass a decrypt gate and a card-vs-CPU bit-exact check
-on one ciphertext; paths 4-6 and 10 must give path 1's output, 3b path
-3's, 8 path 7's and 15b path 15's, bit for bit; paths 9 and 15 pass a
-slot-wise gate on every row and a card-vs-CPU multiply; path 11 a
-slot-wise gate on every output; paths 13 and 14 the decrypt gate, a
-card-vs-CPU check and the rotation or golden gates. Paths 1-10 and
-12-15b are then timed and profiled; a profile window, bounded on the
+Paths 1-3, 7 and 16-18 pass a decrypt (18: CMUX) gate and a card-vs-CPU
+bit-exact check on one ciphertext; paths 4-6 and 10 must give path 1's
+output, 3b path 3's, 8 path 7's, 15b path 15's and 18b path 18's, bit
+for bit; paths 9 and 15 pass a slot-wise gate on every row and a
+card-vs-CPU multiply; path 11 a slot-wise gate on every output; paths
+13 and 14 the decrypt gate, a card-vs-CPU check and the rotation or
+golden gates; path 19 a decrypt gate per op and a card-vs-CPU check per
+deterministic op. Paths 1-10, 12-15b and 16-18 are then timed and
+profiled; a profile window, bounded on the
 device clock by two marker spins, whose kernel events differ from the
 launch counts is taken again, and the run fails if three retries differ
 too. Kernel times are device times: each timed run is queued behind a
@@ -478,12 +492,12 @@ def _pbs_plan():
                                    device=DEV).plan
 
 
-def pbs_kernel_case(gen, batch: int) -> tuple:
-    """B15 at the blind-rotation step of path 7: digit residues
-    [batch, 6, 4, 1024] against one NTT bootstrap-key row [6, 4, 1024]
-    per GLWE component."""
+def pbs_kernel_case(gen, batch: int, kdig: int = 6) -> tuple:
+    """B15 at the blind-rotation step of path 7 (kdig 6) or of paths 17-19
+    (16): digit residues [batch, kdig, 4, 1024] against one NTT
+    bootstrap-key row [kdig, 4, 1024] per GLWE component."""
     plan = _pbs_plan()
-    n, k, kdig = plan.n, plan.k, 6
+    n, k = plan.n, plan.k
     d = _max_residues(_uniform(gen, (batch, kdig, k, n), plan.q), plan.q)
     k0 = _max_residues(_uniform(gen, (kdig, k, n), plan.q), plan.q)
     k1 = _uniform(gen, (kdig, k, n), plan.q)
@@ -737,6 +751,24 @@ def pbs_transform_cases(gen, batch: int) -> list[tuple]:
              *_inv_ks_case(plan, gen, batch, 6))]
 
 
+FINE_KDIG = 16               # digits a step at the bootstrap radix (8, 4)
+
+
+def fine_pbs_cases(gen, batch: int) -> list[tuple]:
+    """B1 at the blind-rotation step of paths 17-19 ([16 batch, 4, 1024]),
+    and B5 and B15 on its digits [batch, 16, 4, 1024] (name, kernel,
+    plain twin, args, bytes, 32-bit multiplies)."""
+    plan = _pbs_plan()
+    rows, k, n = FINE_KDIG * batch, plan.k, plan.n
+    x = _max_residues(_uniform(gen, (rows, k, n), plan.q), plan.q)
+    b15 = pbs_kernel_case(gen, batch, FINE_KDIG)
+    return [("fwd", plan.fwd, plan.fwd_plain, (x,), 2 * rows * k * n * WORD,
+             rows * k * 3 * (n // 2) * plan.logn),
+            ("inv_ks", plan.inv_ks, plan.inv_ks_plain,
+             *_inv_ks_case(plan, gen, batch, FINE_KDIG)),
+            (b15[0], b15[1], b15[2], b15[3], b15[6], b15[7])]
+
+
 def wide_cases(gen, batch: int) -> list[tuple]:
     """B4, B5, B6, B7, B9, B12 and B13 at path 3's shapes
     (`default_u32(16384)`, `batch` ciphertexts): digits [batch, 14, 15,
@@ -871,6 +903,7 @@ def check_kernels(ctx, gen) -> list[dict]:
             rows[-1]["unfused_pair"] = {"kernels": label, "ms": pair_ms}
     at = {}
     for where, cases in (("at_pbs_step", pbs_transform_cases),
+                         ("at_pbs_step_16", fine_pbs_cases),
                          (f"at_{WIDE_N}", wide_cases),
                          (f"at_{VPU_N}", vpu_wide_cases)):
         for name, kern, plain, args, nbytes, muls, *library in cases(
@@ -880,6 +913,16 @@ def check_kernels(ctx, gen) -> list[dict]:
             at.setdefault(name, {})[where] = {
                 "shape": shape, **_timing(f"{name} at {shape}", kern, plain,
                                           args, nbytes, muls, *library)}
+            if name == "ks_full_limbs":        # beside B1 + B5 at 16 digits
+                label, pair = pairs[name]
+                _held(f"{name}@{shape} == {label}", kern, pair, args)
+                at[name][where]["unfused_pair"] = {
+                    "kernels": label,
+                    "ms": _median_ms(lambda: pair(*args), reps=5,
+                                     iters=KERNEL_ITERS)}
+                print(f"time {name} at {shape} beside {label}: the pair "
+                      f"{at[name][where]['unfused_pair']['ms']:.4f} ms",
+                      flush=True)
     extra_checks(ctx, gen, BATCH)
     ks_full_extremes(_pbs_plan(), gen, 2)
     vpu_extra_checks(ctx.params, gen, BATCH)
@@ -1192,14 +1235,15 @@ def _window(events, mark: str):
             and lo <= ev.time_range.start and ev.time_range.end <= hi], marks
 
 
-def profile_breakdown(label, step, batches: int = 3) -> dict:
+def profile_breakdown(label, step, batches: int = 3, warmup=None) -> dict:
     """Device time per kernel name over a few batches of `step`
     (torch.profiler), the device's busy share of the wall time and the
     device operations (kernels, copies, fills) per batch. The window is
     bounded on the device clock by two spin kernels queued with the
-    stream idle on each side, after a host wait and a traced warm-up (a
-    fresh trace can lose the events of its first milliseconds), so no
-    event of the warm-up or of the trace's end is counted in it. The
+    stream idle on each side, after a host wait and a traced warm-up of
+    `warmup` (default `step`; a fresh trace can lose the events of its
+    first milliseconds), so no event of the warm-up or of the trace's
+    end is counted in it. The
     window must hold one event per launch that `_build.LAUNCHES` counted
     in it, for every port kernel: a window that differs is profiled
     again, up to PROFILE_RETRIES times, after a longer wait and warm-up,
@@ -1218,7 +1262,7 @@ def profile_breakdown(label, step, batches: int = 3) -> dict:
             for _ in range(warmup_spins):
                 torch.cuda._sleep(MARK_CYCLES)
             for _ in range(WARMUP_STEPS):
-                step()
+                (warmup or step)()
             torch.cuda.synchronize()
             time.sleep(0.05)
             torch.cuda._sleep(MARK_CYCLES)
@@ -1526,39 +1570,414 @@ def pbs_path(label, smi: str, needed, absent, s=None, want=None):
     print(f"{label} decrypt gate: {BATCH} PBS outputs decrypt to "
           f"(m + 1) mod 2", flush=True)
     if want is None:
-        nbk_cpu = ops.NttBootstrapKey(s["nbk"].rows.cpu(), s["glwe"],
-                                      s["pbs_radix"])
-        one = _pbs(s, s["cts"][:1].cpu(), nbk_cpu, s["ksk"].cpu(),
-                   s["tp"].cpu())
-        if not torch.equal(one, out[:1].cpu()):
-            raise SystemExit(f"{label} on the card differs from the CPU")
-        print(f"{label}: card kernels == CPU plain path, bit for bit "
-              f"(one ciphertext, 512 blind-rotation steps)", flush=True)
+        _card_vs_cpu(f"{label} (one ciphertext)",
+                     lambda c, k, kk, tp: _pbs(s, c, k, kk, tp),
+                     (s["cts"][:1], s["nbk"], s["ksk"], s["tp"]), out[:1])
     else:
         if not torch.equal(out, want):
             raise SystemExit(f"{label}: PBS differs from path 7's output")
         print(f"{label}: {BATCH} PBS outputs == path 7's, bit for bit",
               flush=True)
-    batch_s = _median_s(lambda: _pbs(s, s["cts"]), PBS_REPS)
-    one_s = _median_s(lambda: _pbs(s, s["cts"][:1]), PBS_REPS)
-    per_pbs = _per_op(lambda: _pbs(s, s["cts"]))
+    launches, per_pbs = _tfhe_timing(
+        label, smi, "PBS/s", lambda c: _pbs(s, c), s["cts"], needed, absent)
+    return s, out, launches, per_pbs
+
+
+WARMUP_LWE_DIM = 8           # blind-rotation steps of a profile's warm-up
+
+
+def _tfhe_timing(label, smi: str, unit: str, op, cts, needed, absent):
+    """A TFHE path's numbers once its gates have passed: the rate of `op`
+    on the BATCH ciphertexts `cts` (a tuple for several operands) in
+    `unit`, the latency of one ciphertext, launches per op and per
+    blind-rotation step, the path's launch counts, the profile and peak
+    memory. The profile's warm-up runs `op` on one ciphertext cut to its
+    last WARMUP_LWE_DIM mask words: the same kernels at 1/64 of the
+    steps, as a blind rotation runs one step a mask word. Returns the
+    path's launches and those of one op."""
+    import torch
+    from sunscreen_tpu_torch import _build
+
+    cts = cts if isinstance(cts, tuple) else (cts,)
+    steps = cts[0].shape[-1] - 1
+    warm = tuple(c[:1, -WARMUP_LWE_DIM - 1:] for c in cts)
+
+    def step():
+        return op(*cts)
+
+    batch_s = _median_s(step, PBS_REPS)
+    one_s = _median_s(lambda: op(*(c[:1] for c in cts)), PBS_REPS)
+    per_op = _per_op(step)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    steps = s["lwe"].dim
-    print(f"{label}: {BATCH / batch_s:.1f} PBS/s (batch {BATCH}, "
+    print(f"{label}: {BATCH / batch_s:.1f} {unit} (batch {BATCH}, "
           f"{batch_s * 1e3:.2f} ms per batch), latency "
-          f"{one_s * 1e3:.2f} ms for one PBS (medians of {PBS_REPS}) on "
+          f"{one_s * 1e3:.2f} ms for one (medians of {PBS_REPS}) on "
           f"{smi}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     _path_counts(label, launches, needed, absent)
-    print(f"launches per {label}: {json.dumps(per_pbs)}; per "
+    print(f"launches per {label}: {json.dumps(per_op)}; per "
           f"blind-rotation step: "
-          f"{json.dumps({k: v / steps for k, v in per_pbs.items() if v})}",
+          f"{json.dumps({k: v / steps for k, v in per_op.items() if v})}",
           flush=True)
-    prof = profile_breakdown(label, lambda: _pbs(s, s["cts"]), batches=1)
+    prof = profile_breakdown(label, step, batches=1,
+                             warmup=lambda: op(*warm))
     print(f"{label}: {prof['ops'] / steps:.1f} device ops per blind-rotation "
           f"step", flush=True)
-    return s, out, launches, per_pbs
+    return launches, per_op
+
+
+PBS_NEEDED = ("fwd", "inv_ks")
+PBS_ABSENT = ("ks_full", "ks_full_limbs", "fwd_broadcast", "inv", "ks_inner")
+KSFULL_ABSENT = ("fwd", "inv_ks", "ks_full", "fwd_broadcast", "inv")
+# tests/test_tfhe.py's three functions of one multifunctional table
+MULTI_FNS = (lambda m: (m + 1) % 2, lambda m: m, lambda m: 1 - m)
+
+
+def _card_vs_cpu(label, op, args, want) -> None:
+    """`op` on the CPU copies of `args` (tensors, NTT bootstrap keys,
+    anything else as it is) must give `want`, the card's output, bit for
+    bit."""
+    import torch
+    from sunscreen_tpu_torch.tfhe import ops
+
+    def cpu(a):
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        if isinstance(a, ops.NttBootstrapKey):
+            return ops.NttBootstrapKey(a.rows.cpu(), a.glwe, a.radix)
+        return a
+
+    t0 = time.perf_counter()
+    got = op(*[cpu(a) for a in args])
+    if not torch.equal(got, want.cpu()):
+        raise SystemExit(f"{label} on the card differs from the CPU")
+    print(f"{label}: card == CPU plain path, bit for bit "
+          f"({time.perf_counter() - t0:.1f} s on the CPU)", flush=True)
+
+
+def multi_path(s: dict, smi: str):
+    """Path 16: the multifunctional PBS of tests/test_tfhe.py's three
+    functions ((m + 1) mod 2, m, 1 - m; 2 plaintext bits, log_v = 2) on
+    path 7's keys and ciphertexts, through the high-level table and
+    evaluation entry points: every output of every row decodes to its
+    function of m; a card-vs-CPU bit-exact PBS of one ciphertext; then
+    the rate, latency, launches, profile and peak memory."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.tfhe import high_level, ops
+
+    label = "pbs_multi"
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    lut = high_level.UnivariateLookupTable.trivial_multifunctional(
+        MULTI_FNS, s["glwe"], 2, device=DEV)
+    args = (lut, s["nbk"], s["ksk"], s["lwe"], s["glwe"], s["pbs_radix"],
+            s["ks_radix"])
+
+    def op(cts, lut, *rest):
+        return high_level.evaluation.multifunctional_programmable_bootstrap(
+            cts, lut, *rest)
+
+    out = op(s["cts"], *args)
+    dec = ops.decrypt_lwe(out, s["lwe_sk"], 2)
+    want = torch.stack([fn(s["msgs"]) % 4 for fn in MULTI_FNS], 1)
+    if not torch.equal(dec, want):
+        bad = int((dec != want).any(1).nonzero()[0, 0])
+        raise SystemExit(f"{label} decrypt gate FAILED at batch row {bad}")
+    print(f"{label} decrypt gate: {BATCH} rows x {len(MULTI_FNS)} outputs "
+          f"decrypt to (m + 1) mod 2, m, 1 - m", flush=True)
+    cpu_lut = high_level.UnivariateLookupTable(lut.poly.cpu(), 2, lut.n_fns)
+    _card_vs_cpu(f"{label} (one ciphertext)", op,
+                 (s["cts"][:1], cpu_lut, *args[1:]), out[:1])
+    return _tfhe_timing(label, smi, "PBS/s", lambda c: op(c, *args),
+                        s["cts"], PBS_NEEDED, PBS_ABSENT)
+
+
+def fine_keys(seed: int) -> dict:
+    """Paths 17-19's set-up on the card at LWE_512_80 -> GLWE_1_1024_80:
+    binary keys, the bootstrap key at radix (8, 4) (16 digits a
+    blind-rotation step, as circuit bootstrapping needs) and its NTT
+    form, the keyswitch key and the circuit bootstrap's private
+    functional keyswitch keys at radix (8, 6); each key drawn in one
+    batched encryption."""
+    import torch
+    from sunscreen_tpu_torch.tfhe import (GLWE_1_1024_80, LWE_512_80,
+                                          RadixDecomposition, ops)
+
+    lwe, glwe = LWE_512_80, GLWE_1_1024_80
+    fine = RadixDecomposition(count=8, radix_log=4)
+    ks = RadixDecomposition(count=8, radix_log=6)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.perf_counter()
+    lwe_sk = ops.generate_binary_lwe_sk(lwe, gen, DEV)
+    glwe_sk = ops.generate_binary_glwe_sk(glwe, gen, DEV)
+    ext = ops.flatten_glwe_sk(glwe_sk)
+    nbk = ops.bootstrap_key_to_ntt(ops.generate_bootstrap_key(
+        lwe_sk, glwe_sk, lwe, glwe, fine, gen), glwe, fine)
+    ksk = ops.generate_keyswitch_key(ext, lwe_sk, lwe, ks, gen)
+    cbs = ops.generate_cbs_pfksk(ext, glwe_sk, glwe, ks, gen)
+    torch.cuda.synchronize()
+    print(f"fine keygen: {time.perf_counter() - t0:.2f} s on the card; NTT "
+          f"bootstrap key {tuple(nbk.rows.shape)} "
+          f"({nbk.rows.numel() * 8 / 1e6:.1f} MB), keyswitch key "
+          f"{tuple(ksk.shape)}, cbs keys {tuple(cbs.shape)} "
+          f"({cbs.numel() * 8 / 1e6:.1f} MB)", flush=True)
+    return {"lwe": lwe, "glwe": glwe, "fine": fine, "ks": ks,
+            "out": RadixDecomposition(count=2, radix_log=8), "gen": gen,
+            "lwe_sk": lwe_sk, "glwe_sk": glwe_sk, "nbk": nbk, "ksk": ksk,
+            "cbs": cbs}
+
+
+def bivariate_path(f: dict, smi: str):
+    """Path 17: a AND b through `evaluation.bivariate_programmable_bootstrap`
+    on the fine keys, one data bit an operand encrypted at 4 bits (as in
+    tests/test_tfhe_advanced.py), the BATCH rows cycling through the four
+    (a, b) pairs: every row decrypts to a AND b; a card-vs-CPU bit-exact
+    PBS of one pair; then the rate, latency, launches, profile and peak
+    memory."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.tfhe import high_level, ops, torus
+
+    label = "pbs_bivariate"
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    lut = high_level.BivariateLookupTable.trivial_from_fn(
+        lambda x, y: x & y, f["glwe"], 2, device=DEV)
+    rows = torch.arange(BATCH, device=DEV)
+    a, b = (rows >> 1) & 1, rows & 1
+    ca = ops.encrypt_lwe(torus.encode(a, 4), f["lwe_sk"], f["lwe"], f["gen"])
+    cb = ops.encrypt_lwe(torus.encode(b, 4), f["lwe_sk"], f["lwe"], f["gen"])
+    args = (f["nbk"], f["ksk"], f["lwe"], f["glwe"], f["fine"], f["ks"])
+
+    def op(ca, cb, lut, *rest):
+        return high_level.evaluation.bivariate_programmable_bootstrap(
+            ca, cb, lut, *rest)
+
+    out = op(ca, cb, lut, *args)
+    dec = ops.decrypt_lwe(out, f["lwe_sk"], 4)
+    if not torch.equal(dec, a & b):
+        bad = int((dec != (a & b)).nonzero()[0, 0])
+        raise SystemExit(f"{label} decrypt gate FAILED at batch row {bad}")
+    print(f"{label} decrypt gate: {BATCH} rows decrypt to a AND b",
+          flush=True)
+    cpu_lut = high_level.BivariateLookupTable(lut.poly.cpu(), 2, 2)
+    _card_vs_cpu(f"{label} (one pair)", op,
+                 (ca[3:4], cb[3:4], cpu_lut, *args), out[3:4])
+    return _tfhe_timing(label, smi, "PBS/s",
+                        lambda a_, b_: op(a_, b_, lut, *args), (ca, cb),
+                        PBS_NEEDED, PBS_ABSENT)
+
+
+def _cmux_gate(label, ggsws, bits, sk, glwe, radix, gen) -> None:
+    """Each GGSW(bit) of ggsws [..., k+1, l, k+1, N] drives a CMUX between
+    a GLWE of zeros and a GLWE of seeded 2-bit data: the result decrypts
+    to the data where the bit is 1 and to zeros where it is 0."""
+    import torch
+    from sunscreen_tpu_torch.tfhe import ops, torus
+
+    n = glwe.poly_degree
+    data = torch.randint(0, 4, (*bits.shape, n), generator=gen,
+                         device=gen.device).to(sk.device)
+    c0 = ops.encrypt_glwe(torch.zeros_like(data), sk, glwe, gen)
+    c1 = ops.encrypt_glwe(torus.encode(data, 2), sk, glwe, gen)
+    got = ops.decrypt_glwe(ops.cmux(ggsws, c0, c1, glwe, radix), sk, glwe, 2)
+    want = data * bits.unsqueeze(-1)
+    if not torch.equal(got, want):
+        bad = int((got != want).any(-1).nonzero()[0, 0])
+        raise SystemExit(f"{label} CMUX gate FAILED at batch row {bad}")
+    print(f"{label} CMUX gate: {bits.numel()} GGSWs select between zeros "
+          f"and seeded 2-bit data as their bits say", flush=True)
+
+
+def cbs_path(f: dict, smi: str):
+    """Path 18: circuit bootstrapping of BATCH encrypted bits on the fine
+    keys, out radix (2, 8): every bootstrapped GGSW drives a CMUX as
+    tests/test_tfhe_advanced.py's gate asks (`_cmux_gate`); a card-vs-CPU
+    bit-exact circuit bootstrap of one ciphertext; then circuit
+    bootstraps/s, latency, launches, profile and peak memory. Returns the
+    ciphertexts, the batch's GGSWs, the path's launches and those of one
+    op."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.tfhe import high_level, ops, torus
+
+    label = "cbs"
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    bits = torch.arange(BATCH, device=DEV) % 2
+    cts = ops.encrypt_lwe(torus.encode(bits, 2), f["lwe_sk"], f["lwe"],
+                          f["gen"])
+    args = (f["nbk"], f["cbs"], f["lwe"], f["glwe"], f["fine"], f["out"],
+            f["ks"])
+    op = high_level.evaluation.circuit_bootstrap
+    out = op(cts, *args)
+    _cmux_gate(label, out, bits, f["glwe_sk"], f["glwe"], f["out"], f["gen"])
+    _card_vs_cpu(f"{label} (one ciphertext)", op, (cts[1:2], *args),
+                 out[1:2])
+    launches, per_op = _tfhe_timing(label, smi, "ops/s",
+                                    lambda c: op(c, *args), cts, PBS_NEEDED,
+                                    PBS_ABSENT)
+    return cts, out, launches, per_op
+
+
+def cbs_ksfull_path(f: dict, cts, want):
+    """Path 18b: one batch of path 18 under SUNSCREEN_TPU_TFHE_KSFULL=1:
+    B15 at 16 digits a step in place of B1 + B5, the GGSWs equal to path
+    18's bit for bit. No timing."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.tfhe import ops
+
+    label = "cbs_ksfull"
+    with _gates({"SUNSCREEN_TPU_TFHE_KSFULL": "1"}):
+        _build.reset_launches()
+        out = ops.circuit_bootstrap(cts, f["nbk"], f["cbs"], f["lwe"],
+                                    f["glwe"], f["fine"], f["out"], f["ks"])
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    if not torch.equal(out, want):
+        raise SystemExit(f"{label}: GGSWs differ from path 18's")
+    print(f"{label}: {BATCH} circuit-bootstrapped GGSWs == path 18's, bit "
+          f"for bit", flush=True)
+    _path_counts(label, launches, ("ks_full_limbs",), KSFULL_ABSENT)
+    return launches, launches
+
+
+def _decode_gate(label, got, want) -> None:
+    import torch
+    if not torch.equal(got, want):
+        raise SystemExit(f"{label} gate FAILED: "
+                         f"{int((got != want).sum())} values differ")
+    print(f"{label} gate: {tuple(want.shape)} values decode as they should",
+          flush=True)
+
+
+def tfhe_flow_path(f: dict, smi: str, batch: int = 8):
+    """Path 19, the rest of TFHE at batch 8 on the fine keys, correctness
+    only: the generalized PBS of 1 - m (each of 2 levels decodes); GLEV
+    encryption, trivial GLEVs, decrypt_glev and glev_cmux; the scheme
+    switch of GLEVs of bits (radices of tests/test_tfhe_advanced.py:
+    GLEV (3, 4), switch key (8, 4)) into GGSWs that drive a CMUX; the
+    GLWE keyswitch to a second GLWE_1_1024_80 key and the public
+    functional keyswitch from the LWE key, both at radix (8, 6); LWE and
+    RLWE public-key encryption and encrypt_rlev_public. Each op is
+    behind a decrypt gate, each deterministic op has a card-vs-CPU
+    bit-exact check on one input."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.tfhe import RadixDecomposition, ops, torus
+
+    label = "tfhe_flow"
+    _build.reset_launches()
+    lwe, glwe, gen = f["lwe"], f["glwe"], f["gen"]
+    lwe_sk, gsk, n = f["lwe_sk"], f["glwe_sk"], glwe.poly_degree
+    coarse = RadixDecomposition(count=3, radix_log=4)
+    fine, ks, out_r = f["fine"], f["ks"], f["out"]
+    rng = np.random.default_rng(19)
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.int64)).to(DEV)
+
+    m = dev(rng.integers(0, 2, batch))
+    cts = ops.encrypt_lwe(torus.encode(m, 2), lwe_sk, lwe, gen)
+    gpbs = (lambda c, k: ops.generalized_programmable_bootstrap(
+        c, lambda x: 1 - x, 2, k, lwe, glwe, fine, out_r))
+    lev = gpbs(cts, f["nbk"])
+    ext = ops.flatten_glwe_sk(gsk)
+    _decode_gate(f"{label} generalized_programmable_bootstrap", torch.stack(
+        [torus.decode(ops.decrypt_lwe_torus(lev[:, j], ext),
+                      (j + 1) * out_r.radix_log) % (1 << out_r.radix_log)
+         for j in range(out_r.count)], 1), (1 - m).unsqueeze(1).expand(
+             batch, out_r.count))
+    _card_vs_cpu(f"{label} generalized_programmable_bootstrap", gpbs,
+                 (cts[:1], f["nbk"]), lev[:1])
+
+    msgs = dev(rng.integers(0, 4, (batch, n)))
+    glev = ops.encrypt_glev(msgs, gsk, glwe, coarse, gen)
+    _decode_gate(f"{label} encrypt_glev", ops.decrypt_glev(
+        glev, gsk, glwe, coarse), msgs)
+    _decode_gate(f"{label} trivial_glev", ops.decrypt_glev(
+        ops.trivial_glev(msgs, glwe, coarse), gsk, glwe, coarse), msgs)
+    _card_vs_cpu(f"{label} decrypt_glev", lambda g, k: ops.decrypt_glev(
+        g, k, glwe, coarse), (glev[:1], gsk), ops.decrypt_glev(
+            glev[:1], gsk, glwe, coarse))
+    sel_bits = dev(rng.integers(0, 2, batch))
+    sel = torch.stack([ops.encrypt_ggsw(int(b), gsk, glwe, fine, gen)
+                       for b in sel_bits.tolist()])
+    other = ops.encrypt_glev(dev(rng.integers(0, 4, (batch, n))), gsk, glwe,
+                             coarse, gen)
+    gmux = (lambda s_, a_, b_: ops.glev_cmux(s_.unsqueeze(-5), a_, b_, glwe,
+                                             fine))
+    muxed = gmux(sel, glev, other)
+    _decode_gate(f"{label} glev_cmux", ops.decrypt_glev(
+        muxed, gsk, glwe, coarse), torch.where(
+            sel_bits.unsqueeze(-1) == 1, ops.decrypt_glev(
+                other, gsk, glwe, coarse), msgs))
+    _card_vs_cpu(f"{label} glev_cmux", gmux, (sel[:1], glev[:1], other[:1]),
+                 muxed[:1])
+
+    ssk = ops.generate_scheme_switch_key(gsk, glwe, fine, gen)
+    bit_glev = ops.encrypt_glev(sel_bits.unsqueeze(-1) * (torch.arange(
+        n, device=DEV) == 0), gsk, glwe, coarse, gen)
+    switch = (lambda g, k: ops.scheme_switch(g, k, glwe, fine, coarse))
+    ggsw = switch(bit_glev, ssk)
+    _cmux_gate(f"{label} scheme_switch", ggsw, sel_bits, gsk, glwe, coarse,
+               gen)
+    _card_vs_cpu(f"{label} scheme_switch", switch, (bit_glev[:1], ssk),
+                 ggsw[:1])
+
+    to_sk = ops.generate_binary_glwe_sk(glwe, gen, DEV)
+    gksk = ops.generate_glwe_keyswitch_key(gsk, to_sk, glwe, ks, gen)
+    m16 = dev(rng.integers(0, 16, (batch, n)))
+    gks = (lambda c, k: ops.keyswitch_glwe_to_glwe(c, k, glwe, ks))
+    gct = ops.encrypt_glwe(torus.encode(m16, 4), gsk, glwe, gen)
+    switched = gks(gct, gksk)
+    _decode_gate(f"{label} keyswitch_glwe_to_glwe", ops.decrypt_glwe(
+        switched, to_sk, glwe, 4), m16)
+    _card_vs_cpu(f"{label} keyswitch_glwe_to_glwe", gks, (gct[:1], gksk),
+                 switched[:1])
+
+    pksk = ops.generate_public_functional_keyswitch_key(lwe_sk, gsk, glwe, ks,
+                                                        gen)
+    w = torch.zeros(3, n, dtype=torch.int64, device=DEV)
+    w[0, 0], w[1, 1], w[2, 2] = 1, 2, 1          # x1 + 2 x2 X + x3 X^2
+    m3 = dev(rng.integers(0, 8, (batch, 3)))
+    pfks = (lambda c, k, w_: ops.public_functional_keyswitch(c, k, w_, glwe,
+                                                             ks))
+    pcts = ops.encrypt_lwe(torus.encode(m3, 4), lwe_sk, lwe, gen)
+    glwes = pfks(pcts, pksk, w)
+    want = torch.zeros(batch, n, dtype=torch.int64, device=DEV)
+    want[:, :3] = m3 * torch.tensor([1, 2, 1], device=DEV)
+    _decode_gate(f"{label} public_functional_keyswitch",
+                 ops.decrypt_glwe(glwes, gsk, glwe, 4), want)
+    _card_vs_cpu(f"{label} public_functional_keyswitch", pfks,
+                 (pcts[:1], pksk, w), glwes[:1])
+
+    m4 = dev(rng.integers(0, 16, batch))
+    lpk = ops.generate_lwe_public_key(lwe_sk, lwe, 4096, gen)
+    _decode_gate(f"{label} encrypt_lwe_public", ops.decrypt_lwe(
+        ops.encrypt_lwe_public(torus.encode(m4, 4), lpk, lwe, gen), lwe_sk,
+        4), m4)
+    ct_e, e = ops.encrypt_lwe_return_components(torus.encode(m4, 4), lwe_sk,
+                                                lwe, gen)
+    _decode_gate(f"{label} encrypt_lwe_return_components",
+                 ops.decrypt_lwe_torus(ct_e, lwe_sk) - torus.encode(m4, 4), e)
+    rpk = ops.generate_rlwe_public_key(gsk, glwe, gen)
+    _decode_gate(f"{label} encrypt_glwe_public", ops.decrypt_glwe(
+        ops.encrypt_glwe_public(torus.encode(msgs, 2), rpk, glwe, gen), gsk,
+        glwe, 2), msgs)
+    bin_msgs = msgs & 1
+    _decode_gate(f"{label} encrypt_rlev_public", ops.decrypt_glev(
+        ops.encrypt_rlev_public(bin_msgs, rpk, glwe, coarse, gen), gsk, glwe,
+        coarse), bin_msgs)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"{label}: every op of the rest of TFHE passed its gate at batch "
+          f"{batch} on {smi}", flush=True)
+    _path_counts(label, launches, PBS_NEEDED, PBS_ABSENT)
+    return launches, launches
 
 
 VPU = {"SUNSCREEN_TPU_NTT": "pallas_vpu", "SUNSCREEN_TPU_FUSE_FT3": "0"}
@@ -2080,16 +2499,16 @@ def main() -> int:
         ("fwd_broadcast", "inv_ks", "ks_inner", "ks_full_limbs"))
 
     # --- paths 7 and 8: TFHE PBS, then under TFHE_KSFULL=1 (B15) ---------
-    s, out, launches, per_pbs = pbs_path(
-        "pbs", smi, ("fwd", "inv_ks"),
-        ("ks_full", "ks_full_limbs", "fwd_broadcast", "inv", "ks_inner"))
+    s, out, launches, per_pbs = pbs_path("pbs", smi, PBS_NEEDED, PBS_ABSENT)
     paths["pbs"] = (launches, per_pbs)
     with _gates({"SUNSCREEN_TPU_TFHE_KSFULL": "1"}):
         *_, launches, per_pbs = pbs_path(
-            "pbs_ksfull", smi, ("ks_full_limbs",),
-            ("fwd", "inv_ks", "ks_full", "fwd_broadcast", "inv"), s=s,
+            "pbs_ksfull", smi, ("ks_full_limbs",), KSFULL_ABSENT, s=s,
             want=out)
     paths["pbs_ksfull"] = (launches, per_pbs)
+    # --- path 16: the multifunctional PBS on path 7's keys --------------
+    paths["pbs_multi"] = multi_path(s, smi)
+    del s, out
 
     # --- path 9: the pallas_vpu NTT plan (B16, B17) ----------------------
     paths["vpu"], _ = vpu_path(params, smi)
@@ -2115,6 +2534,18 @@ def main() -> int:
     # then B6, in place of B7) -----------------------------------------------
     paths[f"vpu_sc@{VPU_N}"] = vpu_sc_path(f"vpu_sc@{VPU_N}", vpu15, smi)
     del vpu15
+
+    # --- paths 17-19: the rest of TFHE on the fine keys (16 digits a
+    # blind-rotation step): the bivariate PBS, circuit bootstrapping (18b:
+    # under TFHE_KSFULL=1, B15), the other ops at batch 8 -----------------
+    fine = fine_keys(17)
+    paths["pbs_bivariate"] = bivariate_path(fine, smi)
+    cbs_cts, ggsws, launches, per_op = cbs_path(fine, smi)
+    paths["cbs"] = (launches, per_op)
+    paths["cbs_ksfull"] = cbs_ksfull_path(fine, cbs_cts, ggsws)
+    del cbs_cts, ggsws
+    paths["tfhe_flow"] = tfhe_flow_path(fine, smi)
+    del fine
 
     for row in table:
         name = row["name"]
@@ -2148,7 +2579,8 @@ def _parse_run(text: str) -> dict[str, float]:
         if line.startswith('{"kernels"'):
             for row in json.loads(line)["kernels"]:
                 out[f"kernel {row['name']} ms"] = row["ms"]
-                for where in ("at_pbs_step", f"at_{WIDE_N}", f"at_{VPU_N}"):
+                for where in ("at_pbs_step", "at_pbs_step_16",
+                              f"at_{WIDE_N}", f"at_{VPU_N}"):
                     if where in row:
                         out[f"kernel {row['name']}@{where[3:]} ms"] = (
                             row[where]["ms"])

@@ -1,6 +1,11 @@
 """TFHE over the 2^64 torus (port of `sunscreen_tpu.tfhe`): parameters,
-torus arithmetic, exact CRT-NTT polynomial products, keygen, encryption,
-blind rotation and the univariate programmable bootstrap."""
+torus arithmetic, exact CRT-NTT polynomial products, keygen, secret and
+public-key encryption, GLEV/GGSW, blind rotation, the univariate,
+multifunctional, bivariate and generalized programmable bootstraps,
+circuit bootstrapping, the scheme switch, and the LWE, GLWE, private and
+public functional keyswitches (`ops`, `high_level`), with `keys` to
+carry the reference's keys over. The reference's `tfhe/zkp.py` is not
+ported yet."""
 
 from sunscreen_tpu_torch.tfhe.params import (  # noqa: F401
     GLWE_1_512_128, GLWE_1_1024_80, GLWE_1_1024_128, GLWE_1_2048_128,

@@ -1,36 +1,45 @@
 """TFHE operations on int64 torch tensors (port of
-`sunscreen_tpu/tfhe/ops.py`): keygen, LWE/GLWE encryption, GGSW and the
-external product, CMUX, blind rotation, sample extraction, LWE
-keyswitching and the univariate programmable bootstrap (PBS).
+`sunscreen_tpu/tfhe/ops.py`): keygen, LWE/GLWE encryption (secret and
+public key), LWE arithmetic, GLEV and GGSW ciphertexts, the external
+product and CMUX, blind rotation, sample extraction, LWE and GLWE
+keyswitching, the private and public functional keyswitches, and the
+bootstraps built on them: the univariate, multifunctional, bivariate
+and generalized programmable bootstraps (PBS), circuit bootstrapping and
+the scheme switch (GLEV -> GGSW).
 
 Conventions are the reference's: a ciphertext is b = <a, s> + m + e over
 the 2^64 torus; GLWE masks are the first k rows of [..., k+1, N], the
-body last; a GGSW is [k+1, l, k+1, N]. Torus words are u64 bit patterns
-in int64 (`tfhe/torus.py`). Batches are leading axes: where the
-reference vmaps one ciphertext at a time, the port takes the batch
-directly (a blind rotation rotates each row by its own exponent).
+body last; a GLEV is [l, k+1, N] and a GGSW [k+1, l, k+1, N]. Torus
+words are u64 bit patterns in int64 (`tfhe/torus.py`). Batches are
+leading axes: where the reference vmaps one ciphertext at a time, the
+port takes the batch directly (a blind rotation rotates each row by its
+own exponent), and its output for a batch is the reference's vmap over
+that axis.
 
 Randomness comes from an explicit `torch.Generator`, so keys and
 ciphertexts differ from the reference's threefry bits; `tfhe/keys.py`
-carries the reference's over. Keygen entry points run on CUDA unless the
-caller passes `device="cpu"`; every other op runs where its inputs lie.
+carries the reference's over. Every key keeps the reference's layout.
+Keygen entry points run on CUDA unless the caller passes `device="cpu"`;
+every other op runs where its inputs lie.
 
 On the card a blind-rotation step with an NTT-domain bootstrap key runs
 B1 (`ntt_fwd`) then B5 (`inv_ks`), or, under
 `SUNSCREEN_TPU_TFHE_KSFULL=1` at GLWE size 1, B15 (`ks_full`) alone; the
-rest of the step is plain PyTorch.
+rest of the step is plain PyTorch, as are the keyswitches and the
+62-bit plan's products (the reference's are plain XLA too).
 """
 
 from __future__ import annotations
 
 import os
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from sunscreen_tpu_torch import resolve_device
 from sunscreen_tpu_torch.math import sampling
-from sunscreen_tpu_torch.math.modular import s64, srl
+from sunscreen_tpu_torch.math.modular import add_mod, s64, srl
 from sunscreen_tpu_torch.tfhe import torus
 from sunscreen_tpu_torch.tfhe.params import TORUS_BITS, GlweDef, LweDef, \
     RadixDecomposition
@@ -42,6 +51,12 @@ def _gadget(radix: RadixDecomposition) -> list[int]:
     """B_j = 2^(64 - (j+1) radix_log) as int64 bit patterns."""
     return [s64(1 << (TORUS_BITS - (j + 1) * radix.radix_log))
             for j in range(radix.count)]
+
+
+def _levels(msg, radix: RadixDecomposition):
+    """msg [..., N] -> msg B_j [..., l, N] (wrapping mod 2^64)."""
+    bj = torch.tensor(_gadget(radix), dtype=torch.int64, device=msg.device)
+    return msg.unsqueeze(-2) * bj.unsqueeze(-1)
 
 
 # --------------------------------------------------------------------------
@@ -78,14 +93,22 @@ def generate_uniform_glwe_sk(params: GlweDef, gen: torch.Generator,
 # LWE
 # --------------------------------------------------------------------------
 
-def encrypt_lwe(msg_torus, sk, params: LweDef, gen: torch.Generator):
-    """msg_torus: torus words of any shape. Returns [..., n+1]."""
+def encrypt_lwe_return_components(msg_torus, sk, params: LweDef,
+                                  gen: torch.Generator):
+    """`encrypt_lwe` that also returns its noise: (ct [..., n+1], e) with
+    b = <a, s> + m + e and e signed int64, the randomness an SDLP
+    encryption statement needs."""
     msg = torch.as_tensor(msg_torus, dtype=torch.int64, device=sk.device)
     a = sampling.uniform_u64(gen, tuple(msg.shape) + (params.dim,),
                              sk.device)
     e = sampling.torus_gaussian(gen, msg.shape, params.std, sk.device)
     b = (a * sk).sum(-1) + msg + e                 # wraps mod 2^64
-    return torch.cat([a, b.unsqueeze(-1)], dim=-1)
+    return torch.cat([a, b.unsqueeze(-1)], dim=-1), e
+
+
+def encrypt_lwe(msg_torus, sk, params: LweDef, gen: torch.Generator):
+    """msg_torus: torus words of any shape. Returns [..., n+1]."""
+    return encrypt_lwe_return_components(msg_torus, sk, params, gen)[0]
 
 
 def trivial_lwe(msg_torus, params: LweDef, device=None):
@@ -112,6 +135,37 @@ def decrypt_lwe_with_carry(ct, sk, plaintext_bits: int, carry_bits: int):
     shift = TORUS_BITS - plaintext_bits - carry_bits
     round_bit = srl(phase, shift - 1) & 1
     return (srl(phase, shift) + round_bit) & ((1 << plaintext_bits) - 1)
+
+
+def lwe_add(a, b):
+    return a + b
+
+
+def lwe_sub(a, b):
+    return a - b
+
+
+def lwe_scalar_mul(ct, k: int):
+    return ct * s64(k)
+
+
+def generate_lwe_public_key(sk, params: LweDef, count: int,
+                            gen: torch.Generator):
+    """`count` encryptions of zero [count, n+1] in one batch (count ~ n
+    log n for leftover-hash security)."""
+    zeros = torch.zeros(count, dtype=torch.int64, device=sk.device)
+    return encrypt_lwe(zeros, sk, params, gen)
+
+
+def encrypt_lwe_public(msg_torus, pk, params: LweDef, gen: torch.Generator):
+    """ct = sum_i r_i pk_i + (0, m + e') with binary r, one r per message
+    of msg_torus (any shape). Returns [..., n+1]."""
+    msg = torch.as_tensor(msg_torus, dtype=torch.int64, device=pk.device)
+    r = sampling.binary(gen, tuple(msg.shape) + (pk.shape[0],), pk.device)
+    ct = (r.unsqueeze(-1) * pk).sum(-2)            # wraps mod 2^64
+    e = sampling.torus_gaussian(gen, msg.shape, params.std, pk.device)
+    ct[..., -1] += msg + e
+    return ct
 
 
 # --------------------------------------------------------------------------
@@ -158,17 +212,69 @@ def decrypt_glwe(ct, sk, params: GlweDef, plaintext_bits: int):
     return torus.decode(decrypt_glwe_torus(ct, sk, params), plaintext_bits)
 
 
+def generate_rlwe_public_key(sk, params: GlweDef, gen: torch.Generator):
+    """GLWE encryption of the zero polynomial: [k+1, N]."""
+    zeros = torch.zeros(params.poly_degree, dtype=torch.int64,
+                        device=sk.device)
+    return encrypt_glwe(zeros, sk, params, gen)
+
+
+def encrypt_glwe_public(msg_poly, pk, params: GlweDef, gen: torch.Generator):
+    """c = u pk + (e_1 .. e_k, e_b + m) with a ternary u per message
+    polynomial of msg_poly [..., N], the products exact on the 62-bit
+    plan. Returns [..., k+1, N]."""
+    msg = torch.as_tensor(msg_poly, dtype=torch.int64, device=pk.device)
+    plan = get_torus_plan(params.poly_degree, device=pk.device)
+    u = sampling.ternary(gen, msg.shape, pk.device)
+    u_hat = plan.fwd(plan.signed_to_rns(u)).unsqueeze(-3)  # [..., 1, kp, N]
+    pk_hat = plan.fwd(plan.torus_to_rns(pk))               # [k+1, kp, N]
+    out = plan.to_torus(plan.plan.inv(plan.pointwise(u_hat, pk_hat)))
+    out = out + sampling.torus_gaussian(gen, out.shape, params.std,
+                                        pk.device)
+    out[..., -1, :] += msg
+    return out
+
+
 # --------------------------------------------------------------------------
 # GGSW + external product
 # --------------------------------------------------------------------------
+
+def encrypt_glev(msg_poly, sk, params: GlweDef, radix: RadixDecomposition,
+                 gen: torch.Generator):
+    """GLEV [..., l, k+1, N]: level j encrypts msg B_j, all levels of
+    every message polynomial of msg_poly [..., N] in one batch."""
+    msg = torch.as_tensor(msg_poly, dtype=torch.int64, device=sk.device)
+    return encrypt_glwe(_levels(msg, radix), sk, params, gen)
+
+
+def trivial_glev(msg_poly, params: GlweDef, radix: RadixDecomposition):
+    """Zero-mask GLEV [..., l, k+1, N] of msg_poly [..., N]: constants."""
+    return trivial_glwe(_levels(torch.as_tensor(msg_poly, dtype=torch.int64),
+                                radix), params)
+
+
+def encrypt_rlev_public(msg_poly, pk, params: GlweDef,
+                        radix: RadixDecomposition, gen: torch.Generator):
+    """RLEV (a GLEV at GLWE size 1) of a binary-coefficient message under
+    an RLWE public key: level j encrypts msg B_j. [..., l, 2, N]."""
+    assert params.size == 1, "RLEV requires GLWE size 1"
+    msg = torch.as_tensor(msg_poly, dtype=torch.int64, device=pk.device)
+    return encrypt_glwe_public(_levels(msg, radix), pk, params, gen)
+
+
+def decrypt_glev(glev, sk, params: GlweDef, radix: RadixDecomposition):
+    """The level-0 message (scaled by B_1 = 2^(64 - radix_log)), rounded:
+    [..., N] of glev [..., l, k+1, N]."""
+    t0 = decrypt_glwe_torus(glev[..., 0, :, :], sk, params)
+    shift = TORUS_BITS - radix.radix_log
+    return srl(t0 + (1 << (shift - 1)), shift) & ((1 << radix.radix_log) - 1)
+
 
 def _ggsw_units(msg_poly, params: GlweDef, radix: RadixDecomposition,
                 zeros):
     """GLWE encryptions of zero [..., k+1, l, k+1, N] plus msg * B_j on
     component i of row (i, j); msg_poly [..., N] broadcasts."""
-    bj = torch.tensor(_gadget(radix), dtype=torch.int64,
-                      device=zeros.device)
-    unit = msg_poly.unsqueeze(-2) * bj.unsqueeze(-1)      # [..., l, N]
+    unit = _levels(msg_poly, radix)                       # [..., l, N]
     out = zeros.clone()
     for i in range(params.size + 1):
         out[..., i, :, i, :] += unit
@@ -193,26 +299,53 @@ def encrypt_ggsw(msg, sk, params: GlweDef, radix: RadixDecomposition,
     return _ggsw_units(msg_poly, params, radix, zeros)
 
 
+def _sum_mod(x, dim: int, q):
+    """Sum of residues in [0, q) along `dim`, mod q, by pairwise modular
+    adds (no int64 sum of 62-bit residues can overflow)."""
+    x = torch.movedim(x, dim, 0)
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:1])])
+        x = add_mod(x[0::2], x[1::2], q)
+    return x[0]
+
+
+def _poly_dot(digits, rows):
+    """sum_t digits[..., t, :] rows[..., t, :, :] (negacyclic, exact mod
+    2^64) for small signed digit polynomials [..., T, N] and torus
+    polynomials [..., T, C, N] -> [..., C, N], on the 62-bit plan. The
+    residue sums mod q are unique, so the bits do not depend on the
+    order of the terms."""
+    plan = get_torus_plan(digits.shape[-1], device=digits.device)
+    d_hat = plan.fwd(plan.signed_to_rns(digits)).unsqueeze(-3)
+    r_hat = plan.fwd(plan.torus_to_rns(rows))         # [..., T, C, kp, N]
+    acc = _sum_mod(plan.pointwise(d_hat, r_hat), -4, plan.base.q)
+    return plan.to_torus(plan.plan.inv(acc))
+
+
+def _gadget_digits(polys, radix: RadixDecomposition):
+    """polys [..., K, N] -> gadget digits [..., K l, N], index i l + j."""
+    digits = torus.signed_decompose(polys, radix.radix_log, radix.count)
+    return torch.movedim(digits, 0, -2).flatten(-3, -2)
+
+
 def external_product(ggsw, glwe, params: GlweDef,
                      radix: RadixDecomposition):
     """GGSW(m) ⊡ GLWE(c) -> GLWE(m c), exact through the 2-prime CRT
-    NTT: gadget-decompose each GLWE row, multiply by the GGSW rows."""
-    plan = get_torus_plan(params.poly_degree, device=glwe.device)
-    acc = None
-    for i in range(params.size + 1):
-        digits = torus.signed_decompose(glwe[..., i, :], radix.radix_log,
-                                        radix.count)
-        for j in range(radix.count):
-            d_hat = plan.fwd(plan.signed_to_rns(digits[j]))  # [..., kp, N]
-            row_hat = plan.fwd(plan.torus_to_rns(ggsw[..., i, j, :, :]))
-            term = plan.pointwise(d_hat.unsqueeze(-3), row_hat)
-            acc = term if acc is None else plan.add(acc, term)
-    return plan.to_torus(plan.plan.inv(acc))
+    NTT: the gadget digits of every GLWE row against the GGSW rows."""
+    return _poly_dot(_gadget_digits(glwe, radix), ggsw.flatten(-4, -3))
 
 
 def cmux(sel_ggsw, d0, d1, params: GlweDef, radix: RadixDecomposition):
     """d0 + sel ⊡ (d1 - d0)."""
     return d0 + external_product(sel_ggsw, d1 - d0, params, radix)
+
+
+def glev_cmux(sel_ggsw, d0, d1, params: GlweDef, radix: RadixDecomposition):
+    """CMUX over GLEV ciphertexts [..., l, k+1, N], the same selector on
+    every level (muxing circuit-bootstrap outputs): the external product
+    takes the level axis as a batch axis."""
+    return cmux(sel_ggsw, d0, d1, params, radix)
 
 
 # --------------------------------------------------------------------------
@@ -292,16 +425,12 @@ def _blind_rotate_ntt(test_poly, lwe_ct, bsk: NttBootstrapKey,
     acc = trivial_glwe(negacyclic_monomial_mul(
         torch.as_tensor(test_poly, dtype=torch.int64, device=lwe_ct.device),
         2 * n - b_t, n), glwe)
-    kdig = (kk + 1) * radix.count
     ksfull = kk == 1 and os.environ.get("SUNSCREEN_TPU_TFHE_KSFULL",
                                         "0") != "0"
     q = plan.base.q
     for i in range(a.shape[-1]):
         rotated = negacyclic_monomial_mul(acc, a_t[..., i], n)
-        digits = torus.signed_decompose(rotated - acc, radix.radix_log,
-                                        radix.count)    # [l, ..., k+1, N]
-        d = torch.movedim(digits, 0, -2)                # [..., k+1, l, N]
-        d_rns = plan.signed_to_rns(d.reshape(*d.shape[:-3], kdig, n))
+        d_rns = plan.signed_to_rns(_gadget_digits(rotated - acc, radix))
         ks = bsk.rows[i]                                # [k+1, kdig, kp, N]
         if ksfull:
             upd = plan.ks_full(d_rns, ks[0], ks[1])
@@ -448,3 +577,288 @@ def programmable_bootstrap_univariate(
     rotated = blind_rotate(test_poly, lwe_ct, bsk, glwe, pbs_radix)
     extracted = sample_extract(rotated, glwe)
     return keyswitch_lwe_to_lwe(extracted, ksk, lwe, ks_radix)
+
+
+def test_polynomial_multi(fns, plaintext_bits: int, glwe: GlweDef,
+                          device=None):
+    """Multifunctional test polynomial: the v functions interleaved
+    within each message block, so that one blind rotation (mod-switched
+    with log_v = ceil(log2 v)) evaluates all of them and output j is
+    `sample_extract(.., coeff=j)`. The interleave index is assigned after
+    centering, so coefficients 0..v-1 land mid-block; needs
+    ceil_pow2(v) <= block / 2."""
+    n = glwe.poly_degree
+    space = 1 << plaintext_bits
+    block = n // (space // 2) if space > 1 else n
+    half = block // 2
+    v = len(fns)
+    assert v >= 1
+    ceil_v = 1 << (v - 1).bit_length()
+    assert ceil_v <= max(1, block // 2), (
+        f"{v} functions need blocks >= {2 * ceil_v} coefficients "
+        f"(N={n}, bits={plaintext_bits} gives block={block})")
+    out = np.zeros(n, dtype=np.uint64)
+    for i in range(n):
+        idx = i + half
+        wrap = idx >= n
+        idx_m = idx - n if wrap else idx
+        msg = (idx_m // block) % space if space > 1 else 0
+        fid = i % ceil_v
+        val = int(fns[fid](msg)) % space if fid < v else 0
+        enc = val << (TORUS_BITS - plaintext_bits)
+        out[i] = (-enc) % (1 << 64) if wrap else enc
+    return torch.from_numpy(out.view(np.int64)).to(resolve_device(device))
+
+
+def programmable_bootstrap_multifunctional(
+        lwe_ct, test_poly_multi, n_fns: int, bsk, ksk, lwe: LweDef,
+        glwe: GlweDef, pbs_radix: RadixDecomposition,
+        ks_radix: RadixDecomposition):
+    """One blind rotation, `n_fns` sample extractions at consecutive
+    coefficients, one keyswitch of all of them: [..., n_fns, n+1], row j
+    encrypting fns[j](m)."""
+    log_v = (n_fns - 1).bit_length()
+    rotated = blind_rotate(test_poly_multi, lwe_ct, bsk, glwe, pbs_radix,
+                           log_v)
+    extracted = torch.stack([sample_extract(rotated, glwe, j)
+                             for j in range(n_fns)], -2)
+    return keyswitch_lwe_to_lwe(extracted, ksk, lwe, ks_radix)
+
+
+def test_polynomial_torus(fn_torus, plaintext_bits: int, glwe: GlweDef,
+                          device=None):
+    """`test_polynomial_for` with fn returning raw torus values (circuit
+    bootstrapping emits m B_j)."""
+    n = glwe.poly_degree
+    space = 1 << plaintext_bits
+    block = n // (space // 2) if space > 1 else n
+    v = np.zeros(n, dtype=np.uint64)
+    for i in range(n):
+        msg = (i // block) % space if space > 1 else 0
+        v[i] = np.uint64(int(fn_torus(msg)) % (1 << 64))
+    half = block // 2
+    if half:
+        rolled = np.roll(v, -half)
+        rolled[-half:] = (-rolled[-half:].astype(np.int64)).astype(
+            np.uint64)
+        v = rolled
+    return torch.from_numpy(v.view(np.int64)).to(resolve_device(device))
+
+
+def bivariate_test_polynomial(fn, plaintext_bits: int, glwe: GlweDef,
+                              carry_bits: int | None = None, device=None):
+    """Test polynomial of f(a, b) over the packed message
+    a 2^carry_bits + b (plaintext_bits <= carry_bits, carry_bits
+    defaulting to plaintext_bits)."""
+    if carry_bits is None:
+        carry_bits = plaintext_bits
+    assert plaintext_bits <= carry_bits, \
+        "plaintext_bits must be <= carry_bits"
+    total_bits = plaintext_bits + carry_bits
+
+    def f2(m):
+        return int(fn(m >> carry_bits, m & ((1 << carry_bits) - 1))) \
+            % (1 << total_bits)
+
+    return test_polynomial_for(f2, total_bits, glwe, device=device)
+
+
+def programmable_bootstrap_bivariate(
+        ct_a, ct_b, fn, bsk, ksk, lwe: LweDef, glwe: GlweDef,
+        pbs_radix: RadixDecomposition, ks_radix: RadixDecomposition,
+        plaintext_bits: int, carry_bits: int | None = None,
+        test_poly=None):
+    """f(a, b) as a univariate PBS of a 2^carry_bits + b over
+    plaintext_bits + carry_bits bits. Both inputs must be encrypted at
+    that packed precision (`torus.encode(v, plaintext_bits +
+    carry_bits)`); pass `test_poly` (`bivariate_test_polynomial`,
+    `BivariateLookupTable`) to reuse a table."""
+    if carry_bits is None:
+        carry_bits = plaintext_bits
+    packed = lwe_add(lwe_scalar_mul(ct_a, 1 << carry_bits), ct_b)
+    if test_poly is None:
+        test_poly = bivariate_test_polynomial(fn, plaintext_bits, glwe,
+                                              carry_bits, ct_a.device)
+    return programmable_bootstrap_univariate(
+        packed, test_poly, bsk, ksk, lwe, glwe, pbs_radix, ks_radix)
+
+
+def _bootstrap_levels(lwe_ct, test_polys, bsk, glwe: GlweDef,
+                      radix: RadixDecomposition):
+    """Blind rotation and sample extraction of every ciphertext under each
+    of the test polynomials [L, N], as one blind rotation of L times the
+    batch: [..., L, kN+1]."""
+    levels = test_polys.shape[0]
+    tp = test_polys.reshape(levels, *(1,) * (lwe_ct.dim() - 1),
+                            test_polys.shape[-1])
+    rotated = blind_rotate(tp, lwe_ct.expand(levels, *lwe_ct.shape), bsk,
+                           glwe, radix)
+    return torch.movedim(sample_extract(rotated, glwe), 0, -2)
+
+
+def generalized_programmable_bootstrap(
+        lwe_ct, fn, plaintext_bits: int, bsk, lwe: LweDef, glwe: GlweDef,
+        pbs_radix: RadixDecomposition, out_radix: RadixDecomposition):
+    """A LEV-style stack [..., l_out, kN+1] of extracted LWEs, level j
+    encrypting f(m) B_j under the extracted GLWE key. `fn` maps
+    [0, 2^(bits-1)) into itself (the padding bit stays clear)."""
+    tps = torch.stack([
+        test_polynomial_torus(lambda mm, bj=bj: fn(mm) * bj, plaintext_bits,
+                              glwe, lwe_ct.device)
+        for bj in (1 << (TORUS_BITS - (j + 1) * out_radix.radix_log)
+                   for j in range(out_radix.count))])
+    return _bootstrap_levels(lwe_ct, tps, bsk, glwe, pbs_radix)
+
+
+# --------------------------------------------------------------------------
+# private functional keyswitching (LWE -> GLWE)
+# --------------------------------------------------------------------------
+
+def generate_private_functional_keyswitch_key(
+        f_poly, from_sk, to_glwe_sk, to_params: GlweDef,
+        radix: RadixDecomposition, gen: torch.Generator):
+    """K_{i,j} = GLWE(f(s_i) B_j) for the secret linear f(x) = f_poly x
+    (f_poly an integer polynomial), and the body keys K_{n,j} =
+    GLWE(f(1) B_j): [n_in+1, l, k+1, N], all drawn in one batch."""
+    f = torch.as_tensor(f_poly, dtype=torch.int64, device=to_glwe_sk.device)
+    s = from_sk.to(f.device)
+    msgs = torch.cat([s.unsqueeze(-1) * f, f.unsqueeze(0)])
+    return encrypt_glev(msgs, to_glwe_sk, to_params, radix, gen)
+
+
+def private_functional_keyswitch(ct, pfksk, to_params: GlweDef,
+                                 radix: RadixDecomposition):
+    """LWE(m) [..., n_in+1] -> GLWE(f(m)) [..., k+1, N]:
+    decomp(b) . K_n - sum_i decomp(a_i) . K_i, whose phase is
+    f(b) - sum_i a_i f(s_i) ~ f(m). The keys [n_in+1, l, ...] may carry
+    several GLWE outputs ahead of [k+1, N] (circuit bootstrapping passes
+    all k+1 rows' keys at once). One `_exact_dot` of the negated mask
+    digits and the body's digits against the flattened keys."""
+    n_in, count = ct.shape[-1] - 1, radix.count
+    da = torus.signed_decompose(ct[..., :-1], radix.radix_log, count)
+    db = torus.signed_decompose(ct[..., -1], radix.radix_log, count)
+    d = torch.cat([-torch.movedim(da, 0, -1).flatten(-2),
+                   torch.movedim(db, 0, -1)], -1)     # [..., (n_in+1) l]
+    words = pfksk.reshape((n_in + 1) * count, -1)
+    out = _exact_dot(d.reshape(-1, d.shape[-1]), words, radix.radix_log)
+    return out.reshape(*ct.shape[:-1], *pfksk.shape[2:])
+
+
+# --------------------------------------------------------------------------
+# circuit bootstrapping + scheme switching
+# --------------------------------------------------------------------------
+
+def generate_cbs_pfksk(glwe_extracted_sk, to_glwe_sk, glwe: GlweDef,
+                       radix: RadixDecomposition, gen: torch.Generator):
+    """One private functional keyswitch key per GGSW row, mask row i for
+    f_i(x) = -s'_i(X) x, the body row for f(x) = x: [k+1, n_in+1, l,
+    k+1, N], every GLWE drawn in one batch."""
+    kk, n = glwe.size, glwe.poly_degree
+    f = torch.zeros(kk + 1, n, dtype=torch.int64, device=to_glwe_sk.device)
+    f[:kk] = -to_glwe_sk
+    f[kk, 0] = 1
+    s = glwe_extracted_sk.to(f.device)
+    msgs = torch.cat([s.unsqueeze(-1) * f.unsqueeze(-2), f.unsqueeze(-2)], -2)
+    return encrypt_glev(msgs, to_glwe_sk, glwe, radix, gen)
+
+
+@lru_cache(maxsize=8)
+def _cbs_test_polys(glwe: GlweDef, out_radix: RadixDecomposition,
+                    device: torch.device):
+    """The test polynomials of m B_j over 2-bit messages, one a level."""
+    return torch.stack([
+        test_polynomial_torus(lambda m, bj=bj: m * bj, 2, glwe, device)
+        for bj in (1 << (TORUS_BITS - (j + 1) * out_radix.radix_log)
+                   for j in range(out_radix.count))])
+
+
+def circuit_bootstrap(lwe_ct, bsk, cbs_pfksk, lwe: LweDef, glwe: GlweDef,
+                      pbs_radix: RadixDecomposition,
+                      out_radix: RadixDecomposition,
+                      pfks_radix: RadixDecomposition):
+    """LWE(bit) [..., n+1] -> GGSW(bit) [..., k+1, l_out, k+1, N]: each
+    output level j bootstraps to LWE(m B_j) under the extracted key (the
+    levels run as one blind rotation of l_out times the batch), then one
+    private functional keyswitch a GGSW row maps it into row (i, j); the
+    k+1 keyswitches of all levels run as one product."""
+    tps = _cbs_test_polys(glwe, out_radix, lwe_ct.device)
+    extracted = _bootstrap_levels(lwe_ct, tps, bsk, glwe, pbs_radix)
+    keys = torch.movedim(cbs_pfksk, 0, 2)     # [n_in+1, l, k+1 (row), k+1, N]
+    return torch.movedim(private_functional_keyswitch(
+        extracted, keys, glwe, pfks_radix), -3, -4)
+
+
+def generate_scheme_switch_key(glwe_sk, glwe: GlweDef,
+                               radix: RadixDecomposition,
+                               gen: torch.Generator):
+    """GGSW(-s_i) for each mask polynomial i: [k, k+1, l, k+1, N], all
+    encryptions drawn in one batch."""
+    kk, n = glwe.size, glwe.poly_degree
+    zeros = encrypt_glwe(
+        torch.zeros(kk, kk + 1, radix.count, n, dtype=torch.int64,
+                    device=glwe_sk.device), glwe_sk, glwe, gen)
+    return _ggsw_units(-glwe_sk, glwe, radix, zeros)
+
+
+def scheme_switch(glev, ssk, glwe: GlweDef, ssk_radix: RadixDecomposition,
+                  out_radix: RadixDecomposition):
+    """GLEV(m) [..., l_out, k+1, N] -> GGSW(m) [..., k+1, l_out, k+1, N]:
+    mask rows (i, j) = GGSW(-s_i) ⊡ GLEV_j (every level in one external
+    product), body rows GLEV_j. `ssk_radix` must be much finer than
+    `out_radix`: the decomposition error is amplified by ||s_i||_1 ~ N/2."""
+    assert glev.shape[-3] == out_radix.count
+    rows = [external_product(ssk[i], glev, glwe, ssk_radix)
+            for i in range(glwe.size)]
+    return torch.stack(rows + [glev], -4)
+
+
+# --------------------------------------------------------------------------
+# GLWE keyswitch, public functional keyswitch
+# --------------------------------------------------------------------------
+
+def generate_glwe_keyswitch_key(from_sk, to_sk, to_params: GlweDef,
+                                radix: RadixDecomposition,
+                                gen: torch.Generator):
+    """GLEV(from_sk_i) under to_sk, one a mask polynomial of the source
+    key: [k_from, l, k+1, N]."""
+    return encrypt_glev(from_sk.to(to_sk.device), to_sk, to_params, radix,
+                        gen)
+
+
+def keyswitch_glwe_to_glwe(ct, gksk, to_params: GlweDef,
+                           radix: RadixDecomposition):
+    """GLWE under s [..., k_from+1, N] -> GLWE under s' [..., k+1, N]:
+    (0, b) - sum_i <decomp(a_i), GLEV(s_i)>."""
+    k_from = gksk.shape[0]
+    out = -_poly_dot(_gadget_digits(ct[..., :k_from, :], radix),
+                     gksk.flatten(0, 1))
+    out[..., -1, :] += ct[..., -1, :]
+    return out
+
+
+def generate_public_functional_keyswitch_key(
+        from_sk, to_glwe_sk, to_params: GlweDef, radix: RadixDecomposition,
+        gen: torch.Generator):
+    """GLEV(s_i) (the constant polynomial s_i) under the target GLWE key,
+    one a source LWE mask index: [n_in, l, k+1, N]. The morphism stays
+    public and is applied at switch time."""
+    msgs = torch.zeros(from_sk.shape[0], to_params.poly_degree,
+                       dtype=torch.int64, device=to_glwe_sk.device)
+    msgs[:, 0] = from_sk.to(msgs.device)
+    return encrypt_glev(msgs, to_glwe_sk, to_params, radix, gen)
+
+
+def public_functional_keyswitch(cts, pub_ksk, f_weights, to_params: GlweDef,
+                                radix: RadixDecomposition):
+    """p LWE ciphertexts [..., p, n+1] -> one GLWE [..., k+1, N] of
+    f(m_1..m_p) for the public linear f(x)[c] = sum_j x_j f_weights[j][c]
+    (integer weight polynomials [p, N]):
+    (0, f(b)) - sum_i <decomp(f(a)_i), GLEV(s_i)>. f is a broadcast
+    multiply-sum over the p axis, wrapping mod 2^64."""
+    w = torch.as_tensor(f_weights, dtype=torch.int64, device=cts.device)
+    a, b = cts[..., :-1], cts[..., -1]
+    fa = (a.unsqueeze(-1) * w.unsqueeze(-2)).sum(-3)       # [..., n, N]
+    fb = (b.unsqueeze(-1) * w).sum(-2)                     # [..., N]
+    out = -_poly_dot(_gadget_digits(fa, radix), pub_ksk.flatten(0, 1))
+    out[..., -1, :] += fb
+    return out
