@@ -29,7 +29,7 @@ bounds; B14 and B15 also timed beside the two kernels each replaces,
 B2 + B5 and, at both TFHE steps, B1 + B5, on the same inputs), holds B1-B5,
 B12-B15 at every N from 256 to 16384 and B16 from 128 to 32768
 (`transform_checks`: edge residues, raw words up to 2^32 - 1, a 30-bit
-and three small moduli), then drives twenty-two paths, each with the
+and three small moduli), then drives twenty-three paths, each with the
 launch counts set to 0 just before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
@@ -81,7 +81,12 @@ launch counts set to 0 just before it and read just after:
     (B15 at 16 digits);
 19. the rest of TFHE at batch 8 on path 17's keys: the generalized PBS,
     GLEV encryption and CMUX, the scheme switch, the GLWE and public
-    functional keyswitches, LWE and RLWE public-key encryption.
+    functional keyswitches, LWE and RLWE public-key encryption;
+20. the compiler and runtime: `@fhe_program` -> `Compiler` (measured
+    search on, engine auto) -> `Runtime.new_fhe` on simple_multiply,
+    chi_sq and chi_sq_optimized (examples/) and a `Batched` program of
+    every IR op kind with the default Galois keys, at the searched
+    `default_u32(8192)` chain, batch 1: B1-B8 through `bfv/ops.py`.
 
 Paths 1-3, 7 and 16-18 pass a decrypt (18: CMUX) gate and a card-vs-CPU
 bit-exact check on one ciphertext; paths 4-6 and 10 must give path 1's
@@ -90,7 +95,9 @@ for bit; paths 9 and 15 pass a slot-wise gate on every row and a
 card-vs-CPU multiply; path 11 a slot-wise gate on every output; paths
 13 and 14 the decrypt gate, a card-vs-CPU check and the rotation or
 golden gates; path 19 a decrypt gate per op and a card-vs-CPU check per
-deterministic op. Paths 1-10, 12-15b and 16-18 are then timed and
+deterministic op; path 20 the searched-params, decrypt and slot gates, a
+card-vs-CPU `run`, two key sets and a serialization round trip. Paths
+1-10, 12-15b, 16-18 and 20 are then timed and
 profiled; a profile window, bounded on the
 device clock by two marker spins, whose kernel events differ from the
 launch counts is taken again, and the run fails if three retries differ
@@ -108,8 +115,6 @@ four logs under chiprun_out/compare/ and prints each number both report
 by side, then each side's SASS counts; it fails if any of the four runs
 fails.
 """
-
-from __future__ import annotations
 
 import contextlib
 import functools
@@ -134,7 +139,7 @@ GATES = ("SUNSCREEN_TPU_FUSED_RNS", "SUNSCREEN_TPU_FUSE_INV",
          "SUNSCREEN_TPU_FUSE_TFULL", "SUNSCREEN_TPU_FUSE_SC",
          "SUNSCREEN_TPU_FUSE_KS", "SUNSCREEN_TPU_FUSE_KSFULL",
          "SUNSCREEN_TPU_TFHE_KSFULL", "SUNSCREEN_TPU_NTT",
-         "SUNSCREEN_TPU_COMPACT_NTT")
+         "SUNSCREEN_TPU_COMPACT_NTT", "SUNSCREEN_TPU_MEASURED_SEARCH")
 UNFUSED = {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_SC": "0",
            "SUNSCREEN_TPU_FUSE_KS": "0"}
 T3 = {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_T3": "1"}
@@ -1324,8 +1329,9 @@ def profile_breakdown(label, step, batches: int = 3, warmup=None) -> dict:
             "busy_ms": busy / batches / 1e3, "ops": count / batches}
 
 
-def _rate(step) -> float:
-    """Batches of BATCH ops per second: median of REPS x ITERS."""
+def _rate(step, per_step: int = BATCH) -> float:
+    """Ops per second of `step`, which does `per_step` of them: median
+    of REPS x ITERS."""
     import torch
     step()
     torch.cuda.synchronize()
@@ -1335,8 +1341,21 @@ def _rate(step) -> float:
         for _ in range(ITERS):
             step()
         torch.cuda.synchronize()
-        rates.append(BATCH * ITERS / (time.perf_counter() - t0))
+        rates.append(per_step * ITERS / (time.perf_counter() - t0))
     return sorted(rates)[REPS // 2]
+
+
+def _latency_ms(step) -> float:
+    """Wall ms of one synchronized call of `step`: median of REPS."""
+    import torch
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[REPS // 2]
 
 
 def _per_op(step) -> dict[str, int]:
@@ -2385,6 +2404,241 @@ def golden_u64_path(params, smi: str):
     return launches, per_op
 
 
+CHI_IN = (2, 7, 9)
+CHI_WANT = (529, 242, 275, 1250)     # examples/chi_sq.py expected(2, 7, 9)
+EVERY_LIT = 3                        # the every-op program's literal slots
+
+
+def compiler_programs():
+    """The programs path 20 compiles under the port's `fhe_program`: the
+    bodies of examples/simple_multiply.py and of examples/chi_sq.py's
+    chi_sq and chi_sq_optimized, and a `Batched` program that emits every
+    op kind of the IR."""
+    from sunscreen_tpu_torch.compiler import fhe_program
+    from sunscreen_tpu_torch.types import Batched, Cipher, Signed
+
+    @fhe_program(scheme="bfv")
+    def simple_multiply(a: Cipher[Signed], b: Cipher[Signed]):
+        return a * b
+
+    @fhe_program(scheme="bfv")
+    def chi_sq(n0: Cipher[Signed], n1: Cipher[Signed], n2: Cipher[Signed]):
+        a = 4 * n0 * n2 - n1 * n1
+        alpha = a * a
+        b1 = 2 * n0 + n1
+        b1 = 2 * (b1 * b1)
+        b2 = (2 * n0 + n1) * (2 * n2 + n1)
+        b3 = 2 * n2 + n1
+        b3 = 2 * (b3 * b3)
+        return alpha, b1, b2, b3
+
+    @fhe_program(scheme="bfv")
+    def chi_sq_optimized(n0: Cipher[Signed], n1: Cipher[Signed],
+                         n2: Cipher[Signed]):
+        x = n0 + n0 + n1
+        y = n2 + n2 + n1
+        n0n2 = n0 * n2
+        n0n2 = n0n2 + n0n2
+        n0n2 = n0n2 + n0n2
+        n1sq = n1 * n1
+        alpha = n0n2 - n1sq
+        alpha = alpha * alpha
+        b1 = x * x
+        b1 = b1 + b1
+        b2 = x * y
+        b3 = y * y
+        b3 = b3 + b3
+        return alpha, b1, b2, b3
+
+    lit = [EVERY_LIT] * N
+
+    @fhe_program(scheme="bfv")
+    def every_op(x: Cipher[Batched], y: Cipher[Batched]):
+        p = x * y
+        return ((x + y) << 1, (x - y) >> 2, p.swap_rows(), x + lit,
+                y - lit, x * lit, -y)
+
+    return {f.name: f for f in (simple_multiply, chi_sq, chi_sq_optimized,
+                                every_op)}
+
+
+def _every_op_want(x, y, t: int) -> list:
+    """every_op's outputs in numpy, centered mod t (the signed decode)."""
+    half = N // 2
+
+    def rot(v, k):
+        return np.concatenate([np.roll(v[:half], -k), np.roll(v[half:], -k)])
+
+    p = x * y
+    wants = [rot(x + y, 1), rot(x - y, -2),
+             np.concatenate([p[half:], p[:half]]), x + EVERY_LIT,
+             y - EVERY_LIT, x * EVERY_LIT, -y]
+    out = []
+    for w in wants:
+        w = np.mod(w, t)
+        out.append(np.where(w > t // 2, w - t, w))
+    return out
+
+
+def _same_chain(label, params, want) -> None:
+    if (params.poly_degree, params.coeff_modulus,
+            params.special_modulus) != (want.poly_degree, want.coeff_modulus,
+                                        want.special_modulus):
+        raise SystemExit(f"{label}: searched params {params} are not "
+                         f"{want}'s chain")
+
+
+def _bits_equal(label, got, want) -> None:
+    """Ciphertext lists equal bit for bit, on the host."""
+    import torch
+    for a, b in zip(got, want, strict=True):
+        for x, y in zip(a.cts, b.cts, strict=True):
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise SystemExit(f"{label}: ciphertexts differ")
+
+
+def compiler_path(smi: str):
+    """Path 20: `@fhe_program` -> `Compiler` -> `Runtime.new_fhe` on the
+    card. simple_multiply compiled with the defaults (measured search on,
+    engine auto) must find `default_u32(N)`, chi_sq and chi_sq_optimized
+    under `PlainModulusConstraint.Raw(64)` its chain; keygen, encrypt,
+    `run` and `decrypt_many` must give 15 * 5 and chi_sq(2, 7, 9) for
+    both variants; chi_sq on a CPU runtime, with the card's keys and
+    inputs, must give the card's ciphertexts bit for bit; it must run
+    under two key sets; its keys, inputs and program must round-trip
+    through bytes and run again to the same outputs; and the every-op
+    `Batched` program, with the 25 default Galois keys, must decode slot
+    by slot to numpy. Then the rate and latency of one `run` of chi_sq
+    and of simple_multiply (batch 1), their launches and chi_sq's
+    profile. Returns the path's launches and those of one chi_sq run."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.bfv import BfvParams
+    from sunscreen_tpu_torch.compiler import Compiler, PlainModulusConstraint
+    from sunscreen_tpu_torch.runtime import Runtime
+    from sunscreen_tpu_torch.runtime import serialization as ser
+    from sunscreen_tpu_torch.types import Batched, Signed
+
+    label = "compiler"
+    progs = compiler_programs()
+    default = BfvParams.default_u32(N)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    app = Compiler(DEV).fhe_program(progs["simple_multiply"]).compile()
+    if app.params != default:
+        raise SystemExit(f"{label}: simple_multiply searched {app.params}, "
+                         f"not default_u32({N})")
+    chi = {}
+    for name in ("chi_sq", "chi_sq_optimized"):
+        chi[name] = (Compiler(DEV).fhe_program(progs[name])
+                     .plain_modulus_constraint(
+                         PlainModulusConstraint.Raw(64))
+                     .compile().get_program(name))
+        _same_chain(f"{label} {name}", chi[name].params, default)
+    print(f"{label}: measured search found default_u32({N}) for "
+          f"simple_multiply (t = {app.params.plain_modulus}) and its chain "
+          f"at t = 64 for chi_sq and chi_sq_optimized, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    rt = Runtime.new_fhe(app.params, DEV)
+    pub, priv = rt.generate_keys(galois=False)
+    mul = app.get_program("simple_multiply")
+    mul_args = [rt.encrypt(Signed(v), pub) for v in (15, 5)]
+    if rt.decrypt_many(rt.run(mul, mul_args, pub), priv) != [75]:
+        raise SystemExit(f"{label}: simple_multiply(15, 5) != 75")
+
+    params64 = chi["chi_sq"].params
+    rt64 = Runtime.new_fhe(params64, DEV)
+    pub64, priv64 = rt64.generate_keys(galois=False)
+    args = [rt64.encrypt(Signed(v), pub64) for v in CHI_IN]
+    outs = {}
+    for name, prog in chi.items():
+        outs[name] = rt64.run(prog, args, pub64)
+        got = tuple(rt64.decrypt_many(outs[name], priv64))
+        if got != CHI_WANT:
+            raise SystemExit(f"{label}: {name}{CHI_IN} = {got}, not "
+                             f"{CHI_WANT}")
+    print(f"{label} decrypt gate: simple_multiply(15, 5) = 75, chi_sq and "
+          f"chi_sq_optimized{CHI_IN} = {CHI_WANT}", flush=True)
+
+    rt_cpu = Runtime.new_fhe(params64, "cpu")
+    _bits_equal(f"{label} chi_sq card vs CPU", outs["chi_sq"], rt_cpu.run(
+        chi["chi_sq"], [c.to("cpu") for c in args], pub64.to("cpu")))
+    print(f"{label}: chi_sq on the card == CPU plain path, bit for bit",
+          flush=True)
+
+    pub2, priv2 = rt64.generate_keys(galois=False)
+    args2 = [rt64.encrypt(Signed(v), pub2) for v in CHI_IN]
+    for pk, sk, a in ((pub2, priv2, args2), (pub64, priv64, args)):
+        got = tuple(rt64.decrypt_many(rt64.run(chi["chi_sq"], a, pk), sk))
+        if got != CHI_WANT:
+            raise SystemExit(f"{label}: chi_sq under a second key set = "
+                             f"{got}")
+    print(f"{label}: one compiled chi_sq under two key sets decrypts "
+          f"under each", flush=True)
+
+    prog_l = ser.program_from_bytes(ser.program_to_bytes(chi["chi_sq"]))
+    pub_l, _ = ser.public_keys_from_bytes(
+        ser.public_keys_to_bytes(pub64, params64), params64, DEV)
+    args_l = [ser.ciphertext_from_bytes(ser.ciphertext_to_bytes(c),
+                                        params64, DEV) for c in args]
+    outs_l = rt64.run(prog_l, args_l, pub_l)
+    _bits_equal(f"{label} serialization", outs_l, outs["chi_sq"])
+    _bits_equal(f"{label} output bytes", [
+        ser.ciphertext_from_bytes(ser.ciphertext_to_bytes(c), params64, DEV)
+        for c in outs_l], outs_l)
+    print(f"{label}: chi_sq's program, public keys and inputs through "
+          f"bytes run to the same ciphertexts, bit for bit", flush=True)
+
+    every = (Compiler(DEV).with_params(default)
+             .fhe_program(progs["every_op"]).compile()
+             .get_program("every_op"))
+    ops_used = {node.op.value for node in every.nodes}
+    rtb = Runtime.new_fhe(default, DEV)
+    t0 = time.perf_counter()
+    pubb, privb = rtb.generate_keys()
+    keygen_s = time.perf_counter() - t0
+    rng = np.random.default_rng(20)
+    x, y = rng.integers(-1000, 1000, (2, N))
+    got = rtb.decrypt_many(rtb.run(every, [rtb.encrypt(Batched(x), pubb),
+                                           rtb.encrypt(Batched(y), pubb)],
+                                   pubb), privb)
+    for i, (g, w) in enumerate(zip(got, _every_op_want(
+            x, y, default.plain_modulus), strict=True)):
+        if not np.array_equal(g, w):
+            raise SystemExit(f"{label}: every_op output {i} FAILED the "
+                             f"slot gate")
+    print(f"{label} slot gate: every_op's {len(got)} outputs decode to "
+          f"numpy slot by slot; ops {sorted(ops_used)}; keygen with "
+          f"{len(pubb.galois_keys.keys)} Galois keys {keygen_s:.1f} s",
+          flush=True)
+
+    def chi_step():
+        rt64.run(chi["chi_sq"], args, pub64)
+
+    def mul_step():
+        rt.run(mul, mul_args, pub)
+
+    for name, step in (("chi_sq", chi_step), ("simple_multiply", mul_step)):
+        rate = _rate(step, per_step=1)
+        print(f"{name} run: {rate:.1f} ops/s (N={N}, batch 1, median of "
+              f"{REPS} x {ITERS}); latency {_latency_ms(step):.3f} ms "
+              f"(median of {REPS}) on {smi}", flush=True)
+    per_op = _per_op(chi_step)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if per_op["fwd_tensor3"] != 6 or per_op["inv_ks"] != 6:
+        raise SystemExit(f"{label}: one chi_sq run launched fwd_tensor3 "
+                         f"{per_op['fwd_tensor3']}x and inv_ks "
+                         f"{per_op['inv_ks']}x, not 6x each")
+    _path_counts(label, launches, DEFAULT_MUL,
+                 NEW_KERNELS + ("fwd_tensor3_full", "pntt_fwd", "pntt_inv",
+                                "pntt_pmul") + U64_KERNELS)
+    print(f"launches per chi_sq run: {json.dumps(per_op)}", flush=True)
+    profile_breakdown("chi_sq_run", chi_step)
+    return launches, per_op
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2546,6 +2800,10 @@ def main() -> int:
     del cbs_cts, ggsws
     paths["tfhe_flow"] = tfhe_flow_path(fine, smi)
     del fine
+
+    # --- path 20: @fhe_program -> Compiler -> Runtime.new_fhe: the
+    # searched default_u32(8192) chain, B1-B8 through bfv/ops.py --------
+    paths["compiler"] = compiler_path(smi)
 
     for row in table:
         name = row["name"]

@@ -3,7 +3,8 @@ public, relinearization and Galois keys, stored in the NTT domain, plus
 `from_reference` / `galois_from_reference` to carry the JAX package's
 key material over.
 
-Keys are sampled from an explicit `torch.Generator` through the
+Keys are sampled from an explicit generator (a `torch.Generator`, or
+the runtime's numpy generator, `sampling.key_from_seed`) through the
 context's plans. Each NTT mode's domain is the reference's for that mode
 ("pallas": the flat j2 n1 + j1 order; "pallas_vpu": the [t', s'] order;
 "unrolled" and "compact": bit-reversed order; "matmul": natural order),
@@ -129,22 +130,30 @@ def default_rotation_elements(ctx: BfvContext) -> tuple[int, ...]:
     return tuple(sorted(elems))
 
 
-def _check_mode(ctx: BfvContext, mode: str | None) -> None:
-    """Raises unless `mode`, the NTT mode of the reference context that
-    made some NTT-domain arrays, gives this context's NTT domains once
-    degraded for its moduli as the reference degrades it."""
-    if mode is None:
-        raise InvalidArgument(
-            "NTT-domain key material needs the NTT mode of the reference "
-            "context that made it (mode=...)")
+def domain_mismatch(ctx: BfvContext, mode: str) -> str | None:
+    """Why NTT-domain arrays made by a context of NTT mode `mode` are
+    not in this context's NTT domains once `mode` is degraded for its
+    moduli as the reference degrades it, or None when they are."""
     for plan, mods in ((ctx.plan_q, ctx.q_base.moduli),
                        (ctx.plan_key, ctx.key_mods)):
         theirs = ntt.degrade(ctx.n, mods, mode)
         if not ntt.same_domain(theirs, plan.mode):
-            raise InvalidArgument(
-                f"key material from NTT mode {mode!r} ({theirs!r} for "
-                f"these moduli) is not in this context's NTT domain "
-                f"({plan.mode!r}); build the context under that mode")
+            return (f"key material from NTT mode {mode!r} ({theirs!r} for "
+                    f"these moduli) is not in this context's NTT domain "
+                    f"({plan.mode!r}); build the context under that mode")
+    return None
+
+
+def _check_mode(ctx: BfvContext, mode: str | None) -> None:
+    """Raises unless `mode`, the NTT mode of the reference context that
+    made some NTT-domain arrays, gives this context's NTT domains."""
+    if mode is None:
+        raise InvalidArgument(
+            "NTT-domain key material needs the NTT mode of the reference "
+            "context that made it (mode=...)")
+    why = domain_mismatch(ctx, mode)
+    if why:
+        raise InvalidArgument(why)
 
 
 def from_reference(ctx: BfvContext, *, mode: str | None = None, s=None,

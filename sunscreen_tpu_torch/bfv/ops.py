@@ -169,7 +169,13 @@ def noise_distance_words(ctx: BfvContext, sk: SecretKey, ct):
     """Max over coefficients of min(f, 1 - f), f the exact 128-bit
     fractional part of t c(s) / Q, as (hi, lo) u64 bit patterns of the
     2^-128-scaled distance, per ciphertext."""
-    _, (f_hi, f_lo) = ctx.decrypt_scaler.apply(_ct_dot_s(ctx, ct, sk))
+    return decrypt_with_noise(ctx, sk, ct)[1]
+
+
+def decrypt_with_noise(ctx: BfvContext, sk: SecretKey, ct):
+    """`decrypt` and `noise_distance_words` from one pass: (plaintext
+    [..., N], (hi, lo) [...])."""
+    msg, (f_hi, f_lo) = ctx.decrypt_scaler.apply(_ct_dot_s(ctx, ct, sk))
     neg_lo = ~f_lo + 1                           # 2^128 - f, wrapping
     neg_hi = ~f_hi + (f_lo == 0).to(torch.int64)
     f_smaller = m.ult(f_hi, neg_hi) | ((f_hi == neg_hi)
@@ -179,7 +185,7 @@ def noise_distance_words(ctx: BfvContext, sk: SecretKey, ct):
     m_hi = _umax(d_hi, -1)
     m_lo = _umax(torch.where(d_hi == m_hi.unsqueeze(-1), d_lo,
                              torch.zeros_like(d_lo)), -1)
-    return m_hi, m_lo
+    return msg, (m_hi, m_lo)
 
 
 def invariant_noise_budget(ctx: BfvContext, sk: SecretKey, ct):
@@ -189,14 +195,11 @@ def invariant_noise_budget(ctx: BfvContext, sk: SecretKey, ct):
     v = _ct_dot_s(ctx, ct, sk).cpu().numpy()
     qb = ctx.q_base
     big_q, t = qb.product, int(ctx.t)
-    lifts = np.array([p * i % big_q for p, i in
-                      zip(qb.punctured, qb.inv_punctured)], dtype=object)
     lead = v.shape[:-2]
-    flat = v.reshape((-1, qb.k, v.shape[-1])).astype(object)
+    flat = v.reshape((-1, qb.k, v.shape[-1]))
     out = np.empty((flat.shape[0],), dtype=np.float64)
     for r in range(flat.shape[0]):
-        cs = (flat[r] * lifts[:, None]).sum(axis=0) % big_q
-        rem = (cs * t) % big_q
+        rem = (np.array(qb.compose(flat[r]), dtype=object) * t) % big_q
         dist = int(np.maximum(np.minimum(rem, big_q - rem), 1).max())
         out[r] = float((big_q // (2 * dist)).bit_length() - 1) \
             if 2 * dist <= big_q else 0.0

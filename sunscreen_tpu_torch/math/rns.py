@@ -23,9 +23,10 @@ Layouts: polynomials are [..., k, N], limb-major.
 
 from __future__ import annotations
 
-import torch
-
 from functools import lru_cache
+
+import numpy as np
+import torch
 
 from sunscreen_tpu_torch import resolve_device
 from sunscreen_tpu_torch.math import modular as m
@@ -80,6 +81,29 @@ class RnsBase:
     @property
     def u64(self) -> bool:
         return self.word == U64
+
+    # -- host-side exact CRT (tests, key material, encodings) ---------------
+
+    def compose(self, residues) -> list[int]:
+        """CRT-compose [k, N] residues below their moduli (a tensor or
+        array) to N Python ints in [0, product)."""
+        if isinstance(residues, torch.Tensor):
+            residues = residues.cpu().numpy()
+        arr = np.asarray(residues).astype(np.int64).astype(object)
+        assert arr.shape[0] == self.k
+        lifts = np.array([p * i % self.product for p, i in
+                          zip(self.punctured, self.inv_punctured)],
+                         dtype=object)
+        return ((arr * lifts[:, None]).sum(axis=0) % self.product).tolist()
+
+    def decompose(self, values) -> np.ndarray:
+        """N Python ints -> [k, N] uint64 residues (the reference's
+        dtype)."""
+        vals = [int(v) % self.product for v in values]
+        out = np.empty((self.k, len(vals)), dtype=np.uint64)
+        for i, q in enumerate(self.moduli):
+            out[i] = np.array([v % q for v in vals], dtype=np.uint64)
+        return out
 
     def mul(self, a, b):
         """Exact (a b) mod q per limb for residues a, b [..., k, N]."""

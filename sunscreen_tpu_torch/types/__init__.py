@@ -1,0 +1,5 @@
+"""FHE DSL types (port of `sunscreen_tpu.types`, without its ZKP types)."""
+
+from sunscreen_tpu_torch.types.bfv_types import (  # noqa: F401
+    Array, Batched, BfvType, Cipher, Fractional, Rational, Signed,
+    Unsigned, Unsigned64, Unsigned128)
