@@ -6,10 +6,10 @@
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc` (printing
 ptxas' registers, stack and spills of the kernels in ntt.cu, tensor3.cu,
-inv_ks.cu, ks_full.cu, inv_tensor3.cu, pntt.cu and rns.cu with each one's
-threads and shared memory a block, and the IMAD-class and total SASS
+inv_ks.cu, ks_full.cu, inv_tensor3.cu, pntt.cu, rns.cu and msm.cu with each
+one's threads and shared memory a block, and the IMAD-class and total SASS
 instructions of rns_convert, rns_scale and scale_convert), holds each of the
-twenty-one kernel entry points bit for bit against its plain
+twenty-two kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
 `BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
 `ks_full_limbs`; the "pallas_vpu" plan's multiply and encryption shapes
@@ -29,8 +29,11 @@ bounds; B14 and B15 also timed beside the two kernels each replaces,
 B2 + B5 and, at both TFHE steps, B1 + B5, on the same inputs), holds B1-B5,
 B12-B15 at every N from 256 to 16384 and B16 from 128 to 32768
 (`transform_checks`: edge residues, raw words up to 2^32 - 1, a 30-bit
-and three small moduli), then drives twenty-three paths, each with the
-launch counts set to 0 just before it and read just after:
+and three small moduli), holds M1 (the Pippenger MSM over ristretto255,
+csrc/msm.cu) against its plain version and the host C++ MSM by ristretto
+encoding at n = 2049, 4096 and 65536 and times the three (`check_msm`),
+then drives twenty-five paths, each with the launch counts set to 0 just
+before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
    batch 64, under the default fusion settings;
@@ -86,7 +89,12 @@ launch counts set to 0 just before it and read just after:
     search on, engine auto) -> `Runtime.new_fhe` on simple_multiply,
     chi_sq and chi_sq_optimized (examples/) and a `Batched` program of
     every IR op kind with the default Galois keys, at the searched
-    `default_u32(8192)` chain, batch 1: B1-B8 through `bfv/ops.py`.
+    `default_u32(8192)` chain, batch 1: B1-B8 through `bfv/ops.py`;
+21. the ZKP compiler and runtime: benchmarks/zkp_bench.py's fractional
+    range proof (1024 gates) through `@zkp_program` -> `Compiler` ->
+    `Runtime.new_zkp` on the card, prove and verify, the multiexps of
+    2048 points and more on M1; 21b. path 21 under `SUNSCREEN_TPU_MSM=0`
+    (every multiexp on the host C++).
 
 Paths 1-3, 7 and 16-18 pass a decrypt (18: CMUX) gate and a card-vs-CPU
 bit-exact check on one ciphertext; paths 4-6 and 10 must give path 1's
@@ -96,9 +104,11 @@ card-vs-CPU multiply; path 11 a slot-wise gate on every output; paths
 13 and 14 the decrypt gate, a card-vs-CPU check and the rotation or
 golden gates; path 19 a decrypt gate per op and a card-vs-CPU check per
 deterministic op; path 20 the searched-params, decrypt and slot gates, a
-card-vs-CPU `run`, two key sets and a serialization round trip. Paths
-1-10, 12-15b, 16-18 and 20 are then timed and
-profiled; a profile window, bounded on the
+card-vs-CPU `run`, two key sets and a serialization round trip; paths 21
+and 21b verify, refuse another constant and an out-of-range witness, and
+under seeded blindings give the CPU's proof bytes, and each other's.
+Paths 1-10, 12-15b, 16-18, 20, 21 and 21b are then timed, and all but
+21b (no device op) profiled; a profile window, bounded on the
 device clock by two marker spins, whose kernel events differ from the
 launch counts is taken again, and the run fails if three retries differ
 too. Kernel times are device times: each timed run is queued behind a
@@ -139,7 +149,8 @@ GATES = ("SUNSCREEN_TPU_FUSED_RNS", "SUNSCREEN_TPU_FUSE_INV",
          "SUNSCREEN_TPU_FUSE_TFULL", "SUNSCREEN_TPU_FUSE_SC",
          "SUNSCREEN_TPU_FUSE_KS", "SUNSCREEN_TPU_FUSE_KSFULL",
          "SUNSCREEN_TPU_TFHE_KSFULL", "SUNSCREEN_TPU_NTT",
-         "SUNSCREEN_TPU_COMPACT_NTT", "SUNSCREEN_TPU_MEASURED_SEARCH")
+         "SUNSCREEN_TPU_COMPACT_NTT", "SUNSCREEN_TPU_MEASURED_SEARCH",
+         "SUNSCREEN_TPU_MSM")
 UNFUSED = {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_SC": "0",
            "SUNSCREEN_TPU_FUSE_KS": "0"}
 T3 = {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_T3": "1"}
@@ -1178,7 +1189,9 @@ KERNEL_KEYS = {
     "pntt_pmul_kernel": ("pntt_pmul",),
     "u64_shoup_kernel": ("shoup_mul_mod",),
     "u64_mul_mod_kernel": ("mul_mod",),
-    "pointwise_mul_mod_kernel": ("pointwise_mul_mod",)}
+    "pointwise_mul_mod_kernel": ("pointwise_mul_mod",),
+    "msm_sort_kernel": ("msm",), "msm_bucket_kernel": ("msm",),
+    "msm_window_kernel": ("msm",), "msm_join_kernel": ("msm",)}
 PROFILE_RETRIES = 5
 MARK_CYCLES = 200_000        # a 0.1 ms spin marks each end of a profile window
 WARMUP_SPINS, WARMUP_STEPS = 4, 2   # traced ahead of the window, not counted
@@ -2639,6 +2652,263 @@ def compiler_path(smi: str):
     return launches, per_op
 
 
+# --- M1 and path 21: the ZKP stack ----------------------------------------
+MSM_NS = (2049, 4096, 65536)   # the prover's A_I1 and S1 at 1024 gates,
+#                                benchmarks/zkp_bench.py's MSM_N, a large MSM
+MSM_DISTINCT = 64              # distinct points of a kernel-phase MSM, tiled
+# 32-bit multiplies of a point addition: 9 field multiplies of 64 products
+# and 8 for the fold by 38, each 32 x 32 -> 64 bits counting 2
+MSM_ADD_MULS = 9 * 72 * 2
+SRC_MSM = "sunscreen_tpu_torch/csrc/msm.cu"
+ZKP_CONST, ZKP_OUT_OF_RANGE = 4, 8   # the balance 7 against 4, and 7 - 8 < 0
+ZKP_SEED = 21                  # blindings of the seeded proofs
+ZKP_REPS = 5                   # prove and verify times: median of 5
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Host ms of one synchronized call of fn: the median of `reps` after a
+    warm call (for host-bound work, which `_median_ms`'s spin cannot
+    cover)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def msm_inputs(n: int, seed: int):
+    """Seeded scalars holding 0, 1, L - 1 and 2^252, an eighth of bits (as
+    the prover's witnesses) and a sixteenth of one repeated scalar (repeated
+    digits), and MSM_DISTINCT points tiled (repeated points)."""
+    import random
+    from sunscreen_tpu_torch.zk import curve25519 as cv
+    from sunscreen_tpu_torch.zk import native
+    rng = random.Random(seed)
+    sc = [rng.randrange(cv.L) for _ in range(n)]
+    sc[:4] = [0, 1, cv.L - 1, 1 << 252]
+    sc[4:n // 8] = [rng.randrange(2) for _ in range(4, n // 8)]
+    sc[n // 2:n // 2 + n // 16] = [sc[n // 2]] * (n // 16)
+    base = native.batch_scalar_mul(
+        [rng.randrange(1, cv.L) for _ in range(MSM_DISTINCT)],
+        [cv.BASEPOINT] * MSM_DISTINCT)
+    return sc, [base[i % MSM_DISTINCT] for i in range(n)]
+
+
+def msm_ptxas() -> dict[str, dict[str, int]]:
+    """ptxas' registers, stack and spills of msm.cu's four kernels."""
+    from sunscreen_tpu_torch import _build
+    out, kernel, spill = {}, None, None
+    for line in _build.build_log("msm").splitlines():
+        m = re.search(r"entry function '(_Z\w+)'", line)
+        if m:
+            kernel = _demangle(m.group(1))[0]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m and kernel:
+            spill = [int(v) for v in m.groups()]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel and spill:
+            out[kernel] = {"registers": int(m.group(1)), "stack": spill[0],
+                           "spill_stores": spill[1], "spill_loads": spill[2]}
+            print(f"ptxas {kernel}: {m.group(1)} registers, {spill[0]} B "
+                  f"stack, {spill[1]}/{spill[2]} B spill stores/loads",
+                  flush=True)
+            kernel = spill = None
+    return out
+
+
+def check_msm() -> dict:
+    """M1 (`cuda_curve.msm`, csrc/msm.cu) at each of MSM_NS on `msm_inputs`:
+    the kernel's sum, its plain version's on the card and the host C++
+    Pippenger's (`ristretto_msm`, threaded) must encode to the same
+    ristretto bytes; then the kernel's device time, the plain version's
+    and the host C++'s wall time, and the bound (32-bit multiplies of
+    ceil(253 / c) (n + 2^(c + 1)) point additions at the c that needs the
+    fewest, whatever the kernel's own limit on c, or the bytes of the
+    scalars and points, whichever takes longer). Returns M1's row of the
+    kernels line (its main shape n = 2049, the path's)."""
+    import torch
+    from sunscreen_tpu_torch.zk import cuda_curve as cc
+    from sunscreen_tpu_torch.zk import native
+
+    ptxas = msm_ptxas()
+    at = {}
+    for n in MSM_NS:
+        sc, pts = msm_inputs(n, n)
+        s, p = cc.to_tensors(sc, pts, DEV)
+        c = cc.window_bits(n)
+        got = cc.msm(s, p)
+        torch.cuda.synchronize()
+        plain = cc.msm_plain(s, p, c)
+        sb, pb = bytes(s.cpu().numpy()), bytes(p.cpu().numpy())
+        enc = [cc.point_of(got).encode(), cc.point_of(plain).encode(),
+               native.msm_bufs(sb, pb, n).encode()]
+        err = max(abs(a - b) for a, b in zip(enc[0], enc[1]))
+        exact = enc[0] == enc[1] == enc[2]
+        print(f"check msm@{n} (c = {c}): kernel == plain == host C++ by "
+              f"ristretto encoding: {exact} (tolerance 0: exact group "
+              f"arithmetic)", flush=True)
+        if not exact:
+            raise SystemExit(f"kernel msm@{n} disagrees: kernel "
+                             f"{enc[0].hex()}, plain {enc[1].hex()}, host "
+                             f"C++ {enc[2].hex()}")
+        ms = _median_ms(lambda: cc.msm(s, p), reps=5, iters=KERNEL_ITERS)
+        plain_ms = _wall_ms(lambda: cc.msm_plain(s, p, c), reps=1)
+        host_ms = _wall_ms(lambda: native.msm_bufs(sb, pb, n), reps=3)
+        adds = cc.fewest_additions(n)
+        t_ops = adds * MSM_ADD_MULS / PEAK_INT_MULS_PER_S * 1e3
+        t_bytes = (160 * n + 128) / PEAK_BYTES_PER_S * 1e3
+        print(f"time msm@{n}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+              f"host C++ {host_ms:.3f} ms ({os.cpu_count()} cores), bound "
+              f"{max(t_ops, t_bytes):.4f} ms ({adds} point additions "
+              f"= {adds * MSM_ADD_MULS / 1e9:.4f} G 32-bit multiplies "
+              f"= {t_ops:.4f} ms, {160 * n + 128} B = {t_bytes:.5f} ms)",
+              flush=True)
+        at[n] = {"n": n, "c": c, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                 "library_ms": None, "host_cpp_ms": host_ms}
+    main_n, *others = MSM_NS
+    return {"name": "msm", "route": "cuda", "source": SRC_MSM,
+            "replaces": "sunscreen_tpu/zk/tpu_curve.py:240", "launches": 0,
+            **at[main_n], **{f"at_{n}": at[n] for n in others},
+            "ptxas": ptxas}
+
+
+def fractional_range_program():
+    """benchmarks/zkp_bench.py's fractional range proof (upstream
+    `benches/fractional_range_proof.rs`) under the port's `@zkp_program`:
+    [[Field; 8]; 64] private two's-complement bits recombined into a
+    value, minus a constant, must fit 8 bits. Returns the program and the
+    bits of the balance 7 = 3 * 1 + 2 * 2."""
+    from sunscreen_tpu_torch.types.zkp_types import (Constant, Field,
+                                                     Private, zkp_program)
+
+    @zkp_program()
+    def in_range(balance: Private[Field, (64, 8)],
+                 unshielded: Constant[Field]):
+        def coeff(bits):
+            acc = None
+            for i, b in enumerate(bits):
+                t = b * ((1 << i) if i < 7 else -(1 << 7))
+                acc = t if acc is None else acc + t
+            return acc
+
+        val = None
+        for j, row in enumerate(balance):
+            t = coeff(row) * (1 << j)
+            val = t if val is None else val + t
+        (val - unshielded).to_unsigned(8)
+
+    bal = [[0] * 8 for _ in range(64)]
+    bal[0][0] = bal[0][1] = bal[1][1] = 1
+    return in_range, [b for row in bal for b in row]
+
+
+def zkp_path(label, smi: str, device_msm: bool, want=None):
+    """Path 21 (device_msm) or 21b (under SUNSCREEN_TPU_MSM=0): the
+    fractional range proof through `@zkp_program` ->
+    `Compiler(DEV).zkp_backend().zkp_program(f).compile()` ->
+    `Runtime.new_zkp()` on the card -> prove and verify (1024 gates). Gates:
+    the proof verifies, not against another constant, and a witness out of
+    range raises; under blindings seeded with ZKP_SEED the proof's bytes
+    equal those of the port on device="cpu" (and `want`, path 21's), and it
+    verifies on the CPU; a proof launches M1 twice and a verification twice
+    (21b: never). Then prove and verify ms (median of ZKP_REPS), proofs/s
+    and, on path 21, the device's busy share of a proof (profile). Returns
+    the path's launches and those of one proof, and the seeded proof's
+    bytes."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.compiler import Compiler
+    from sunscreen_tpu_torch.runtime import Runtime
+    from sunscreen_tpu_torch.zk.backend import BulletproofsProof
+    from sunscreen_tpu_torch.zk.r1cs import scalar_source
+
+    prog, flat = fractional_range_program()
+    const = [ZKP_CONST]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    zp = (Compiler(DEV).zkp_backend().zkp_program(prog).compile()
+          .get_zkp_program(prog))
+    rt = Runtime.new_zkp(device=DEV)
+    setup_s = time.perf_counter() - t0
+    proof = rt.prove(zp, flat, constant_inputs=const)
+    if not rt.verify(zp, proof, constant_inputs=const):
+        raise SystemExit(f"{label}: the proof does not verify")
+    if rt.verify(zp, proof, constant_inputs=[ZKP_CONST + 1]):
+        raise SystemExit(f"{label}: the proof verifies against another "
+                         f"constant")
+    try:
+        rt.prove(zp, flat, constant_inputs=[ZKP_OUT_OF_RANGE])
+    except ValueError:
+        pass
+    else:
+        raise SystemExit(f"{label}: a witness out of range was proved")
+    print(f"{label} gates: the proof verifies, not against the constant "
+          f"{ZKP_CONST + 1}, and 7 - {ZKP_OUT_OF_RANGE} raises (compile and "
+          f"runtime {setup_s:.1f} s)", flush=True)
+
+    def prove(on=rt):
+        return on.backend.prove(zp.build(), flat, constant_inputs=const,
+                                device=on.device,
+                                rand_scalar=scalar_source(ZKP_SEED))
+
+    def verify():
+        return rt.verify(zp, seeded, constant_inputs=const)
+
+    before = _build.LAUNCHES["msm"]
+    seeded = prove()
+    per_prove = _build.LAUNCHES["msm"] - before
+    before = _build.LAUNCHES["msm"]
+    ok = verify()
+    per_verify = _build.LAUNCHES["msm"] - before
+    want_per = 2 if device_msm else 0
+    if not ok or (per_prove, per_verify) != (want_per, want_per):
+        raise SystemExit(f"{label}: seeded proof verifies {ok}; msm "
+                         f"launches {per_prove} a proof and {per_verify} a "
+                         f"verification, not {want_per}")
+    blob = seeded.to_bytes()
+    cpu = Runtime.new_zkp(device="cpu")
+    if prove(cpu).to_bytes() != blob:
+        raise SystemExit(f"{label}: seeded proof bytes differ from the CPU's")
+    if want is not None and blob != want:
+        raise SystemExit(f"{label}: seeded proof bytes differ from path 21's")
+    if not cpu.verify(zp, BulletproofsProof.from_bytes(blob),
+                      constant_inputs=const):
+        raise SystemExit(f"{label}: the card's proof does not verify on the "
+                         f"CPU")
+    print(f"{label}: seeded proof == the CPU's{' == path 21' if want else ''}"
+          f", byte for byte ({len(blob)} B), and verifies on the CPU; msm "
+          f"launches {per_prove} a proof, {per_verify} a verification",
+          flush=True)
+    prove_ms = _wall_ms(prove, ZKP_REPS)
+    verify_ms = _wall_ms(verify, ZKP_REPS)
+    print(f"{label}: {1e3 / prove_ms:.4f} proofs/s; prove {prove_ms:.1f} ms, "
+          f"verify {verify_ms:.1f} ms (median of {ZKP_REPS}, 1024 gates) on "
+          f"{smi}", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    _path_counts(label, launches, ("msm",) if device_msm else (),
+                 tuple(k for k in launches if k != "msm" or not device_msm))
+    if device_msm:
+        prof = profile_breakdown(label, prove, batches=1, warmup=verify)
+        print(f"{label}: the device is busy {prof['busy_ms']:.3f} ms of a "
+              f"proof's {prof['wall_ms']:.1f} ms "
+              f"({100 * prof['busy_ms'] / prof['wall_ms']:.2f}%)", flush=True)
+    per_op = dict.fromkeys(launches, 0)
+    per_op["msm"] = per_prove
+    return (launches, per_op), blob
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2673,6 +2943,7 @@ def main() -> int:
     table = check_kernels(ctx, gen)
     check_wide(gen)
     transform_checks(gen)
+    table.append(check_msm())
     t = params.plain_modulus
     paths: dict[str, tuple[dict, dict]] = {}
 
@@ -2805,6 +3076,14 @@ def main() -> int:
     # searched default_u32(8192) chain, B1-B8 through bfv/ops.py --------
     paths["compiler"] = compiler_path(smi)
 
+    # --- paths 21 and 21b: @zkp_program -> Compiler -> Runtime.new_zkp,
+    # the fractional range proof with the device MSM (M1), then on the host
+    # C++ alone ----------------------------------------------------------
+    paths["zkp"], blob = zkp_path("zkp", smi, device_msm=True)
+    with _gates({"SUNSCREEN_TPU_MSM": "0"}):
+        paths["zkp_host"], _ = zkp_path("zkp_host", smi, device_msm=False,
+                                        want=blob)
+
     for row in table:
         name = row["name"]
         row["launches_by_path"] = {p: v[0][name] for p, v in paths.items()}
@@ -2823,7 +3102,7 @@ def main() -> int:
 
 COMPARE_TURNS = ("against", "this", "this", "against")
 RATE_RE = re.compile(r"(?:^|, )([A-Za-z_][\w@ ()]*?): ([0-9.e+]+) "
-                     r"(ops/s|rotations/s|PBS/s|elements/s)")
+                     r"(ops/s|rotations/s|PBS/s|elements/s|proofs/s)")
 PROFILE_RE = re.compile(r"profile (\S+):\s+([0-9.]+) ms\s+[0-9.]+%\s+(.*)")
 
 
@@ -2838,7 +3117,8 @@ def _parse_run(text: str) -> dict[str, float]:
             for row in json.loads(line)["kernels"]:
                 out[f"kernel {row['name']} ms"] = row["ms"]
                 for where in ("at_pbs_step", "at_pbs_step_16",
-                              f"at_{WIDE_N}", f"at_{VPU_N}"):
+                              f"at_{WIDE_N}", f"at_{VPU_N}",
+                              *(f"at_{n}" for n in MSM_NS[1:])):
                     if where in row:
                         out[f"kernel {row['name']}@{where[3:]} ms"] = (
                             row[where]["ms"])

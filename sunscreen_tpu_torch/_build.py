@@ -15,7 +15,8 @@ Keys name the entry points: "fwd", "fwd_broadcast", "inv" (B1-B3),
 "mod_down" (B8), "scale" (B9), "tensor3" (B10), "ks_inner" (B11),
 "inv_tensor3" (B12), "fwd_tensor3_full" (B13), "ks_full" (B14),
 "ks_full_limbs" (B15), "pntt_fwd" and "pntt_inv" (B16), "pntt_pmul"
-(B17), "shoup_mul_mod" and "mul_mod" (B18), "pointwise_mul_mod" (B19).
+(B17), "shoup_mul_mod" and "mul_mod" (B18), "pointwise_mul_mod" (B19),
+and "msm" (M1, `zk/cuda_curve.py`: one count a call of its four kernels).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ SIGNATURES = {
     "u64mod": {"u64_shoup_mul_mod": "ppppppiiup",
                "u64_mul_mod": "pppppiiuuup",
                "pointwise_mul_mod": "ppppppluuup"},
+    "msm": {"msm": "pppppppp" + "ii" + "p"},
 }
 
 LAUNCHES = dict.fromkeys(
@@ -57,7 +59,7 @@ LAUNCHES = dict.fromkeys(
      "convert", "scale_convert", "mod_down",
      "scale", "tensor3", "ks_inner", "inv_tensor3", "fwd_tensor3_full",
      "ks_full", "ks_full_limbs", "pntt_fwd", "pntt_inv", "pntt_pmul",
-     "shoup_mul_mod", "mul_mod", "pointwise_mul_mod"), 0)
+     "shoup_mul_mod", "mul_mod", "pointwise_mul_mod", "msm"), 0)
 
 
 def reset_launches() -> None:

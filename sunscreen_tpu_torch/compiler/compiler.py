@@ -6,8 +6,9 @@ on CUDA, whose kernels hold it, and follows the reference elsewhere (u64
 off the TPU: `compiler.py:136-139`). The search skips a degree whose
 context raises the port's `Unsupported` (the "pallas" plans stop at
 N = 16384, `math/ntt.py`), in the measured run too, where the reference
-asserts. The ZKP half of the builder (`zkp_program`, `zkp_backend`,
-`get_zkp_program`) is not ported yet.
+asserts. The builder's ZKP half (`zkp_program`, `zkp_backend`,
+`Application.get_zkp_program`) is the reference's: a ZKP-only application
+needs no FHE params.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from sunscreen_tpu_torch.compiler.ir import FheProgram, Op
 from sunscreen_tpu_torch.compiler.passes import compile_program
 from sunscreen_tpu_torch.compiler.trace import CallSignature, FheProgramFn
 from sunscreen_tpu_torch.errors import ParamsError, Unsupported
+from sunscreen_tpu_torch.types.zkp_types import ZkpProgramFn
+from sunscreen_tpu_torch.zk.backend import BulletproofsBackend
 
 DEFAULT_NOISE_MARGIN_BITS = 20  # reference: compiler.rs:148-159
 
@@ -85,14 +88,21 @@ class CompiledFheProgram:
 @dataclass
 class Application:
     """name -> program map sharing one parameter set (reference:
-    `Application<T>`, `sunscreen/src/lib.rs:83-218`)."""
+    `Application<T>`, `sunscreen/src/lib.rs:83-218`), with the ZKP
+    programs when the builder compiles some."""
 
     params: BfvParams | None
     programs: dict[str, CompiledFheProgram] = field(default_factory=dict)
+    zkp_programs: dict[str, object] = field(default_factory=dict)
 
     def get_program(self, name_or_fn) -> CompiledFheProgram:
         name = getattr(name_or_fn, "name", name_or_fn)
         return self.programs[name]
+
+    def get_zkp_program(self, name_or_fn):
+        """Reference: `Application::get_zkp_program` (`lib.rs:200-218`)."""
+        name = getattr(name_or_fn, "name", name_or_fn)
+        return self.zkp_programs[name]
 
 
 class Compiler:
@@ -107,6 +117,8 @@ class Compiler:
     def __init__(self, device=None):
         self._device = device
         self._programs: list[FheProgramFn] = []
+        self._zkp_programs: list = []
+        self._zkp_backend = None
         self._params: BfvParams | None = None
         self._plain_constraint = PlainModulusConstraint.BatchingMinimum(20)
         self._security = 128
@@ -149,6 +161,22 @@ class Compiler:
         if any(p.name == prog.name for p in self._programs):
             raise ValueError(f"duplicate program name {prog.name!r}")
         self._programs.append(prog)
+        return self
+
+    def zkp_program(self, prog) -> "Compiler":
+        """Add a `@zkp_program` function (reference:
+        `Compiler::zkp_program`, `sunscreen/src/compiler.rs:360-457`)."""
+        if not isinstance(prog, ZkpProgramFn):
+            raise TypeError("expected a @zkp_program-decorated function")
+        if any(p.name == prog.name for p in self._zkp_programs):
+            raise ValueError(f"duplicate zkp program name {prog.name!r}")
+        self._zkp_programs.append(prog)
+        return self
+
+    def zkp_backend(self, backend=None) -> "Compiler":
+        """The proof backend (reference: `Compiler::zkp_backend::<B>()`,
+        `compiler.rs:304`); Bulletproofs by default."""
+        self._zkp_backend = backend or BulletproofsBackend()
         return self
 
     def with_params(self, params: BfvParams) -> "Compiler":
@@ -247,18 +275,25 @@ class Compiler:
     # -- compile -------------------------------------------------------------
 
     def compile(self) -> Application:
-        if not self._programs:
+        if not self._programs and not self._zkp_programs:
             raise ValueError("no programs to compile")
         if (len(self._programs) > 1
                 and any(pf.chain_count != 1 for pf in self._programs)):
             raise Unsupported(
                 "chain_count > 1 requires compiling exactly one program "
                 "(reference: compiler.rs chaining restriction)")
-        params = self._params or self._search_params()
+        params = None
+        if self._programs:
+            params = self._params or self._search_params()
         app = Application(params)
         for pf in self._programs:
             prog, sig, literals = pf.build(params, self._device)
             prog = compile_program(prog)
             app.programs[pf.name] = CompiledFheProgram(
                 pf.name, prog, sig, literals, params)
+        for zf in self._zkp_programs:
+            # tracing checks the circuit (reference: compile_zkp,
+            # compiler.rs:464-505); the runtime proves from the traced graph
+            zf.build()
+            app.zkp_programs[zf.name] = zf
         return app

@@ -1,5 +1,5 @@
-"""Typed FHE runtime (port of `sunscreen_tpu.runtime`, without its ZKP
-runtimes)."""
+"""Typed FHE and ZKP runtimes (port of `sunscreen_tpu.runtime`)."""
 
 from sunscreen_tpu_torch.runtime.runtime import (  # noqa: F401
-    Ciphertext, FheRuntime, PrivateKey, PublicKeySet, Runtime, TooMuchNoise)
+    Ciphertext, FheRuntime, FheZkpRuntime, PrivateKey, PublicKeySet,
+    Runtime, TooMuchNoise, ZkpRuntime)

@@ -8,8 +8,12 @@ walks the lowered program (`compiler/lower.py`), whose ops launch the
 CUDA kernels on a CUDA context. Keys and encryptions draw from
 `sampling.key_from_seed(seed)`: 128 bits of OS entropy by default.
 
-The ZKP runtimes (`ZkpRuntime`, `FheZkpRuntime`, `Runtime.new_zkp`,
-`new_fhe_zkp`) and `runtime/builders.py` are not ported yet.
+`Runtime.new_zkp(backend=None, device=None)` proves and verifies with the
+Bulletproofs backend (`zk/backend.py`); on CUDA, the default, every
+multiexp of at least 2048 points runs the CUDA Pippenger (`zk/cuda_curve.py`)
+and the rest the host C++ (`zk/native.py`), which must build there
+(`NativeBuildError` otherwise); on `device="cpu"` they run as in the
+reference off the TPU. `Runtime.new_fhe_zkp` joins both runtimes.
 """
 
 from __future__ import annotations
@@ -28,7 +32,11 @@ from sunscreen_tpu_torch.bfv.params import BfvParams
 from sunscreen_tpu_torch.compiler.compiler import CompiledFheProgram
 from sunscreen_tpu_torch.compiler.lower import lower_program
 from sunscreen_tpu_torch.math import sampling
+from sunscreen_tpu_torch.runtime.builders import (ProofBuilder,
+                                                  VerificationBuilder)
 from sunscreen_tpu_torch.types.bfv_types import BfvType, resolve_type
+from sunscreen_tpu_torch.zk import native
+from sunscreen_tpu_torch.zk.backend import BulletproofsBackend
 
 _U64 = (1 << 64) - 1
 
@@ -265,10 +273,62 @@ class FheRuntime:
         return results
 
 
+class ZkpRuntime:
+    """ZKP prove/verify runtime on `device` (None means CUDA; reference:
+    `GenericRuntime` with the Zkp marker, `runtime.rs:681-769`)."""
+
+    def __init__(self, backend=None, device=None):
+        self.backend = backend or BulletproofsBackend()
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            native.require_lib()
+
+    def prove(self, program, private_inputs, public_inputs=(),
+              constant_inputs=()):
+        """A proof of `program` on these inputs. Its blindings come from
+        the OS (`secrets`, `r1cs.scalar_source()`)."""
+        return self.backend.prove(
+            program.build(), [int(x) for x in private_inputs],
+            [int(x) for x in public_inputs],
+            [int(x) for x in constant_inputs], device=self.device)
+
+    def verify(self, program, proof, public_inputs=(),
+               constant_inputs=()) -> bool:
+        return self.backend.verify(
+            program.build(), proof, [int(x) for x in public_inputs],
+            [int(x) for x in constant_inputs], device=self.device)
+
+    def proof_builder(self, program):
+        """Fluent proving API (reference: `Runtime::proof_builder`,
+        `runtime.rs:728-742`)."""
+        return ProofBuilder(self, program)
+
+    def verification_builder(self, program):
+        """Fluent verification API (reference:
+        `Runtime::verification_builder`, `runtime.rs:815-833`)."""
+        return VerificationBuilder(self, program)
+
+
+class FheZkpRuntime(FheRuntime, ZkpRuntime):
+    """Combined runtime (reference: `Runtime::new_fhe_zkp`)."""
+
+    def __init__(self, params: BfvParams, backend=None, device=None):
+        FheRuntime.__init__(self, params, device)
+        ZkpRuntime.__init__(self, backend, device)
+
+
 class Runtime:
-    """The reference's constructor namespace (`runtime.rs:829-917`);
-    `new_zkp` and `new_fhe_zkp` are not ported yet."""
+    """The reference's constructor namespace (`runtime.rs:829-917`)."""
 
     @staticmethod
     def new_fhe(params: BfvParams, device=None) -> FheRuntime:
         return FheRuntime(params, device)
+
+    @staticmethod
+    def new_zkp(backend=None, device=None) -> ZkpRuntime:
+        return ZkpRuntime(backend, device)
+
+    @staticmethod
+    def new_fhe_zkp(params: BfvParams, backend=None,
+                    device=None) -> FheZkpRuntime:
+        return FheZkpRuntime(params, backend, device)

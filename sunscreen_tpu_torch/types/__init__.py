@@ -1,4 +1,4 @@
-"""FHE DSL types (port of `sunscreen_tpu.types`, without its ZKP types)."""
+"""FHE DSL types and the ZKP DSL (port of `sunscreen_tpu.types`)."""
 
 from sunscreen_tpu_torch.types.bfv_types import (  # noqa: F401
     Array, Batched, BfvType, Cipher, Fractional, Rational, Signed,
