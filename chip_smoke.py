@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --against OTHER_TREE
+    python3 chip_smoke.py --against OTHER_TREE [--phase msm]
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc` (printing
 ptxas' registers, stack and spills of the kernels in ntt.cu, tensor3.cu,
@@ -31,7 +31,9 @@ B12-B15 at every N from 256 to 16384 and B16 from 128 to 32768
 (`transform_checks`: edge residues, raw words up to 2^32 - 1, a 30-bit
 and three small moduli), holds M1 (the Pippenger MSM over ristretto255,
 csrc/msm.cu) against its plain version and the host C++ MSM by ristretto
-encoding at n = 2049, 4096 and 65536 and times the three (`check_msm`),
+encoding at n = 2049, 4096 and 65536, a second launch against the first
+one's raw bytes, and times the three, each of M1's three kernels and the
+chain floor, the join's own time (`check_msm`),
 then drives twenty-five paths, each with the launch counts set to 0 just
 before it and read just after:
 
@@ -123,7 +125,8 @@ this one in turns on the same card (other, this, this, other), keeps the
 four logs under chiprun_out/compare/ and prints each number both report
 (kernel times, rates, each profiled cell's device time by kernel) side
 by side, then each side's SASS counts; it fails if any of the four runs
-fails.
+fails. With --phase msm each of the four turns runs only its tree's M1
+phase (`check_msm`): the A/B of a change to csrc/msm.cu, in minutes.
 """
 
 import contextlib
@@ -1190,8 +1193,8 @@ KERNEL_KEYS = {
     "u64_shoup_kernel": ("shoup_mul_mod",),
     "u64_mul_mod_kernel": ("mul_mod",),
     "pointwise_mul_mod_kernel": ("pointwise_mul_mod",),
-    "msm_sort_kernel": ("msm",), "msm_bucket_kernel": ("msm",),
-    "msm_window_kernel": ("msm",), "msm_join_kernel": ("msm",)}
+    "msm_digit_kernel": ("msm",), "msm_sort_kernel": ("msm",),
+    "msm_bucket_kernel": ("msm",)}
 PROFILE_RETRIES = 5
 MARK_CYCLES = 200_000        # a 0.1 ms spin marks each end of a profile window
 WARMUP_SPINS, WARMUP_STEPS = 4, 2   # traced ahead of the window, not counted
@@ -1338,8 +1341,13 @@ def profile_breakdown(label, step, batches: int = 3, warmup=None) -> dict:
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"profile {label}:   {us / batches / 1e3:8.3f} ms  "
               f"{100 * us / busy:5.1f}%  {name[:110]}", flush=True)
+    per_kernel: dict[str, float] = {}
+    for name, us in per_name.items():
+        fn = _kernel_fn(name)
+        per_kernel[fn] = per_kernel.get(fn, 0.0) + us / batches / 1e3
     return {"wall_ms": wall_us / batches / 1e3,
-            "busy_ms": busy / batches / 1e3, "ops": count / batches}
+            "busy_ms": busy / batches / 1e3, "ops": count / batches,
+            "per_kernel": per_kernel}
 
 
 def _rate(step, per_step: int = BATCH) -> float:
@@ -2659,6 +2667,7 @@ MSM_DISTINCT = 64              # distinct points of a kernel-phase MSM, tiled
 # 32-bit multiplies of a point addition: 9 field multiplies of 64 products
 # and 8 for the fold by 38, each 32 x 32 -> 64 bits counting 2
 MSM_ADD_MULS = 9 * 72 * 2
+JOIN_REPS = 5                  # launches whose join times give the median
 SRC_MSM = "sunscreen_tpu_torch/csrc/msm.cu"
 ZKP_CONST, ZKP_OUT_OF_RANGE = 4, 8   # the balance 7 against 4, and 7 - 8 < 0
 ZKP_SEED = 21                  # blindings of the seeded proofs
@@ -2700,7 +2709,7 @@ def msm_inputs(n: int, seed: int):
 
 
 def msm_ptxas() -> dict[str, dict[str, int]]:
-    """ptxas' registers, stack and spills of msm.cu's four kernels."""
+    """ptxas' registers, stack and spills of msm.cu's kernels."""
     from sunscreen_tpu_torch import _build
     out, kernel, spill = {}, None, None
     for line in _build.build_log("msm").splitlines():
@@ -2728,12 +2737,19 @@ def check_msm() -> dict:
     """M1 (`cuda_curve.msm`, csrc/msm.cu) at each of MSM_NS on `msm_inputs`:
     the kernel's sum, its plain version's on the card and the host C++
     Pippenger's (`ristretto_msm`, threaded) must encode to the same
-    ristretto bytes; then the kernel's device time, the plain version's
-    and the host C++'s wall time, and the bound (32-bit multiplies of
-    ceil(253 / c) (n + 2^(c + 1)) point additions at the c that needs the
-    fewest, whatever the kernel's own limit on c, or the bytes of the
-    scalars and points, whichever takes longer). Returns M1's row of the
-    kernels line (its main shape n = 2049, the path's)."""
+    ristretto bytes, and a second launch must give the first one's raw
+    bytes (at the largest n also the kernel at c = MAX_C against the host
+    C++); then the kernel's device time, the plain version's and the host
+    C++'s wall time, the bound (32-bit multiplies of ceil(253 / c)
+    (n + 2^(c + 1)) point additions at the c that needs the fewest,
+    whatever the kernel's own limit on c, or the bytes of the scalars and
+    points, whichever takes longer), each of M1's kernels' device time
+    (profile) and the chain floor: the join's own time as the kernel reads
+    it from the globaltimer (`cuda_curve.join_times`, the median of
+    JOIN_REPS launches), c (nwin - 1) doublings and nwin - 1 additions one
+    after another, without its waits for lower windows, with its latency a
+    point operation. Returns M1's row of the kernels line (its main shape
+    n = 2049, the path's)."""
     import torch
     from sunscreen_tpu_torch.zk import cuda_curve as cc
     from sunscreen_tpu_torch.zk import native
@@ -2745,6 +2761,7 @@ def check_msm() -> dict:
         s, p = cc.to_tensors(sc, pts, DEV)
         c = cc.window_bits(n)
         got = cc.msm(s, p)
+        again = cc.msm(s, p)
         torch.cuda.synchronize()
         plain = cc.msm_plain(s, p, c)
         sb, pb = bytes(s.cpu().numpy()), bytes(p.cpu().numpy())
@@ -2752,29 +2769,58 @@ def check_msm() -> dict:
                native.msm_bufs(sb, pb, n).encode()]
         err = max(abs(a - b) for a, b in zip(enc[0], enc[1]))
         exact = enc[0] == enc[1] == enc[2]
+        same = torch.equal(got, again)
         print(f"check msm@{n} (c = {c}): kernel == plain == host C++ by "
               f"ristretto encoding: {exact} (tolerance 0: exact group "
-              f"arithmetic)", flush=True)
+              f"arithmetic); two launches give the same raw bytes: {same}",
+              flush=True)
         if not exact:
             raise SystemExit(f"kernel msm@{n} disagrees: kernel "
                              f"{enc[0].hex()}, plain {enc[1].hex()}, host "
                              f"C++ {enc[2].hex()}")
+        if not same:
+            raise SystemExit(f"kernel msm@{n}: two launches gave "
+                             f"{got.cpu().numpy().tobytes().hex()} and "
+                             f"{again.cpu().numpy().tobytes().hex()}")
+        if n == MSM_NS[-1]:            # the widest window the kernel takes
+            wide = cc.point_of(cc.msm(s, p, cc.MAX_C)).encode()
+            print(f"check msm@{n} at c = MAX_C = {cc.MAX_C}: kernel == host "
+                  f"C++: {wide == enc[2]}", flush=True)
+            if wide != enc[2]:
+                raise SystemExit(f"kernel msm@{n} at c = {cc.MAX_C} "
+                                 f"disagrees: {wide.hex()}")
         ms = _median_ms(lambda: cc.msm(s, p), reps=5, iters=KERNEL_ITERS)
         plain_ms = _wall_ms(lambda: cc.msm_plain(s, p, c), reps=1)
         host_ms = _wall_ms(lambda: native.msm_bufs(sb, pb, n), reps=3)
         adds = cc.fewest_additions(n)
         t_ops = adds * MSM_ADD_MULS / PEAK_INT_MULS_PER_S * 1e3
         t_bytes = (160 * n + 128) / PEAK_BYTES_PER_S * 1e3
+        kernels = profile_breakdown(f"msm@{n}", lambda: cc.msm(s, p),
+                                    batches=3)["per_kernel"]
+        kernels = {k: v for k, v in kernels.items() if k.startswith("msm_")}
+        nwin = -(-cc.SCALAR_BITS // c)
+        chain_ops = c * (nwin - 1) + nwin - 1
+        joins = sorted(cc.join_times(s, p) for _ in range(JOIN_REPS))
+        floor, waited = joins[JOIN_REPS // 2]
+        total = sum(kernels.values())
         print(f"time msm@{n}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
               f"host C++ {host_ms:.3f} ms ({os.cpu_count()} cores), bound "
               f"{max(t_ops, t_bytes):.4f} ms ({adds} point additions "
               f"= {adds * MSM_ADD_MULS / 1e9:.4f} G 32-bit multiplies "
-              f"= {t_ops:.4f} ms, {160 * n + 128} B = {t_bytes:.5f} ms)",
-              flush=True)
+              f"= {t_ops:.4f} ms, {160 * n + 128} B = {t_bytes:.5f} ms), "
+              f"chain floor {floor:.4f} ms (the join: {c * (nwin - 1)} "
+              f"doublings and {nwin - 1} additions, "
+              f"{1e3 * floor / chain_ops:.3f} us a point operation; it "
+              f"also waited {waited:.4f} ms for lower windows)", flush=True)
+        print(f"time msm@{n} by kernel (profile, ms a call): "
+              + ", ".join(f"{k} {v:.4f} ({100 * v / total:.1f}%)"
+                          for k, v in kernels.items()), flush=True)
         at[n] = {"n": n, "c": c, "max_abs_err": err, "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                  "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                 "library_ms": None, "host_cpp_ms": host_ms}
+                 "library_ms": None, "host_cpp_ms": host_ms,
+                 "chain_floor_ms": floor, "join_wait_ms": waited,
+                 "kernels_ms": kernels}
     main_n, *others = MSM_NS
     return {"name": "msm", "route": "cuda", "source": SRC_MSM,
             "replaces": "sunscreen_tpu/zk/tpu_curve.py:240", "launches": 0,
@@ -3101,6 +3147,12 @@ def main() -> int:
 
 
 COMPARE_TURNS = ("against", "this", "this", "against")
+# --phase msm: each turn runs that tree's M1 phase alone (with a build of
+# every source, as `check_msm` reads the ptxas log) and prints its row
+PHASES = {"msm": "import json, sys, torch, chip_smoke as s; "
+                 "sys.exit('no CUDA device') "
+                 "if not torch.cuda.is_available() else None; "
+                 "print(json.dumps({'kernels': [s.check_msm()]}))"}
 RATE_RE = re.compile(r"(?:^|, )([A-Za-z_][\w@ ()]*?): ([0-9.e+]+) "
                      r"(ops/s|rotations/s|PBS/s|elements/s|proofs/s)")
 PROFILE_RE = re.compile(r"profile (\S+):\s+([0-9.]+) ms\s+[0-9.]+%\s+(.*)")
@@ -3135,14 +3187,15 @@ def _parse_run(text: str) -> dict[str, float]:
     return out
 
 
-def compare(against: str) -> int:
+def compare(against: str, phase: str | None = None) -> int:
     """Runs `against`/chip_smoke.py (another tree of this repo, say the
     parent commit's `git archive`) and this one in turns, against, this,
     this, against, each in its own process on the same card, keeps each
     log under chiprun_out/compare/, and prints every number both runs
     report as the two readings of each side, their means and this / against,
     and the SASS counts of each side's rns_convert, rns_scale and
-    scale_convert kernels. Fails if any run fails."""
+    scale_convert kernels. With `phase` ("msm") each turn runs only that
+    phase of its tree (`PHASES`). Fails if any run fails."""
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"against": os.path.abspath(against), "this": here}
     logs = os.path.join(os.getcwd(), "chiprun_out", "compare")
@@ -3151,9 +3204,9 @@ def compare(against: str) -> int:
     failed = []
     for i, side in enumerate(COMPARE_TURNS):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "chip_smoke.py"],
-                              cwd=trees[side], capture_output=True,
-                              text=True)
+        cmd = ["-c", PHASES[phase]] if phase else ["chip_smoke.py"]
+        proc = subprocess.run([sys.executable, *cmd], cwd=trees[side],
+                              capture_output=True, text=True)
         log = os.path.join(logs, f"{i}_{side}.log")
         with open(log, "w") as f:
             f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
@@ -3187,6 +3240,10 @@ def compare(against: str) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--against":
         sys.exit(compare(sys.argv[2]))
+    if (len(sys.argv) == 5 and sys.argv[1] == "--against"
+            and sys.argv[3] == "--phase" and sys.argv[4] in PHASES):
+        sys.exit(compare(sys.argv[2], sys.argv[4]))
     if len(sys.argv) != 1:
-        sys.exit("usage: chip_smoke.py [--against OTHER_TREE]")
+        sys.exit("usage: chip_smoke.py [--against OTHER_TREE "
+                 f"[--phase {'|'.join(PHASES)}]]")
     sys.exit(main())

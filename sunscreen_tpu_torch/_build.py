@@ -16,7 +16,7 @@ Keys name the entry points: "fwd", "fwd_broadcast", "inv" (B1-B3),
 "inv_tensor3" (B12), "fwd_tensor3_full" (B13), "ks_full" (B14),
 "ks_full_limbs" (B15), "pntt_fwd" and "pntt_inv" (B16), "pntt_pmul"
 (B17), "shoup_mul_mod" and "mul_mod" (B18), "pointwise_mul_mod" (B19),
-and "msm" (M1, `zk/cuda_curve.py`: one count a call of its four kernels).
+and "msm" (M1, `zk/cuda_curve.py`: one count a call of its three kernels).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ SIGNATURES = {
     "u64mod": {"u64_shoup_mul_mod": "ppppppiiup",
                "u64_mul_mod": "pppppiiuuup",
                "pointwise_mul_mod": "ppppppluuup"},
-    "msm": {"msm": "pppppppp" + "ii" + "p"},
+    "msm": {"msm": "p" * 10 + "iiii" + "p"},
 }
 
 LAUNCHES = dict.fromkeys(

@@ -11,6 +11,17 @@ returns the sum as uint8 [128] in the same layout, each coordinate below
 raises if it cannot); on a CPU tensor it runs the plain version, which
 tests and `chip_smoke.py` use as the oracle.
 
+The kernel (three launches a call; `csrc/msm.cu`'s header has the
+design): the digits of every window and the points' cached forms, a
+stable counting sort of the point indices by digit per window, and the
+buckets' running sums in equal shares of each window's events over teams
+of four lanes (`bucket_shape`: blocks of up to TEAMS teams, about TARGET_TEAMS
+in all, for shares of at least MIN_EVENTS events), each window's sum by its last block, and the join of the windows
+by one more block's team, which starts on the top window while the lower
+ones are still summed. Every point operation runs on four lanes, one
+coordinate each. The wrapper allocates the scratch (`scratch`);
+`join_times` reads the join's own time, the chain floor, from it.
+
 The plain version keeps the reference's field: 9 x 29-bit limbs, here in
 int64 (products stay below 2^58, 9-term sums below 2^62, and CPU PyTorch
 has no uint64 arithmetic), with the reference's `fmul`/`fadd`/`fsub`/`padd`
@@ -31,8 +42,10 @@ from sunscreen_tpu_torch.zk import curve25519 as cv
 from sunscreen_tpu_torch.zk import native
 
 SCALAR_BITS = 253
-SEG = 8                      # points a thread of the bucket kernel sums
-MAX_C = 10                   # the sort's [2^c][32] table fits shared memory
+MAX_C = 12                   # the sort's [warps][2^c] table fits shared memory
+TEAMS = 32                   # teams of four lanes a block of the bucket kernel
+MIN_EVENTS = 8               # the least events (points, bucket ends) a team
+TARGET_TEAMS = 132 * 128     # teams a launch aims for: 128 an H100 SM
 
 P = cv.P
 NLIMB = 9
@@ -59,6 +72,37 @@ def additions(n: int, c: int) -> int:
     return -(-SCALAR_BITS // c) * (n + (2 << c))
 
 
+def bucket_shape(n: int, c: int) -> tuple[int, int]:
+    """(blocks a window, teams a block) of the bucket kernel: each team
+    takes an equal share of the window's n + 2^c events, at least
+    MIN_EVENTS, and no more than it takes for all windows' teams to come
+    to about TARGET_TEAMS; a window of fewer than TEAMS teams is one block
+    of a power of two of them."""
+    nwin, events = -(-SCALAR_BITS // c), n + (1 << c)
+    per_team = max(MIN_EVENTS, -(-nwin * events // TARGET_TEAMS))
+    teams = -(-events // per_team)
+    if teams <= TEAMS:
+        return 1, 1 << (teams - 1).bit_length()
+    return -(-teams // TEAMS), TEAMS
+
+
+def scratch(n: int, c: int, blocks: int, device) -> list[torch.Tensor]:
+    """The kernel's scratch: digits [nwin, n] (u16), the points' cached
+    forms [n, 32], idx [nwin, n], bstart [nwin, 2^c + 1], part [nwin,
+    blocks, 32], win [nwin, 2, 32] (each window's sum, plain and cached)
+    and sync [2 nwin + 4] (the windows' tickets and flags, then the join's
+    chain and wait times)."""
+    nwin = -(-SCALAR_BITS // c)
+    i32 = torch.int32
+    return [torch.empty((nwin, n), dtype=torch.int16, device=device),
+            torch.empty((n, 32), dtype=i32, device=device),
+            torch.empty((nwin, n), dtype=i32, device=device),
+            torch.empty((nwin, (1 << c) + 1), dtype=i32, device=device),
+            torch.empty((nwin, blocks, 32), dtype=i32, device=device),
+            torch.empty((nwin, 2, 32), dtype=i32, device=device),
+            torch.empty(2 * nwin + 4, dtype=i32, device=device)]
+
+
 def _check(scalars: torch.Tensor, points: torch.Tensor) -> int:
     n = scalars.shape[0] if scalars.dim() == 2 else -1
     if (scalars.dtype != torch.uint8 or points.dtype != torch.uint8
@@ -83,21 +127,35 @@ def msm(scalars: torch.Tensor, points: torch.Tensor,
         return msm_plain(scalars, points, c)
     if scalars.device.type != "cuda":
         raise ValueError(f"unsupported device {scalars.device}")
+    return _launch(scalars, points, c)[0]
+
+
+def _launch(scalars: torch.Tensor, points: torch.Tensor, c: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on CUDA tensors: (out, scratch's sync)."""
+    n = scalars.shape[0]
     scalars, points = scalars.contiguous(), points.contiguous()
-    dev = scalars.device
-    nwin, buckets = -(-SCALAR_BITS // c), 1 << c
-    m = -(-n // SEG) + buckets
-    i32 = torch.int32
-    idx = torch.empty((nwin, n), dtype=i32, device=dev)
-    bstart = torch.empty((nwin, buckets + 1), dtype=i32, device=dev)
-    cstart = torch.empty((nwin, buckets + 1), dtype=i32, device=dev)
-    part = torch.empty((nwin, m, 32), dtype=i32, device=dev)
-    win = torch.empty((nwin, 32), dtype=i32, device=dev)
-    out = torch.empty(128, dtype=torch.uint8, device=dev)
-    _build.launch("msm", "msm", scalars, points, idx, bstart, cstart, part,
-                  win, out, n, c)
+    blocks, teams = bucket_shape(n, c)
+    out = torch.empty(128, dtype=torch.uint8, device=scalars.device)
+    work = scratch(n, c, blocks, scalars.device)
+    _build.launch("msm", "msm", scalars, points, *work, out, n, c, blocks,
+                  teams)
     _build.LAUNCHES["msm"] += 1
-    return out
+    return out, work[-1]
+
+
+def join_times(scalars: torch.Tensor, points: torch.Tensor,
+               c: int | None = None) -> tuple[float, float]:
+    """One launch of `msm` on CUDA tensors and its join's times in ms, read
+    from the card's globaltimer: the chain (c (nwin - 1) doublings and
+    nwin - 1 additions, without its waits for windows after the top one)
+    and those waits."""
+    n = _check(scalars, points)
+    c = window_bits(n) if c is None else c
+    sync = _launch(scalars, points, c)[1]
+    words = sync[-4:].cpu().numpy().astype("int64") & 0xffffffff
+    return ((int(words[0]) | int(words[1]) << 32) / 1e6,
+            (int(words[2]) | int(words[3]) << 32) / 1e6)
 
 
 def to_tensors(scalars, points, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -3,10 +3,14 @@
 PyTorch twins.
 
 A small header stands in for the CUDA runtime: one std::thread per CUDA
-thread, a std::barrier per block for `__syncthreads`, the block's dynamic
-shared memory as a byte array, static `__shared__` variables as function
-statics (the emulated blocks run one after another), and the intrinsics
-the kernels use (`__umulhi`, `__umul64hi`, `__brev`, `__ldg`). The
+thread of a block (made once per launch; the blocks run one after
+another), a std::barrier for `__syncthreads` and a sleeping one per
+aligned group of lanes for `__syncwarp` and `__match_any_sync` (made at
+first use), the block's dynamic shared memory as a byte array, static
+`__shared__` variables as function statics, and the intrinsics the
+kernels use (`__umulhi`, `__umul64hi`, `__brev`, `__ldg`, `__ldcg`,
+`__popc`, `__clz`, `__threadfence`, and `atomicAdd` and `atomicExch` on
+u32 words). The
 sources are compiled as they are, after two textual rewrites
 (`kernel<<<grid, block, smem, stream>>>(args)` becomes a call of the
 emulated launch, `extern __shared__` a pointer to the block's bytes).
@@ -35,8 +39,13 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 
 HOST_CUDA = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
+#include <condition_variable>
 #include <cstddef>
+#include <map>
+#include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __global__
@@ -57,6 +66,86 @@ inline thread_local dim3 gridDim;
 inline thread_local std::barrier<>* host_barrier = nullptr;
 inline thread_local char* host_smem = nullptr;
 inline void __syncthreads() { host_barrier->arrive_and_wait(); }
+// Warp-level sync: the lanes of an aligned group of 2^k lanes (a mask such
+// as 0xf << 4 or a full warp) share a barrier of their own, made at first
+// use; values pass through per-block words, written before the group's
+// barrier and read after it. A group's barrier sleeps at once while it
+// waits: its few lanes meet often, and on a busy host std::barrier's
+// spinning lanes took the cores the others needed (four times slower).
+struct HostGroupBarrier {
+  explicit HostGroupBarrier(int n) : size(n) {}
+  void arrive_and_wait() {
+    std::unique_lock<std::mutex> lock(mu);
+    const unsigned g = phase;
+    if (++count == size) {
+      count = 0;
+      ++phase;
+      cv.notify_all();
+    } else {
+      cv.wait(lock, [&] { return phase != g; });
+    }
+  }
+  const int size;
+  int count = 0;
+  unsigned phase = 0;
+  std::mutex mu;
+  std::condition_variable cv;
+};
+struct HostWarps {
+  int block = 0;
+  std::mutex mu;
+  std::map<std::pair<int, int>, std::unique_ptr<HostGroupBarrier>> groups;
+  std::vector<unsigned> words;
+};
+inline thread_local HostWarps* host_warps = nullptr;
+// a thread syncs the same group again and again: the last one is cached
+inline thread_local unsigned host_group_mask = 0;
+inline thread_local HostGroupBarrier* host_group_barrier = nullptr;
+inline HostGroupBarrier& host_group(unsigned mask) {
+  if (mask == host_group_mask && host_group_barrier)
+    return *host_group_barrier;
+  const int first = (int)(threadIdx.x & ~31u) + __builtin_ctz(mask);
+  const int size = __builtin_popcount(mask);
+  std::lock_guard<std::mutex> lock(host_warps->mu);
+  auto& g = host_warps->groups[{first, size}];
+  if (!g) {
+    const int live = host_warps->block - first;
+    g = std::make_unique<HostGroupBarrier>(live < size ? live : size);
+  }
+  host_group_mask = mask;
+  host_group_barrier = g.get();
+  return *g;
+}
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  host_group(mask).arrive_and_wait();
+}
+inline unsigned __match_any_sync(unsigned mask, unsigned v) {
+  auto& g = host_group(mask);
+  const int base = threadIdx.x & ~31u;
+  host_warps->words[threadIdx.x] = v;
+  g.arrive_and_wait();
+  unsigned peers = 0;
+  for (int l = 0; l < 32 && base + l < host_warps->block; ++l)
+    if ((mask >> l & 1) && host_warps->words[base + l] == v) peers |= 1u << l;
+  g.arrive_and_wait();
+  return peers;
+}
+template <class T> inline T __ldcg(const T* p) { return *p; }
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline unsigned atomicExch(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).exchange(v);
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return uint4{x, y, z, w};
+}
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
 inline unsigned __umulhi(unsigned a, unsigned b) {
@@ -85,20 +174,28 @@ void host_launch(F f, dim3 grid, int block, int smem, cudaStream_t,
     host_error = cudaErrorInvalidConfiguration;
     return;
   }
+  // one thread per CUDA thread of a block, made once per launch: the
+  // threads run the blocks one after another, meeting on the block's
+  // barrier after each
   std::vector<char> shared(smem);
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> barrier(block);
-      std::vector<std::thread> threads;
-      for (int t = 0; t < block; ++t)
-        threads.emplace_back([&, t] {
-          threadIdx.x = t; blockIdx.x = bx; blockIdx.y = by;
-          blockDim.x = block; gridDim = grid;
-          host_barrier = &barrier; host_smem = shared.data();
+  std::barrier<> barrier(block);
+  HostWarps warps;
+  warps.block = block;
+  warps.words.resize(block);
+  std::vector<std::thread> threads;
+  for (int t = 0; t < block; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx.x = t; blockDim.x = block; gridDim = grid;
+      host_barrier = &barrier; host_smem = shared.data();
+      host_warps = &warps; host_group_barrier = nullptr;
+      for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+          blockIdx.x = bx; blockIdx.y = by;
           f(args...);
-        });
-      for (auto& th : threads) th.join();
-    }
+          barrier.arrive_and_wait();
+        }
+    });
+  for (auto& th : threads) th.join();
 }
 """
 
