@@ -33,8 +33,9 @@ and three small moduli), holds M1 (the Pippenger MSM over ristretto255,
 csrc/msm.cu) against its plain version and the host C++ MSM by ristretto
 encoding at n = 2049, 4096 and 65536, a second launch against the first
 one's raw bytes, and times the three, each of M1's three kernels and the
-chain floor, the join's own time (`check_msm`),
-then drives twenty-five paths, each with the launch counts set to 0 just
+chain floor, the join's own time (`check_msm`; after path 23 again at the
+SDLP's l and at the largest MSM paths 22-23 launched, `msm_case`),
+then drives twenty-nine paths, each with the launch counts set to 0 just
 before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
@@ -96,7 +97,18 @@ before it and read just after:
     range proof (1024 gates) through `@zkp_program` -> `Compiler` ->
     `Runtime.new_zkp` on the card, prove and verify, the multiexps of
     2048 points and more on M1; 21b. path 21 under `SUNSCREEN_TPU_MSM=0`
-    (every multiexp on the host C++).
+    (every multiexp on the host C++);
+22. the SDLP of benchmarks/sdlp_bench.py at
+    `BfvParams.insecure(1024, limbs=2, limb_bits=28)`: keygen and
+    `encrypt_return_components` on the card, `BfvStatements` ->
+    `build` -> `LogProofGenerators(l)` -> `create` and `verify`, every
+    MSM of 2048 points or more on M1; 22b. path 22's proof under
+    `SUNSCREEN_TPU_MSM=0`;
+23. tests/test_linked.py's `prod_balance` linked proof (SDLP,
+    Bulletproofs and the compressed bridge) through `Runtime.new_fhe_zkp`
+    -> `LogProofBuilder` at path 22's parameters;
+24. (run after path 16, on path 7's key) `tfhe/zkp.py`'s SDLP of an
+    `LWE_512_80` encryption.
 
 Paths 1-3, 7 and 16-18 pass a decrypt (18: CMUX) gate and a card-vs-CPU
 bit-exact check on one ciphertext; paths 4-6 and 10 must give path 1's
@@ -108,9 +120,16 @@ golden gates; path 19 a decrypt gate per op and a card-vs-CPU check per
 deterministic op; path 20 the searched-params, decrypt and slot gates, a
 card-vs-CPU `run`, two key sets and a serialization round trip; paths 21
 and 21b verify, refuse another constant and an out-of-range witness, and
-under seeded blindings give the CPU's proof bytes, and each other's.
-Paths 1-10, 12-15b, 16-18, 20, 21 and 21b are then timed, and all but
-21b (no device op) profiled; a profile window, bounded on the
+under seeded blindings give the CPU's proof bytes, and each other's;
+path 22 verifies, refuses a changed T, a flipped bit of z_1 and a
+witness past its bound, gives the CPU's bytes under seeded blindings and
+launches M1 as often as `linear_relation.msm_sizes` predicts, 22b gives
+its bytes with no M1 launch; path 23 verifies, not with a larger
+transfer, with a bridge under 8192 bytes and a ciphertext decrypting to
+its balance; path 24 verifies, not after b changes, with M1's predicted
+launches.
+Paths 1-10, 12-15b, 16-18, 20-24 are then timed, and all but 21b, 22b
+and 24 profiled; a profile window, bounded on the
 device clock by two marker spins, whose kernel events differ from the
 launch counts is taken again, and the run fails if three retries differ
 too. Kernel times are device times: each timed run is queued behind a
@@ -2733,12 +2752,12 @@ def msm_ptxas() -> dict[str, dict[str, int]]:
     return out
 
 
-def check_msm() -> dict:
-    """M1 (`cuda_curve.msm`, csrc/msm.cu) at each of MSM_NS on `msm_inputs`:
-    the kernel's sum, its plain version's on the card and the host C++
+def msm_case(n: int) -> dict:
+    """M1 (`cuda_curve.msm`, csrc/msm.cu) on `msm_inputs(n, n)`: the
+    kernel's sum, its plain version's on the card and the host C++
     Pippenger's (`ristretto_msm`, threaded) must encode to the same
     ristretto bytes, and a second launch must give the first one's raw
-    bytes (at the largest n also the kernel at c = MAX_C against the host
+    bytes (at n = MSM_NS[-1] also the kernel at c = MAX_C against the host
     C++); then the kernel's device time, the plain version's and the host
     C++'s wall time, the bound (32-bit multiplies of ceil(253 / c)
     (n + 2^(c + 1)) point additions at the c that needs the fewest,
@@ -2748,84 +2767,89 @@ def check_msm() -> dict:
     it from the globaltimer (`cuda_curve.join_times`, the median of
     JOIN_REPS launches), c (nwin - 1) doublings and nwin - 1 additions one
     after another, without its waits for lower windows, with its latency a
-    point operation. Returns M1's row of the kernels line (its main shape
-    n = 2049, the path's)."""
+    point operation. Returns the numbers of M1's row at n."""
     import torch
     from sunscreen_tpu_torch.zk import cuda_curve as cc
     from sunscreen_tpu_torch.zk import native
 
-    ptxas = msm_ptxas()
-    at = {}
-    for n in MSM_NS:
-        sc, pts = msm_inputs(n, n)
-        s, p = cc.to_tensors(sc, pts, DEV)
-        c = cc.window_bits(n)
-        got = cc.msm(s, p)
-        again = cc.msm(s, p)
-        torch.cuda.synchronize()
-        plain = cc.msm_plain(s, p, c)
-        sb, pb = bytes(s.cpu().numpy()), bytes(p.cpu().numpy())
-        enc = [cc.point_of(got).encode(), cc.point_of(plain).encode(),
-               native.msm_bufs(sb, pb, n).encode()]
-        err = max(abs(a - b) for a, b in zip(enc[0], enc[1]))
-        exact = enc[0] == enc[1] == enc[2]
-        same = torch.equal(got, again)
-        print(f"check msm@{n} (c = {c}): kernel == plain == host C++ by "
-              f"ristretto encoding: {exact} (tolerance 0: exact group "
-              f"arithmetic); two launches give the same raw bytes: {same}",
-              flush=True)
-        if not exact:
-            raise SystemExit(f"kernel msm@{n} disagrees: kernel "
-                             f"{enc[0].hex()}, plain {enc[1].hex()}, host "
-                             f"C++ {enc[2].hex()}")
-        if not same:
-            raise SystemExit(f"kernel msm@{n}: two launches gave "
-                             f"{got.cpu().numpy().tobytes().hex()} and "
-                             f"{again.cpu().numpy().tobytes().hex()}")
-        if n == MSM_NS[-1]:            # the widest window the kernel takes
-            wide = cc.point_of(cc.msm(s, p, cc.MAX_C)).encode()
-            print(f"check msm@{n} at c = MAX_C = {cc.MAX_C}: kernel == host "
-                  f"C++: {wide == enc[2]}", flush=True)
-            if wide != enc[2]:
-                raise SystemExit(f"kernel msm@{n} at c = {cc.MAX_C} "
-                                 f"disagrees: {wide.hex()}")
-        ms = _median_ms(lambda: cc.msm(s, p), reps=5, iters=KERNEL_ITERS)
-        plain_ms = _wall_ms(lambda: cc.msm_plain(s, p, c), reps=1)
-        host_ms = _wall_ms(lambda: native.msm_bufs(sb, pb, n), reps=3)
-        adds = cc.fewest_additions(n)
-        t_ops = adds * MSM_ADD_MULS / PEAK_INT_MULS_PER_S * 1e3
-        t_bytes = (160 * n + 128) / PEAK_BYTES_PER_S * 1e3
-        kernels = profile_breakdown(f"msm@{n}", lambda: cc.msm(s, p),
-                                    batches=3)["per_kernel"]
-        kernels = {k: v for k, v in kernels.items() if k.startswith("msm_")}
-        nwin = -(-cc.SCALAR_BITS // c)
-        chain_ops = c * (nwin - 1) + nwin - 1
-        joins = sorted(cc.join_times(s, p) for _ in range(JOIN_REPS))
-        floor, waited = joins[JOIN_REPS // 2]
-        total = sum(kernels.values())
-        print(f"time msm@{n}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-              f"host C++ {host_ms:.3f} ms ({os.cpu_count()} cores), bound "
-              f"{max(t_ops, t_bytes):.4f} ms ({adds} point additions "
-              f"= {adds * MSM_ADD_MULS / 1e9:.4f} G 32-bit multiplies "
-              f"= {t_ops:.4f} ms, {160 * n + 128} B = {t_bytes:.5f} ms), "
-              f"chain floor {floor:.4f} ms (the join: {c * (nwin - 1)} "
-              f"doublings and {nwin - 1} additions, "
-              f"{1e3 * floor / chain_ops:.3f} us a point operation; it "
-              f"also waited {waited:.4f} ms for lower windows)", flush=True)
-        print(f"time msm@{n} by kernel (profile, ms a call): "
-              + ", ".join(f"{k} {v:.4f} ({100 * v / total:.1f}%)"
-                          for k, v in kernels.items()), flush=True)
-        at[n] = {"n": n, "c": c, "max_abs_err": err, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                 "library_ms": None, "host_cpp_ms": host_ms,
-                 "chain_floor_ms": floor, "join_wait_ms": waited,
-                 "kernels_ms": kernels}
+    sc, pts = msm_inputs(n, n)
+    s, p = cc.to_tensors(sc, pts, DEV)
+    del sc, pts
+    c = cc.window_bits(n)
+    got = cc.msm(s, p)
+    again = cc.msm(s, p)
+    torch.cuda.synchronize()
+    plain = cc.msm_plain(s, p, c)
+    torch.cuda.empty_cache()
+    sb, pb = bytes(s.cpu().numpy()), bytes(p.cpu().numpy())
+    enc = [cc.point_of(got).encode(), cc.point_of(plain).encode(),
+           native.msm_bufs(sb, pb, n).encode()]
+    err = max(abs(a - b) for a, b in zip(enc[0], enc[1]))
+    exact = enc[0] == enc[1] == enc[2]
+    same = torch.equal(got, again)
+    print(f"check msm@{n} (c = {c}): kernel == plain == host C++ by "
+          f"ristretto encoding: {exact} (tolerance 0: exact group "
+          f"arithmetic); two launches give the same raw bytes: {same}",
+          flush=True)
+    if not exact:
+        raise SystemExit(f"kernel msm@{n} disagrees: kernel "
+                         f"{enc[0].hex()}, plain {enc[1].hex()}, host "
+                         f"C++ {enc[2].hex()}")
+    if not same:
+        raise SystemExit(f"kernel msm@{n}: two launches gave "
+                         f"{got.cpu().numpy().tobytes().hex()} and "
+                         f"{again.cpu().numpy().tobytes().hex()}")
+    if n == MSM_NS[-1]:            # the widest window the kernel takes
+        wide = cc.point_of(cc.msm(s, p, cc.MAX_C)).encode()
+        print(f"check msm@{n} at c = MAX_C = {cc.MAX_C}: kernel == host "
+              f"C++: {wide == enc[2]}", flush=True)
+        if wide != enc[2]:
+            raise SystemExit(f"kernel msm@{n} at c = {cc.MAX_C} "
+                             f"disagrees: {wide.hex()}")
+    ms = _median_ms(lambda: cc.msm(s, p), reps=5, iters=KERNEL_ITERS)
+    plain_ms = _wall_ms(lambda: cc.msm_plain(s, p, c), reps=1)
+    torch.cuda.empty_cache()
+    host_ms = _wall_ms(lambda: native.msm_bufs(sb, pb, n), reps=3)
+    adds = cc.fewest_additions(n)
+    t_ops = adds * MSM_ADD_MULS / PEAK_INT_MULS_PER_S * 1e3
+    t_bytes = (160 * n + 128) / PEAK_BYTES_PER_S * 1e3
+    kernels = profile_breakdown(f"msm@{n}", lambda: cc.msm(s, p),
+                                batches=3)["per_kernel"]
+    kernels = {k: v for k, v in kernels.items() if k.startswith("msm_")}
+    nwin = -(-cc.SCALAR_BITS // c)
+    chain_ops = c * (nwin - 1) + nwin - 1
+    joins = sorted(cc.join_times(s, p) for _ in range(JOIN_REPS))
+    floor, waited = joins[JOIN_REPS // 2]
+    total = sum(kernels.values())
+    print(f"time msm@{n}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+          f"host C++ {host_ms:.3f} ms ({os.cpu_count()} cores), bound "
+          f"{max(t_ops, t_bytes):.4f} ms ({adds} point additions "
+          f"= {adds * MSM_ADD_MULS / 1e9:.4f} G 32-bit multiplies "
+          f"= {t_ops:.4f} ms, {160 * n + 128} B = {t_bytes:.5f} ms), "
+          f"chain floor {floor:.4f} ms (the join: {c * (nwin - 1)} "
+          f"doublings and {nwin - 1} additions, "
+          f"{1e3 * floor / chain_ops:.3f} us a point operation; it "
+          f"also waited {waited:.4f} ms for lower windows)", flush=True)
+    print(f"time msm@{n} by kernel (profile, ms a call): "
+          + ", ".join(f"{k} {v:.4f} ({100 * v / total:.1f}%)"
+                      for k, v in kernels.items()), flush=True)
+    return {"n": n, "c": c, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "host_cpp_ms": host_ms,
+            "chain_floor_ms": floor, "join_wait_ms": waited,
+            "kernels_ms": kernels}
+
+
+def check_msm() -> dict:
+    """M1 at each of MSM_NS (`msm_case`). Returns M1's row of the kernels
+    line (its main shape n = 2049, path 21's)."""
+    at = {n: msm_case(n) for n in MSM_NS}
     main_n, *others = MSM_NS
     return {"name": "msm", "route": "cuda", "source": SRC_MSM,
             "replaces": "sunscreen_tpu/zk/tpu_curve.py:240", "launches": 0,
             **at[main_n], **{f"at_{n}": at[n] for n in others},
-            "ptxas": ptxas}
+            "ptxas": msm_ptxas()}
 
 
 def fractional_range_program():
@@ -2955,6 +2979,353 @@ def zkp_path(label, smi: str, device_msm: bool, want=None):
 
 
 
+# --- paths 22-24: the SDLP, linked proofs and TFHE's SDLP ----------------
+SDLP_PARAMS = {"poly_degree": 1024, "limbs": 2, "limb_bits": 28}
+#              benchmarks/sdlp_bench.py (upstream logproof/tests/seal.rs)
+SDLP_SEED = 7                  # path 22's keys, plaintext and encryption
+SDLP_BLIND = 22                # blindings of the seeded proofs
+SDLP_REPS = 3                  # create and verify times: median of 3
+SDLP_LABEL = b"bfv-sdlp"
+SDLP_OUT_OF_BOUND = 64         # added to e0's first coefficient (< 2^5)
+LINKED_KEYS, LINKED_ENC = 4, 41    # tests/test_linked.py:234-265
+LINKED_BALANCE, LINKED_TX, LINKED_OVER = 1000, 400, 40000
+LWE_BITS, LWE_MSG, LWE_SEED = 2, 1, 24
+
+
+def _m1_launches(sizes, device_msm: bool) -> int:
+    """The M1 launches the code predicts for MSMs of `sizes` points."""
+    from sunscreen_tpu_torch.zk.curve25519 import DEVICE_MSM_MIN
+    return sum(n >= DEVICE_MSM_MIN for n in sizes) if device_msm else 0
+
+
+@contextlib.contextmanager
+def _msm_sizes(out: list):
+    """Records the points of every M1 launch in `out` (the launch counts
+    are the wrapper's own)."""
+    from sunscreen_tpu_torch.zk import cuda_curve as cc
+    launch = cc._launch
+
+    def record(scalars, points, c):
+        out.append(scalars.shape[0])
+        return launch(scalars, points, c)
+
+    cc._launch = record
+    try:
+        yield out
+    finally:
+        cc._launch = launch
+
+
+def sdlp_setup() -> dict:
+    """Path 22's statement, as benchmarks/sdlp_bench.py builds it, on the
+    card: keys at SDLP_PARAMS, `encrypt_return_components` of a seeded
+    plaintext behind a decrypt gate, `BfvStatements.add_public_encryption`
+    and `build`, then `LogProofGenerators(l)`."""
+    import torch
+    from sunscreen_tpu_torch.bfv import BfvParams, get_context, keys, ops
+    from sunscreen_tpu_torch.logproof import (BfvStatements,
+                                              LogProofGenerators)
+    from sunscreen_tpu_torch.math import sampling
+
+    ctx = get_context(BfvParams.insecure(**SDLP_PARAMS), DEV)
+    rng = sampling.key_from_seed(SDLP_SEED)
+    t0 = time.perf_counter()
+    sk = keys.gen_secret_key(ctx, rng)
+    pk = keys.gen_public_key(ctx, sk, rng)
+    pt = torch.as_tensor(rng.integers(0, ctx.t, ctx.n), device=DEV)
+    ct, comps = ops.encrypt_return_components(ctx, pk, pt, rng)
+    if not torch.equal(ops.decrypt(ctx, sk, ct), pt):
+        raise SystemExit("sdlp: the ciphertext does not decrypt")
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    st = BfvStatements(ctx)
+    st.add_public_encryption(st.add_message(pt), ct, pk, *comps)
+    t0 = time.perf_counter()
+    vk, know = st.build()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gens = LogProofGenerators(vk.l)
+    gens_s = time.perf_counter() - t0
+    print(f"sdlp: N = {ctx.n}, k = {ctx.k} ({ctx.mode}), l = {vk.l} bits "
+          f"(n={vk.n} m={vk.m} k={vk.k} d={vk.d}); keygen, encryption and "
+          f"decrypt gate {enc_s:.2f} s on the card, statement build "
+          f"{build_s:.2f} s, generators {gens_s:.2f} s", flush=True)
+    return {"st": st, "vk": vk, "know": know, "gens": gens}
+
+
+def _tampered_t(vk, delta: int):
+    """vk with T's first coefficient moved by delta."""
+    from sunscreen_tpu_torch.logproof import VerifierKnowledge
+    t = [[list(p) for p in row] for row in vk.t]
+    t[0][0][0] = (t[0][0][0] + delta) % vk.q
+    return VerifierKnowledge(vk.a, t, vk.bounds, vk.f, vk.q, vk.n_messages)
+
+
+def sdlp_path(label, smi: str, state: dict, device_msm: bool, want=None):
+    """Path 22 (device_msm) or 22b (under SUNSCREEN_TPU_MSM=0, on path 22's
+    statement): `linear_relation.create` and `verify` on the card with the
+    statement's cached generators. Gates: the seeded proof verifies; M1
+    launches in one create and in one verify what `msm_sizes` predicts
+    (22b: none); the proof's bytes equal the CPU's (22b: path 22's). On
+    path 22 also: refused against a changed T and after a flipped bit of
+    its z_1, and a witness past its bound (e0 + SDLP_OUT_OF_BOUND, T moved
+    with it so that the relation holds) raises ValueError, as the
+    reference refuses it (`tests/test_logproof.py:162`); then create and
+    verify times (median of SDLP_REPS) and the device's busy share of a
+    create (profile). Returns the path's launches and those of one create,
+    and the seeded proof's bytes."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.logproof import inner_product as ipp
+    from sunscreen_tpu_torch.logproof import linear_relation as lr
+    from sunscreen_tpu_torch.zk.curve25519 import DecodeError
+    from sunscreen_tpu_torch.zk.merlin import Transcript
+    from sunscreen_tpu_torch.zk.r1cs import scalar_source
+
+    vk, know, gens = state["vk"], state["know"], state["gens"]
+    u = ipp.get_u()
+    sizes = lr.msm_sizes(vk.l)
+    want_create = _m1_launches(
+        sizes["create"] + ([] if gens.h_sum_cached else sizes["h_sum"]),
+        device_msm)
+    want_verify = _m1_launches(sizes["verify"], device_msm)
+
+    def create(device=DEV, k=None):
+        return lr.create(Transcript(SDLP_LABEL), k or know, gens.g, gens.h,
+                         u, gens=gens, device=device,
+                         rand_fn=scalar_source(SDLP_BLIND))
+
+    def verify(proof, statement=vk):
+        return lr.verify(proof, Transcript(SDLP_LABEL), statement, gens.g,
+                         gens.h, u, gens=gens, device=DEV)
+
+    before = _build.LAUNCHES["msm"]
+    t0 = time.perf_counter()
+    proof = create()
+    create_s = time.perf_counter() - t0
+    per_create = _build.LAUNCHES["msm"] - before
+    before = _build.LAUNCHES["msm"]
+    t0 = time.perf_counter()
+    ok = verify(proof)
+    verify_s = time.perf_counter() - t0
+    per_verify = _build.LAUNCHES["msm"] - before
+    print(f"{label}: msm launches {per_create} in a create (predicted "
+          f"{want_create}: MSMs of {sizes['create']} points"
+          f"{'' if gens.h_sum_cached else ' and the sum of h'}), "
+          f"{per_verify} in a verify (predicted {want_verify}: "
+          f"{sizes['verify']} points); first create {create_s:.2f} s, "
+          f"verify {verify_s:.2f} s", flush=True)
+    if not ok or (per_create, per_verify) != (want_create, want_verify):
+        raise SystemExit(f"{label}: the proof verifies {ok}; msm launches "
+                         f"{per_create} and {per_verify}, predicted "
+                         f"{want_create} and {want_verify}")
+    blob = proof.to_bytes()
+    if want is not None:
+        if blob != want:
+            raise SystemExit(f"{label}: proof bytes differ from path 22's")
+        print(f"{label}: seeded proof == path 22's, byte for byte "
+              f"({len(blob)} B)", flush=True)
+        return _sdlp_counts(label, device_msm, per_create), blob
+    if create(device="cpu").to_bytes() != blob:
+        raise SystemExit(f"{label}: seeded proof bytes differ from the CPU's")
+    if verify(proof, _tampered_t(vk, 1)):
+        raise SystemExit(f"{label}: the proof verifies against a changed T")
+    raw = bytearray(blob)
+    raw[-96] ^= 1                       # z_1's lowest bit
+    try:
+        flipped = verify(lr.LogProof.from_bytes(bytes(raw)))
+    except DecodeError:
+        flipped = False
+    if flipped:
+        raise SystemExit(f"{label}: the proof verifies with z_1 flipped")
+    cu, ce0, _ = state["st"]._layout()[2][0]
+    s = [[list(p) for p in col] for col in know.s]
+    s[ce0][0][0] = (s[ce0][0][0] + SDLP_OUT_OF_BOUND) % vk.q
+    try:
+        create(k=lr.ProverKnowledge(_tampered_t(vk, SDLP_OUT_OF_BOUND), s))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise SystemExit(f"{label}: a witness past its bound was proved")
+    print(f"{label} gates: seeded proof == the CPU's, byte for byte "
+          f"({len(blob)} B); refused against a changed T and with z_1 "
+          f"flipped; e0 + {SDLP_OUT_OF_BOUND} refused ({refused})",
+          flush=True)
+
+    def timed(fn):
+        times = []
+        for _ in range(SDLP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[SDLP_REPS // 2]
+
+    create_ms = timed(create)
+    verify_ms = timed(lambda: verify(proof))
+    print(f"{label}: l = {vk.l}, create {create_ms:.1f} ms, verify "
+          f"{verify_ms:.1f} ms (median of {SDLP_REPS}), proof {len(blob)} B "
+          f"on {smi}", flush=True)
+    prof = profile_breakdown(label, create, batches=1,
+                             warmup=lambda: verify(proof))
+    print(f"{label}: the device is busy {prof['busy_ms']:.3f} ms of a "
+          f"create's {prof['wall_ms']:.1f} ms "
+          f"({100 * prof['busy_ms'] / prof['wall_ms']:.2f}%), "
+          f"{prof['ops']:.0f} device ops", flush=True)
+    return _sdlp_counts(label, device_msm, per_create), blob
+
+
+def _sdlp_counts(label, device_msm: bool, per_create: int):
+    """The path's launches (M1 needed, or absent under 22b) and those of
+    one create."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    _path_counts(label, launches, ("msm",) if device_msm else (),
+                 () if device_msm else ("msm",))
+    per_op = dict.fromkeys(launches, 0)
+    per_op["msm"] = per_create
+    return launches, per_op
+
+
+def linked_path(label, smi: str) -> tuple:
+    """Path 23: tests/test_linked.py:234-265's linked proof at SDLP_PARAMS
+    through `Runtime.new_fhe_zkp` -> `LogProofBuilder` on the card:
+    `encrypt_returning_link(Signed(1000))`, `build_linked(prod_balance,
+    public_inputs=[400])` (SDLP + Bulletproofs + the compressed bridge).
+    Gates: it verifies, not with 40000, its bridge is under 8192 bytes,
+    the ciphertext decrypts to 1000, and M1 launched. Then the device's
+    busy share of a proof (profile, after a warm-up M1 launch). Returns
+    the path's launches and those of one proof, and the statement's
+    l."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.bfv import BfvParams
+    from sunscreen_tpu_torch.runtime import Runtime
+    from sunscreen_tpu_torch.runtime.linked import LogProofBuilder
+    from sunscreen_tpu_torch.types import Signed
+    from sunscreen_tpu_torch.types.zkp_types import (BfvSigned, Field,
+                                                     Linked, Public,
+                                                     zkp_program)
+    from sunscreen_tpu_torch.zk import cuda_curve, curve25519
+
+    @zkp_program()
+    def prod_balance(balance: Linked[BfvSigned], unshielded: Public[Field]):
+        balance.constrain_fresh_encoding()
+        diff = balance.into_field_elem() - unshielded
+        diff.to_unsigned(16)
+        unshielded.to_unsigned(16)
+
+    rt = Runtime.new_fhe_zkp(BfvParams.insecure(**SDLP_PARAMS), device=DEV)
+    pub, priv = rt.generate_keys(seed=LINKED_KEYS, galois=False, relin=False)
+    builder = LogProofBuilder(rt)
+    ct, _ = builder.encrypt_returning_link(Signed(LINKED_BALANCE), pub,
+                                           seed=LINKED_ENC)
+    def prove():
+        return builder.build_linked(prod_balance, public_inputs=[LINKED_TX])
+
+    before = _build.LAUNCHES["msm"]
+    t0 = time.perf_counter()
+    proof = prove()
+    prove_s = time.perf_counter() - t0
+    per_prove = _build.LAUNCHES["msm"] - before
+    before = _build.LAUNCHES["msm"]
+    t0 = time.perf_counter()
+    ok = proof.verify(prod_balance, public_inputs=[LINKED_TX])
+    verify_s = time.perf_counter() - t0
+    per_verify = _build.LAUNCHES["msm"] - before
+    over = proof.verify(prod_balance, public_inputs=[LINKED_OVER])
+    sizes = proof.size_bytes()
+    dec = rt.decrypt(ct, priv)
+    print(f"{label}: l = {proof.vk.l}, prove {prove_s:.2f} s ({per_prove} "
+          f"msm launches), verify {verify_s:.2f} s ({per_verify} msm "
+          f"launches), proof bytes {json.dumps(sizes)} on {smi}", flush=True)
+    if not ok or over or sizes["bridge"] >= 8192 or dec != LINKED_BALANCE \
+            or per_prove + per_verify == 0:
+        raise SystemExit(f"{label}: verifies {ok}, with {LINKED_OVER} "
+                         f"{over}, bridge {sizes['bridge']} B, decrypts to "
+                         f"{dec}, msm launches {per_prove + per_verify}")
+    print(f"{label} gates: verifies with {LINKED_TX}, not with "
+          f"{LINKED_OVER}; bridge {sizes['bridge']} B < 8192; decrypts to "
+          f"{dec}", flush=True)
+    warm = cuda_curve.to_tensors([1] * curve25519.DEVICE_MSM_MIN,
+                                 [curve25519.BASEPOINT]
+                                 * curve25519.DEVICE_MSM_MIN, DEV)
+    prof = profile_breakdown(label, prove, batches=1,
+                             warmup=lambda: cuda_curve.msm(*warm))
+    print(f"{label}: the device is busy {prof['busy_ms']:.3f} ms of a "
+          f"proof's {prof['wall_ms']:.1f} ms "
+          f"({100 * prof['busy_ms'] / prof['wall_ms']:.2f}%), "
+          f"{prof['ops']:.0f} device ops", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    _path_counts(label, launches, ("msm",))
+    per_op = dict.fromkeys(launches, 0)
+    per_op["msm"] = per_prove
+    return (launches, per_op), proof.vk.l
+
+
+def lwe_path(label, s: dict, smi: str):
+    """Path 24: TFHE's SDLP (`tfhe/zkp.py`) on an LWE_512_80 encryption of
+    LWE_MSG under path 7's key, its noise bound 8 sigma: the proof verifies
+    on the card, not after the ciphertext's b changes, and M1 launches what
+    `msm_sizes` predicts from l (fresh generators each call, so the sum of
+    h in both). Returns the path's launches and those of one proof."""
+    import math
+
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.logproof import linear_relation as lr
+    from sunscreen_tpu_torch.tfhe import ops, torus, zkp
+    from sunscreen_tpu_torch.zk import native
+
+    native.require_lib()                # its g++ build is not timed
+    lwe = s["lwe"]
+    gen = torch.Generator(device=DEV).manual_seed(LWE_SEED)
+    _build.reset_launches()
+    ct, e = ops.encrypt_lwe_return_components(
+        torus.encode(LWE_MSG, LWE_BITS, DEV), s["lwe_sk"], lwe, gen)
+    noise_bits = math.ceil(math.log2(8 * lwe.std * 2.0 ** 64))
+    if abs(int(e)) >= 1 << noise_bits:
+        raise SystemExit(f"{label}: noise {int(e)} past 8 sigma")
+    vk = zkp.lwe_statement(ct, lwe, LWE_BITS, noise_bits)
+    sizes = lr.msm_sizes(vk.l)
+    want = (_m1_launches(sizes["create"] + sizes["h_sum"], True),
+            _m1_launches(sizes["verify"] + sizes["h_sum"], True))
+    t0 = time.perf_counter()
+    proof, vk = zkp.prove_lwe_encryption(ct, s["lwe_sk"], LWE_MSG, int(e),
+                                         lwe, LWE_BITS, noise_bits,
+                                         device=DEV)
+    prove_ms = (time.perf_counter() - t0) * 1e3
+    per_prove = _build.LAUNCHES["msm"]
+    t0 = time.perf_counter()
+    ok = zkp.verify_lwe_encryption(proof, vk, device=DEV)
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    per_verify = _build.LAUNCHES["msm"] - per_prove
+    moved = ct.clone()
+    moved[-1] += 1
+    bad = zkp.verify_lwe_encryption(
+        proof, zkp.lwe_statement(moved, lwe, LWE_BITS, noise_bits),
+        device=DEV)
+    print(f"{label}: l = {vk.l} ({lwe.dim} key bits, {noise_bits}-bit "
+          f"noise), prove {prove_ms:.1f} ms, verify {verify_ms:.1f} ms, msm "
+          f"launches {per_prove} and {per_verify} (predicted {want[0]} and "
+          f"{want[1]}: MSMs of {sizes['create']} and {sizes['verify']} "
+          f"points, the sum of h {sizes['h_sum']}) on {smi}", flush=True)
+    if not ok or bad or (per_prove, per_verify) != want:
+        raise SystemExit(f"{label}: verifies {ok}, with b moved {bad}, msm "
+                         f"launches {per_prove} and {per_verify}")
+    print(f"{label} gates: verifies, not with b + 1", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    _path_counts(label, launches, ("msm",) if any(want) else ())
+    per_op = dict.fromkeys(launches, 0)
+    per_op["msm"] = per_prove
+    return launches, per_op
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2989,7 +3360,8 @@ def main() -> int:
     table = check_kernels(ctx, gen)
     check_wide(gen)
     transform_checks(gen)
-    table.append(check_msm())
+    msm_row = check_msm()
+    table.append(msm_row)
     t = params.plain_modulus
     paths: dict[str, tuple[dict, dict]] = {}
 
@@ -3079,6 +3451,8 @@ def main() -> int:
     paths["pbs_ksfull"] = (launches, per_pbs)
     # --- path 16: the multifunctional PBS on path 7's keys --------------
     paths["pbs_multi"] = multi_path(s, smi)
+    # --- path 24: TFHE's SDLP on an LWE encryption under path 7's key ----
+    paths["lwe_sdlp"] = lwe_path("lwe_sdlp", s, smi)
     del s, out
 
     # --- path 9: the pallas_vpu NTT plan (B16, B17) ----------------------
@@ -3129,6 +3503,28 @@ def main() -> int:
     with _gates({"SUNSCREEN_TPU_MSM": "0"}):
         paths["zkp_host"], _ = zkp_path("zkp_host", smi, device_msm=False,
                                         want=blob)
+
+    # --- paths 22, 22b and 23: the SDLP at benchmarks/sdlp_bench.py's
+    # N = 1024, k = 2 with M1 on every MSM of 2048 points or more, then on
+    # the host C++ alone, and a linked proof at the same parameters; then
+    # M1 at the SDLP's l and at the largest MSM the paths launched --------
+    with _msm_sizes([]) as launched:
+        _build.reset_launches()
+        sdlp = sdlp_setup()
+        paths["sdlp"], blob = sdlp_path("sdlp", smi, sdlp, device_msm=True)
+        _build.reset_launches()
+        with _gates({"SUNSCREEN_TPU_MSM": "0"}):
+            paths["sdlp_host"], _ = sdlp_path("sdlp_host", smi, sdlp,
+                                              device_msm=False, want=blob)
+        sdlp_l = sdlp["vk"].l
+        del sdlp
+        _build.reset_launches()
+        paths["linked"], linked_l = linked_path("linked", smi)
+    print(f"msm sizes of paths 22-23: l = {sdlp_l} (path 23: {linked_l}), "
+          f"{len(launched)} launches, the largest {max(launched)} points",
+          flush=True)
+    for n in (sdlp_l, max(launched)):
+        msm_row[f"at_{n}"] = msm_case(n)
 
     for row in table:
         name = row["name"]

@@ -4,8 +4,8 @@ public-key encryption, GLEV/GGSW, blind rotation, the univariate,
 multifunctional, bivariate and generalized programmable bootstraps,
 circuit bootstrapping, the scheme switch, and the LWE, GLWE, private and
 public functional keyswitches (`ops`, `high_level`), with `keys` to
-carry the reference's keys over. The reference's `tfhe/zkp.py` is not
-ported yet."""
+carry the reference's keys over, and the SDLP proof of an LWE encryption
+(`zkp`)."""
 
 from sunscreen_tpu_torch.tfhe.params import (  # noqa: F401
     GLWE_1_512_128, GLWE_1_1024_80, GLWE_1_1024_128, GLWE_1_2048_128,

@@ -1,9 +1,7 @@
 """ZKP backend layer: arithmetic-circuit IR, JIT, gadget protocol, and
 the Bulletproofs R1CS backend (port of `sunscreen_tpu/zk/backend.py`;
 `BulletproofsBackend.prove`/`verify` take the `device` of the MSMs and the
-prover's source of blinding scalars, `r1cs.scalar_source`; the
-reference's linked-proof hooks, `prove_with_witness` and its low-level
-input prefix, come with the linked proofs).
+prover's source of blinding scalars, `r1cs.scalar_source`).
 
 Replaces `sunscreen_zkp_backend`: frontend IR ops (`src/jit.rs:18-76`),
 `jit_prover`/`jit_verifier` (graph execution over the backend field that
@@ -21,7 +19,7 @@ from enum import Enum
 from sunscreen_tpu_torch.zk import curve25519 as cv
 from sunscreen_tpu_torch.zk.merlin import Transcript
 from sunscreen_tpu_torch.zk.r1cs import (LinearCombination, Prover,
-                                         R1CSProof, Verifier)
+                                         R1CSProof, Variable, Verifier)
 
 
 class ZkpOp(str, Enum):
@@ -224,6 +222,13 @@ class BulletproofsBackend:
                              - LinearCombination.constant(n.data % f))
         return lcs
 
+    @staticmethod
+    def lowlevel_var(j: int):
+        """The R1CS wire of low-level private input j: inputs are packed
+        two a multiplier gate (a_L[g] = input 2g, a_R[g] = input 2g + 1),
+        the gates allocated first, so gate index == j // 2."""
+        return Variable("mult_l" if j % 2 == 0 else "mult_r", j // 2)
+
     def prove(self, prog: ZkpProgram, private_inputs, public_inputs=(),
               constant_inputs=(), device=None,
               rand_scalar=None) -> BulletproofsProof:
@@ -231,27 +236,69 @@ class BulletproofsBackend:
         `ZkpError` on a violated constraint), each private and hidden input
         Pedersen-committed, the circuit built and proved. `device` carries
         the MSMs, `rand_scalar` draws the blindings (`r1cs.Prover`)."""
-        vals = evaluate(prog, self.FIELD_MODULUS, private_inputs,
-                        public_inputs, constant_inputs)
+        return self.prove_with_witness(prog, private_inputs, public_inputs,
+                                       constant_inputs, 0, device,
+                                       rand_scalar)[0]
+
+    def prove_with_blindings(self, prog: ZkpProgram, private_inputs,
+                             public_inputs=(), constant_inputs=(),
+                             lowlevel_prefix: int = 0, device=None,
+                             rand_scalar=None
+                             ) -> tuple[BulletproofsProof, list[int]]:
+        """`prove_with_witness` without the witness."""
+        return self.prove_with_witness(prog, private_inputs, public_inputs,
+                                       constant_inputs, lowlevel_prefix,
+                                       device, rand_scalar)[:2]
+
+    def prove_with_witness(self, prog: ZkpProgram, private_inputs,
+                           public_inputs=(), constant_inputs=(),
+                           lowlevel_prefix: int = 0, device=None,
+                           rand_scalar=None):
+        """(proof, blindings, witness): the Pedersen blindings of the
+        committed inputs, in commitment order, and the opening of the
+        proof's low-level commitment A_I1 (a dict of i_blinding, a_L, a_R
+        and n, the padded gate count), which linked proofs bind to an
+        SDLP's shared commitment. The first `lowlevel_prefix` private
+        inputs become UNCOMMITTED multiplier wires (two a gate, the gates
+        first; `lowlevel_var`), with no V point in the proof: a linked
+        proof's bits."""
+        f = self.FIELD_MODULUS
+        vals = evaluate(prog, f, private_inputs, public_inputs,
+                        constant_inputs)
         prover = Prover(Transcript(self.TRANSCRIPT_LABEL), device,
                         rand_scalar)
         node_vars: dict[int, object] = {}
+        for g in range(0, lowlevel_prefix, 2):
+            r_val = (private_inputs[g + 1] % f
+                     if g + 1 < lowlevel_prefix else 0)
+            prover.allocate_multiplier(private_inputs[g] % f, r_val)
         commitments: list[cv.Point] = []
         for i, n in enumerate(prog.nodes):
-            if n.op in (ZkpOp.PRIVATE_INPUT, ZkpOp.HIDDEN_INPUT):
+            if n.op == ZkpOp.PRIVATE_INPUT and n.data < lowlevel_prefix:
+                node_vars[i] = self.lowlevel_var(n.data)
+            elif n.op in (ZkpOp.PRIVATE_INPUT, ZkpOp.HIDDEN_INPUT):
                 V, node_vars[i] = prover.commit(vals[i])
                 commitments.append(V)
         self._gen_circuit(prog, prover, node_vars, public_inputs,
                           constant_inputs, vals)
-        return BulletproofsProof(prover.prove(), commitments)
+        proof = BulletproofsProof(prover.prove(), commitments)
+        witness = {"i_blinding": prover.i_blinding,
+                   "a_L": list(prover.a_L), "a_R": list(prover.a_R),
+                   "n": prover.padded_n}
+        return proof, list(prover.v_blinding), witness
 
     def verify(self, prog: ZkpProgram, proof: BulletproofsProof,
-               public_inputs=(), constant_inputs=(), device=None) -> bool:
+               public_inputs=(), constant_inputs=(), device=None,
+               lowlevel_prefix: int = 0) -> bool:
         verifier = Verifier(Transcript(self.TRANSCRIPT_LABEL), device)
+        for _ in range(0, lowlevel_prefix, 2):
+            verifier.allocate_multiplier()
         node_vars: dict[int, object] = {}
         idx = 0
         for i, n in enumerate(prog.nodes):
-            if n.op in (ZkpOp.PRIVATE_INPUT, ZkpOp.HIDDEN_INPUT):
+            if n.op == ZkpOp.PRIVATE_INPUT and n.data < lowlevel_prefix:
+                node_vars[i] = self.lowlevel_var(n.data)
+            elif n.op in (ZkpOp.PRIVATE_INPUT, ZkpOp.HIDDEN_INPUT):
                 if idx >= len(proof.commitments):
                     return False
                 node_vars[i] = verifier.commit(proof.commitments[idx])

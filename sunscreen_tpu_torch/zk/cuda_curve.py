@@ -158,13 +158,19 @@ def join_times(scalars: torch.Tensor, points: torch.Tensor,
             (int(words[2]) | int(words[3]) << 32) / 1e6)
 
 
+def buf_tensors(scalar_buf, point_buf, n: int, device
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Marshalled scalars (32 bytes each) and points (128 bytes each, the
+    layout of `native.points_to_buf`) as the uint8 tensors `msm` takes."""
+    sb = torch.frombuffer(bytearray(scalar_buf), dtype=torch.uint8)
+    pb = torch.frombuffer(bytearray(point_buf), dtype=torch.uint8)
+    return sb.view(n, 32).to(device), pb.view(n, 128).to(device)
+
+
 def to_tensors(scalars, points, device) -> tuple[torch.Tensor, torch.Tensor]:
     """Python scalars and `cv.Point`s as the uint8 tensors `msm` takes."""
-    n = len(points)
-    sb = bytearray(native.scalars_to_buf(scalars, cv.L))
-    pb = bytearray(native.points_to_buf(points))
-    return (torch.frombuffer(sb, dtype=torch.uint8).view(n, 32).to(device),
-            torch.frombuffer(pb, dtype=torch.uint8).view(n, 128).to(device))
+    return buf_tensors(native.scalars_to_buf(scalars, cv.L),
+                       native.points_to_buf(points), len(points), device)
 
 
 def point_of(out: torch.Tensor) -> cv.Point:
@@ -178,6 +184,11 @@ def point_of(out: torch.Tensor) -> cv.Point:
 def msm_points(scalars, points, device) -> cv.Point:
     """`msm` on `device` for python scalars and `cv.Point`s."""
     return point_of(msm(*to_tensors(scalars, points, device)))
+
+
+def msm_bufs(scalar_buf, point_buf, n: int, device) -> cv.Point:
+    """`msm` on `device` for marshalled scalars and points."""
+    return point_of(msm(*buf_tensors(scalar_buf, point_buf, n, device)))
 
 
 # ---------------------------------------------------------------------------

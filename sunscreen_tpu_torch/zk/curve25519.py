@@ -290,6 +290,14 @@ def msm_py(scalars, points) -> Point:
 DEVICE_MSM_MIN = 2048
 
 
+def on_device(n: int, device) -> bool:
+    """Whether an MSM of n points on `device` runs the CUDA Pippenger: a
+    CUDA device, n >= DEVICE_MSM_MIN, and SUNSCREEN_TPU_MSM not "0"."""
+    return (device is not None and torch.device(device).type == "cuda"
+            and n >= DEVICE_MSM_MIN
+            and os.environ.get("SUNSCREEN_TPU_MSM", "") != "0")
+
+
 def msm(scalars, points, device=None) -> Point:
     """sum(s_i * P_i): the CUDA Pippenger (`zk/cuda_curve.py`) for at least
     DEVICE_MSM_MIN points on a CUDA `device` unless SUNSCREEN_TPU_MSM=0,
@@ -298,9 +306,7 @@ def msm(scalars, points, device=None) -> Point:
     the GPU Pippenger of sunscreen_math/opencl_impl/multiexp.rs)."""
     points = list(points)
     scalars = list(scalars)
-    if (device is not None and torch.device(device).type == "cuda"
-            and len(points) >= DEVICE_MSM_MIN
-            and os.environ.get("SUNSCREEN_TPU_MSM", "") != "0"):
+    if on_device(len(points), device):
         from sunscreen_tpu_torch.zk import cuda_curve
         return cuda_curve.msm_points(scalars, points, device)
     if len(points) >= 8:

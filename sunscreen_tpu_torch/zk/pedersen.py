@@ -31,6 +31,22 @@ class PedersenGens:
         return self.B * value + self.B_blinding * blinding
 
 
+def generators_chain(label: bytes):
+    """The Shake256 XOF chain of ristretto points (dalek `GeneratorsChain`)
+    as an endless generator; `_chain_points` draws its prefix in a batch."""
+    shake = hashlib.shake_256()
+    shake.update(b"GeneratorsChain")
+    shake.update(label)
+    # hashlib's shake has no incremental read: re-digest at twice the
+    # length whenever the buffer runs out
+    offset, buf = 0, b""
+    while True:
+        if offset + 64 > len(buf):
+            buf = shake.digest(max(2 * len(buf), 4096))
+        yield c.from_uniform_bytes(buf[offset:offset + 64])
+        offset += 64
+
+
 class BulletproofGens:
     """G/H generator vectors (party 0 only — the reference never
     aggregates across parties)."""

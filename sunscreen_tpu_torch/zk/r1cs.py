@@ -357,6 +357,11 @@ class Prover(_ConstraintSystem):
         w = t.challenge_scalar(b"w")
         Q = self.pc.B * w
 
+        # the opening of A_I1 = i_blinding Bb + <a_L, G> + <a_R, H> after the
+        # padding, which the linked proofs' bridge binds to an SDLP
+        self.i_blinding = i_blinding
+        self.padded_n = n
+
         ipp_proof = ipp.create(
             t, Q, [1] * n, exp_y_inv, G, H, l_vec, r_vec, dev)
         return R1CSProof(A_I, A_O, S, T_1, T_3, T_4, T_5, T_6,

@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.bfv import BfvParams, get_context, keys, ops
 from sunscreen_tpu_torch.errors import InvalidArgument
 
@@ -110,63 +109,6 @@ def test_from_reference_is_a_move(golden, reference, port):
             keys.galois_from_reference(ctx, ref["galois"], mode)
 
 
-def test_multiply_relin_matches_golden(golden, port):
-    ctx, sk, rlk, _ = port
-    ct = torch.from_numpy(golden["ct"].astype(np.int64))
-    prod = ops.multiply_relin(ctx, ct, ct, rlk)
-    np.testing.assert_array_equal(prod.numpy(), golden["mul_relin"])
-    np.testing.assert_array_equal(ops.decrypt(ctx, sk, prod).numpy(),
-                                  golden["dec_mul"])
-    assert float(ops.invariant_noise_budget(ctx, sk, prod)) == \
-        float(golden["noise_budget"][0])
-
-
-GATES = {
-    "default": {},
-    "ft3_off": {"SUNSCREEN_TPU_FUSE_FT3": "0"},
-    "t3": {"SUNSCREEN_TPU_FUSE_FT3": "0", "SUNSCREEN_TPU_FUSE_T3": "1"},
-    "sc_off": {"SUNSCREEN_TPU_FUSE_SC": "0"},
-    "ks_off": {"SUNSCREEN_TPU_FUSE_KS": "0"},
-    "inv_off": {"SUNSCREEN_TPU_FUSE_INV": "0"},
-    "ft3_sc_ks_off": {"SUNSCREEN_TPU_FUSE_FT3": "0",
-                      "SUNSCREEN_TPU_FUSE_SC": "0",
-                      "SUNSCREEN_TPU_FUSE_KS": "0"},
-    "ksfull": {"SUNSCREEN_TPU_FUSE_KSFULL": "1"},
-}
-
-
-@pytest.mark.parametrize("gate", list(GATES))
-def test_gates_match_golden(golden, port, monkeypatch, gate):
-    """Under each of the reference's fusion settings the port's route
-    reproduces `mul_relin` and `dec_mul` bit for bit (the reference's keys
-    were built by the module fixture, before any setting). Each setting
-    takes the routes the reference would."""
-    ctx, sk, rlk, _ = port
-    ct = torch.from_numpy(golden["ct"].astype(np.int64))
-    for name, value in GATES[gate].items():
-        monkeypatch.setenv(name, value)
-    want_routes = {
-        "default": ("fwd_tensor3", "scale_convert", "inv_ks"),
-        "ft3_off": ("tensor3", "scale_convert", "inv_ks"),
-        "t3": ("inv_tensor3", "scale_convert", "inv_ks"),
-        "sc_off": ("fwd_tensor3", "scale", "inv_ks"),
-        "ks_off": ("fwd_tensor3", "scale_convert", "ks_inner"),
-        "inv_off": ("tensor3", "scale_convert", "ks_inner"),
-        "ft3_sc_ks_off": ("tensor3", "scale", "ks_inner"),
-        "ksfull": ("fwd_tensor3", "scale_convert", "ks_full"),
-    }[gate]
-    for device_type in ("cpu", "cuda"):
-        assert (ops.multiply_route(ctx.n, 2, 2, device_type),
-                ops.scale_convert_route(device_type),
-                ops.keyswitch_route(device_type)) == want_routes
-    _build.reset_launches()
-    prod = ops.multiply_relin(ctx, ct, ct, rlk)
-    np.testing.assert_array_equal(prod.numpy(), golden["mul_relin"])
-    np.testing.assert_array_equal(ops.decrypt(ctx, sk, prod).numpy(),
-                                  golden["dec_mul"])
-    assert all(v == 0 for v in _build.LAUNCHES.values())
-
-
 def test_routes_by_size_and_device(monkeypatch):
     """The route is a pure function of N, the component counts, the
     device and the environment: on CUDA the B4 and B13 kernels hold every
@@ -208,43 +150,6 @@ def test_unported_settings_raise(monkeypatch, name, value, call, kernel):
         call()
 
 
-def test_plain_glue_setting_is_a_no_op_on_cpu(monkeypatch):
-    monkeypatch.setenv("SUNSCREEN_TPU_FUSED_RNS", "0")
-    assert ops.multiply_route(512, 2, 2, "cpu") == "fwd_tensor3"
-    assert ops.keyswitch_route("cpu") == "inv_ks"
-    assert ops.scale_convert_route("cpu") == "scale_convert"
-
-
-def _negacyclic_square(a, t):
-    conv = np.convolve(a, a)
-    n = a.shape[0]
-    res = conv[:n].copy()
-    res[:n - 1] -= conv[n:]
-    return np.mod(res, t)
-
-
-def test_native_roundtrip():
-    """Port-native keys and randomness from a torch generator: encrypt,
-    multiply_relin and decrypt a batch against the numpy oracle."""
-    ctx = get_context(BfvParams.insecure_u32(512, limbs=3, limb_bits=27),
-                      "cpu")
-    gen = torch.Generator().manual_seed(7)
-    sk = keys.gen_secret_key(ctx, gen)
-    pk = keys.gen_public_key(ctx, sk, gen)
-    rlk = keys.gen_relin_key(ctx, sk, gen)
-    pts = torch.randint(0, ctx.t, (2, ctx.n), generator=gen)
-    cts = ops.encrypt(ctx, pk, pts, gen)
-    assert torch.equal(ops.decrypt(ctx, sk, cts), pts)
-    assert torch.equal(ops.decrypt(ctx, sk, ops.add(ctx, cts, cts)),
-                       2 * pts % ctx.t)
-    prod = ops.multiply_relin(ctx, cts, cts, rlk)
-    dec = ops.decrypt(ctx, sk, prod).numpy()
-    for r in range(2):
-        np.testing.assert_array_equal(
-            dec[r], _negacyclic_square(pts[r].numpy(), ctx.t))
-    assert np.all(ops.invariant_noise_budget(ctx, sk, prod) > 0)
-
-
 def test_galois_tables_match_reference(reference, port):
     _, ref = reference
     ctx = port[0]
@@ -264,42 +169,3 @@ def test_rotations_match_golden(golden, port):
                                   golden["rot1"])
     np.testing.assert_array_equal(ops.rotate_columns(ctx, ct, gks).numpy(),
                                   golden["swap"])
-
-
-def _automorphism(ctx, pts, g):
-    """a(x) -> a(x^g) mod (x^N + 1, t) on plaintext rows, in numpy."""
-    n, t = ctx.n, ctx.t
-    out = np.zeros_like(pts)
-    for i in range(n):
-        j = i * g % (2 * n)
-        if j < n:
-            out[..., j] = (out[..., j] + pts[..., i]) % t
-        else:
-            out[..., j - n] = (out[..., j - n] - pts[..., i]) % t
-    return out
-
-
-def test_native_rotation_roundtrip():
-    """Port-native Galois keys from a torch generator: rotate, decrypt,
-    and compare with the automorphism of the plaintext; a rotation by 3
-    slots is composed from the keys for 1 and 2."""
-    ctx = get_context(BfvParams.insecure_u32(512, limbs=3, limb_bits=27),
-                      "cpu")
-    gen = torch.Generator().manual_seed(11)
-    sk = keys.gen_secret_key(ctx, gen)
-    pk = keys.gen_public_key(ctx, sk, gen)
-    g1, g2 = ctx.rotate_rows_element(1), ctx.rotate_rows_element(2)
-    gc = ctx.rotate_columns_element
-    gks = keys.gen_galois_keys(ctx, sk, gen, (g1, g2, gc))
-    pts = torch.randint(0, ctx.t, (2, ctx.n), generator=gen)
-    cts = ops.encrypt(ctx, pk, pts, gen)
-    p = pts.numpy()
-    for got, g in ((ops.rotate_rows(ctx, cts, 1, gks), g1),
-                   (ops.rotate_columns(ctx, cts, gks), gc),
-                   (ops.rotate_rows(ctx, cts, 3, gks),
-                    ctx.rotate_rows_element(3))):
-        np.testing.assert_array_equal(ops.decrypt(ctx, sk, got).numpy(),
-                                      _automorphism(ctx, p, g))
-    assert ops.rotate_rows(ctx, cts, ctx.n // 2, gks) is cts
-    with pytest.raises(KeyError, match="rotation 4"):
-        ops.rotate_rows(ctx, cts, 4, gks)

@@ -354,25 +354,6 @@ def test_ntt_kernels_match_twins(host, n):
     np.testing.assert_array_equal(out, plan.inv(torch.from_numpy(x)).numpy())
 
 
-@pytest.mark.parametrize("n", [256, 2048, 8192, 16384])
-def test_tensor3_kernels_match_twins(host, n):
-    """fwd_tensor3 without (B4) and with (B13) the inverse transforms on
-    [2, 4, 2, N] operands (at N = 16384 a task takes 1024 threads and
-    192 KB of shared memory), every operand of the first row at q - 1."""
-    _, libs = host
-    plan = _plan(n, 2)
-    ext = _residues(np.random.default_rng(n + 1), plan, (2, 4))
-    twp, consts = plan.twp.numpy(), plan.consts.numpy()
-    out = np.empty((2, 3, 2, n), dtype=np.int64)
-    e = torch.from_numpy(ext)
-    for full, want in ((0, plan.fwd_tensor3_plain(e)),
-                       (1, plan.fwd_tensor3_full_plain(e))):
-        assert libs["tensor3"].fwd_tensor3(
-            _ptr(ext), _ptr(out), _ptr(twp), _ptr(consts), 2, 2,
-            n.bit_length() - 1, full, None) == 0
-        np.testing.assert_array_equal(out, want.numpy())
-
-
 def test_transform_layouts_have_no_bank_conflict(host):
     """Every warp access of transform.cuh's exchanges and flat permutation
     hits 32 distinct banks at every N from 256 to 16384."""

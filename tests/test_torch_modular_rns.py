@@ -10,9 +10,7 @@ import torch
 
 from sunscreen_tpu.math import modular as rm
 from sunscreen_tpu.math import primes as rprimes
-from sunscreen_tpu.math import rns as rrns
 from sunscreen_tpu_torch.math import modular as pm
-from sunscreen_tpu_torch.math import rns as prns
 
 N = 512
 
@@ -99,24 +97,6 @@ def test_u32_engine_helpers(bits):
                                   _np(rm.neg_mod(jnp.asarray(a), q32)))
 
 
-@pytest.mark.parametrize("add_half", [False, True])
-def test_fixed_point_dot(add_half):
-    """phi words are full 64-bit, y full 30-bit: every column carries."""
-    rng = np.random.default_rng(3)
-    k = 7
-    y = rng.integers(0, 1 << 30, (2, k, N), dtype=np.uint64)
-    y[0, :, :8] = (1 << 30) - 1
-    ph, pl = _u64(rng, k), _u64(rng, k)
-    ph[0] = pl[0] = np.uint64((1 << 64) - 1)
-    (wi_h, wi_l), (wf_h, wf_l) = rrns.fixed_point_dot(
-        jnp.asarray(y), jnp.asarray(ph), jnp.asarray(pl), add_half)
-    (gi_h, gi_l), (gf_h, gf_l) = prns.fixed_point_dot(
-        _t(y), _t(ph).reshape(k, 1), _t(pl).reshape(k, 1), add_half)
-    for got, want in ((gi_h, wi_h), (gi_l, wi_l), (gf_h, wf_h),
-                      (gf_l, wf_l)):
-        np.testing.assert_array_equal(got.numpy(), _np(want))
-
-
 def _bases(k):
     qs = tuple(rprimes.gen_ntt_primes(27, k, N))
     aux = tuple(rprimes.gen_ntt_primes(30, k + 1, N, skip=qs))
@@ -126,66 +106,3 @@ def _bases(k):
 def _residues(rng, moduli, lead):
     return np.stack([rng.integers(0, q, lead + (N,)) for q in moduli],
                     axis=-2).astype(np.uint32)
-
-
-@pytest.mark.parametrize("k", [3, 7])
-@pytest.mark.parametrize("centered", [False, True])
-def test_base_converter(k, centered):
-    rng = np.random.default_rng(10 * k + centered)
-    qs, aux = _bases(k)
-    ref = rrns.BaseConverter(rrns.RnsBase(qs), rrns.RnsBase(aux))
-    port = prns.BaseConverter(prns.RnsBase(qs, "cpu"),
-                              prns.RnsBase(aux, "cpu"))
-    x = _residues(rng, qs, (2,))
-    x[0, :, :4] = 0                    # small values at both ends
-    x[1, :, :4] = np.array(qs, np.uint32)[:, None] - 1
-    np.testing.assert_array_equal(
-        port.convert(_t(x), centered=centered).numpy(),
-        _np(ref.convert(jnp.asarray(x), centered=centered)))
-    np.testing.assert_array_equal(
-        port.extend(_t(x), centered=centered).numpy(),
-        _np(ref.extend(jnp.asarray(x), centered=centered)))
-
-
-@pytest.mark.parametrize("k", [3, 7])
-def test_scale_and_round(k):
-    rng = np.random.default_rng(20 + k)
-    qs, aux = _bases(k)
-    t = 65537
-    ref = rrns.ScaleAndRound(rrns.RnsBase(qs + aux), rrns.RnsBase(qs),
-                             rrns.RnsBase(aux), t)
-    port = prns.ScaleAndRound(prns.RnsBase(qs + aux, "cpu"),
-                              prns.RnsBase(qs, "cpu"),
-                              prns.RnsBase(aux, "cpu"), t)
-    x = _residues(rng, qs + aux, (2,))
-    np.testing.assert_array_equal(port.apply(_t(x)).numpy(),
-                                  _np(ref.apply(jnp.asarray(x))))
-
-
-@pytest.mark.parametrize("k", [3, 7])
-@pytest.mark.parametrize("t", [17, 1032193])
-def test_decrypt_scaler(k, t):
-    rng = np.random.default_rng(30 + k)
-    qs, _ = _bases(k)
-    ref = rrns.DecryptScaler(rrns.RnsBase(qs), t)
-    port = prns.DecryptScaler(prns.RnsBase(qs, "cpu"), t)
-    x = _residues(rng, qs, (2,))
-    want, (wf_h, wf_l) = ref.apply(jnp.asarray(x))
-    got, (gf_h, gf_l) = port.apply(_t(x))
-    np.testing.assert_array_equal(got.numpy(), _np(want))
-    np.testing.assert_array_equal(gf_h.numpy(), _np(wf_h))
-    np.testing.assert_array_equal(gf_l.numpy(), _np(wf_l))
-
-
-@pytest.mark.parametrize("k", [3, 7])
-def test_mod_down(k):
-    rng = np.random.default_rng(40 + k)
-    qs, aux = _bases(k)
-    p = aux[0]
-    ref = rrns.ModDown(rrns.RnsBase(qs), p)
-    port = prns.ModDown(prns.RnsBase(qs, "cpu"), p)
-    x = _residues(rng, qs, (2,))
-    xp = rng.integers(0, p, (2, N)).astype(np.uint32)
-    np.testing.assert_array_equal(
-        port.apply(_t(x), _t(xp)).numpy(),
-        _np(ref.apply(jnp.asarray(x), jnp.asarray(xp))))
