@@ -35,7 +35,7 @@ encoding at n = 2049, 4096 and 65536, a second launch against the first
 one's raw bytes, and times the three, each of M1's three kernels and the
 chain floor, the join's own time (`check_msm`; after path 23 again at the
 SDLP's l and at the largest MSM paths 22-23 launched, `msm_case`),
-then drives twenty-nine paths, each with the launch counts set to 0 just
+then drives thirty-one paths, each with the launch counts set to 0 just
 before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
@@ -108,7 +108,19 @@ before it and read just after:
     Bulletproofs and the compressed bridge) through `Runtime.new_fhe_zkp`
     -> `LogProofBuilder` at path 22's parameters;
 24. (run after path 16, on path 7's key) `tfhe/zkp.py`'s SDLP of an
-    `LWE_512_80` encryption.
+    `LWE_512_80` encryption;
+25. (run after path 24, on path 1's, 2's and 7's keys) sharded execution
+    (`sunscreen_tpu_torch.parallel`, `lower_program_sharded`) at world
+    size 1 under NCCL in this process: the distributed negacyclic product
+    at N=8192 on the 15-limb product base, `sharded_relin_key` and
+    `sharded_multiply_relin` on one ciphertext, the coefficient-sharded
+    external product at GLWE_1_1024_80, `batch_sharded_pbs` of path 7's
+    ciphertexts, and tests/test_parallel.py's program and the dry run's
+    `multiply_relin(a, a) + a` (`__graft_entry__.py:51`) lowered on a
+    batch x limb mesh; 25b. the same at world size 2 under gloo, two
+    processes on cuda:0 (`--sharded-rank`, on this process's build and
+    inputs), with a limb-sharded run at `insecure_u32(8192, limbs=6,
+    limb_bits=28)` and a batch x coefficient run.
 
 Paths 1-3, 7 and 16-18 pass a decrypt (18: CMUX) gate and a card-vs-CPU
 bit-exact check on one ciphertext; paths 4-6 and 10 must give path 1's
@@ -127,9 +139,13 @@ launches M1 as often as `linear_relation.msm_sizes` predicts, 22b gives
 its bytes with no M1 launch; path 23 verifies, not with a larger
 transfer, with a bridge under 8192 bytes and a ciphertext decrypting to
 its balance; path 24 verifies, not after b changes, with M1's predicted
-launches.
-Paths 1-10, 12-15b, 16-18, 20-24 are then timed, and all but 21b, 22b
-and 24 profiled; a profile window, bounded on the
+launches; in paths 25 and 25b every sharded result, its blocks joined,
+equals the unsharded port's on the card bit for bit, the sharded product
+decrypts to the numpy square and the dry run's step to p p + p (also at
+N/2, the linearity check of the collective bytes), and B6, B9 and B8 are
+held against their twins at the sharded multiply's N/2 columns.
+Paths 1-10, 12-15b, 16-18, 20-25b are then timed, and all but 21b,
+22b, 24 and 25b profiled; a profile window, bounded on the
 device clock by two marker spins, whose kernel events differ from the
 launch counts is taken again, and the run fails if three retries differ
 too. Kernel times are device times: each timed run is queued behind a
@@ -3326,6 +3342,558 @@ def lwe_path(label, s: dict, smi: str):
     return launches, per_op
 
 
+# --- path 25: multi-GPU (parallel/ and lower_program_sharded) ---------------
+
+SHARD_BATCH = 4              # the compiled programs' batch (test_parallel.py)
+SHARD_REPS = 3               # sharded multiply_relin and PBS: median of 3
+SHARD_WORLD = 2              # 25b: gloo ranks on the one card
+SHARD_TIMEOUT_S = 300
+LIMB_SHARDED = {"poly_degree": N, "limbs": 6, "limb_bits": 28}
+SHARD_NEEDED = ("inv", "convert", "scale", "mod_down", "fwd", "inv_ks",
+                "fwd_tensor3", "scale_convert", "fwd_broadcast")
+SHARD_ABSENT = ("ks_full", "ks_full_limbs", "pntt_fwd", "pntt_inv",
+                "pntt_pmul", "msm")
+
+
+def sharded_programs():
+    """tests/test_parallel.py's program (`a * b`, `<< 1`, `+ a - b`) and
+    `__graft_entry__.py`'s dry-run step, `multiply_relin(a, a) + a`."""
+    from sunscreen_tpu_torch.compiler import fhe_program
+    from sunscreen_tpu_torch.types import Batched, Cipher
+
+    @fhe_program(scheme="bfv")
+    def workload(a: Cipher[Batched], b: Cipher[Batched]):
+        prod = a * b
+        rot = prod << 1
+        return rot + a - b
+
+    @fhe_program(scheme="bfv")
+    def dryrun_step(a: Cipher[Batched]):
+        return a * a + a
+
+    return workload, dryrun_step
+
+
+def _shard_params() -> dict:
+    """Path 25's parameter sets: the main path's, the limb-sharded run's
+    (7 limbs do not split over 2 ranks; `__graft_entry__.py:75` picks a
+    limb count its mesh divides) and the main path's limb count at N / 2
+    (the linearity check)."""
+    from sunscreen_tpu_torch.bfv import BfvParams
+    main = BfvParams.default_u32(N)
+    t = main.plain_modulus               # batching at N, so at N / 2 too
+    return {"main": main,
+            "limb": BfvParams.insecure_u32(plain_modulus=t, **LIMB_SHARDED),
+            "half": BfvParams.insecure_u32(
+                N // 2, plain_modulus=t, limbs=len(main.coeff_modulus),
+                limb_bits=28)}
+
+
+def _lowered(name: str, params):
+    from sunscreen_tpu_torch.compiler import Compiler
+    fn = dict(zip(("workload", "dryrun_step"), sharded_programs()))[name]
+    return (Compiler(DEV).with_params(params).fhe_program(fn).compile()
+            .get_program(fn))
+
+
+def sharded_inputs(ctx, inputs: dict, gks, s: dict) -> tuple[dict, dict]:
+    """Path 25's inputs, whole, on the card: path 1's keys and
+    ciphertexts, path 2's rotation key, path 7's PBS keys and
+    ciphertexts, a GGSW and GLWE at GLWE_1_1024_80, and fresh keys and
+    ciphertexts at the limb-sharded and half-N parameters; and, kept in
+    this process, the half-N secret key and plaintexts."""
+    import torch
+    from sunscreen_tpu_torch.bfv import get_context, keys, ops
+    from sunscreen_tpu_torch.tfhe import GLWE_1_1024_80, ops as tops, torus
+
+    gen = torch.Generator(device=DEV).manual_seed(25)
+    g = ctx.rotate_rows_element(1)
+    cts = inputs["cts"]
+    inp = {"neg_a": _uniform(gen, (ctx.mul_base.k, N), ctx.mul_base.q),
+           "neg_b": _uniform(gen, (ctx.mul_base.k, N), ctx.mul_base.q),
+           "ct": cts[0], "rlk0": inputs["rlk"].k0, "rlk1": inputs["rlk"].k1,
+           "a": cts[:SHARD_BATCH], "b": cts[SHARD_BATCH:2 * SHARD_BATCH],
+           "g": g, "gk0": gks[g].k0, "gk1": gks[g].k1,
+           "pbs_rows": s["nbk"].rows, "pbs_ksk": s["ksk"],
+           "pbs_tp": s["tp"], "pbs_cts": s["cts"]}
+    glwe, radix = GLWE_1_1024_80, s["pbs_radix"]
+    sk = tops.generate_binary_glwe_sk(glwe, gen, DEV)
+    inp["ggsw"] = tops.encrypt_ggsw(1, sk, glwe, radix, gen)
+    inp["glwe"] = tops.encrypt_glwe(torus.encode(
+        torch.arange(glwe.poly_degree, device=DEV) % 2, 2, DEV), sk, glwe,
+        gen)
+    for tag in ("limb", "half"):
+        c = get_context(_shard_params()[tag], DEV)
+        sk_t = keys.gen_secret_key(c, gen)
+        pk = keys.gen_public_key(c, sk_t, gen)
+        rlk = keys.gen_relin_key(c, sk_t, gen)
+        pts = torch.arange(2 * SHARD_BATCH * c.n, device=DEV).reshape(
+            2 * SHARD_BATCH, c.n) % c.t
+        both = ops.encrypt(c, pk, pts, gen)
+        inp |= {f"{tag}_a": both[:SHARD_BATCH], f"{tag}_b": both[SHARD_BATCH:],
+                f"{tag}_rlk0": rlk.k0, f"{tag}_rlk1": rlk.k1}
+        if tag == "limb":
+            gl = c.rotate_rows_element(1)
+            gk = keys.gen_galois_keys(c, sk_t, gen, (gl,))[gl]
+            inp |= {"limb_g": gl, "limb_gk0": gk.k0, "limb_gk1": gk.k1}
+        else:
+            keep = {"half_sk": sk_t,
+                    "half_pts": pts[:SHARD_BATCH].cpu().numpy()}
+    return inp, keep
+
+
+def _meshes(world: int) -> dict:
+    """Path 25's meshes over `world` ranks: (world,) coefficient and batch
+    lines, the batch x limb grid (world, 1) and, at world 2, the
+    limb-sharded (1, 2) and batch x coefficient (1, 2) grids."""
+    from sunscreen_tpu_torch.parallel import mesh as pm
+    out = {"coeff": pm.make_mesh((world,), ("coeff",), DEV),
+           "batch": pm.make_mesh((world,), ("batch",), DEV),
+           "bl": pm.make_mesh((world, 1), ("batch", "limb"), DEV)}
+    if world > 1:
+        out["limb"] = pm.make_mesh((1, world), ("batch", "limb"), DEV)
+        out["bc"] = pm.make_mesh((1, world), ("batch", "coeff"), DEV)
+    return out
+
+
+# (name, mesh, ct_spec, params tag, program, operands): the lowered runs;
+# the limb-sharded and coefficient runs need two ranks
+SHARD_PROGRAMS = (
+    ("batch_limb", "bl", None, "main", "workload", ("a", "b")),
+    ("limb", "limb", None, "limb", "workload", ("limb_a", "limb_b")),
+    ("batch_coeff", "bc", ("batch", None, None, "coeff"), "main",
+     "workload", ("a", "b")),
+    ("dryrun", "bl", None, "main", "dryrun_step", ("a",)),
+    ("dryrun_half", "bl", None, "half", "dryrun_step", ("half_a",)))
+
+
+def _barrier_ms(fn, world: int) -> float:
+    """Wall ms of one synchronized call of fn on every rank, between two
+    barriers (the slowest rank's time)."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def sharded_run(inp: dict, world: int) -> dict:
+    """Every scenario of path 25 on this rank of a `world`-rank group
+    (the process group is up): the rank's output blocks, each scenario's
+    collectives, the sharded multiply_relin's times and one call's
+    launches, and the batch-sharded PBS's time."""
+    import torch
+    from sunscreen_tpu_torch import _build
+    from sunscreen_tpu_torch.bfv import get_context
+    from sunscreen_tpu_torch.bfv.keys import GaloisKeys, KswKey
+    from sunscreen_tpu_torch.compiler.lower import lower_program_sharded
+    from sunscreen_tpu_torch.parallel import dntt, ici_model
+    from sunscreen_tpu_torch.parallel import mesh as pm
+    from sunscreen_tpu_torch.parallel import sharded_bfv as sb
+    from sunscreen_tpu_torch.parallel import sharded_tfhe as st
+    from sunscreen_tpu_torch.tfhe import (GLWE_1_1024_80, LWE_512_80,
+                                          RadixDecomposition, ops as tops)
+
+    meshes = _meshes(world)
+    coeff = meshes["coeff"]
+    params = _shard_params()
+    ctx = get_context(params["main"], DEV)
+    out: dict = {"blocks": {}, "stats": {}}
+
+    def record(name, fn):
+        with ici_model.collective_stats() as stats:
+            out["blocks"][name] = fn()
+        torch.cuda.synchronize()
+        out["stats"][name] = {"bytes": stats.bytes, "count": stats.count}
+
+    def cols(x):
+        return pm.local_shard(x, coeff, "coeff", -1)
+
+    plan = dntt.DistributedNttPlan(N, ctx.mul_base.moduli, DEV)
+    mul = dntt.make_distributed_negacyclic_mul(plan, coeff)
+    n1, n2 = plan.n1, plan.n2
+    record("neg", lambda: mul(cols(inp["neg_a"].reshape(-1, n1, n2)),
+                              cols(inp["neg_b"].reshape(-1, n1, n2))))
+
+    before = dict(_build.LAUNCHES)
+    srlk = sb.sharded_relin_key(ctx, KswKey(inp["rlk0"], inp["rlk1"]), coeff)
+    ct4 = cols(sb.to_sharded_layout(inp["ct"], ctx))
+    record("bfv", lambda: sb.sharded_multiply_relin(ctx, coeff, ct4, ct4,
+                                                    srlk))
+    out["per_op"] = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    out["mul_ms"] = sorted(
+        _barrier_ms(lambda: sb.sharded_multiply_relin(ctx, coeff, ct4, ct4,
+                                                      srlk), world)
+        for _ in range(SHARD_REPS))[SHARD_REPS // 2]
+
+    g1, g2 = dntt.four_step(GLWE_1_1024_80.poly_degree)
+    record("extprod", lambda: st.coeff_sharded_external_product(
+        coeff, cols(inp["ggsw"].reshape(2, 3, 2, g1, g2)),
+        cols(inp["glwe"].reshape(2, g1, g2)), GLWE_1_1024_80,
+        RadixDecomposition(count=3, radix_log=4)))
+
+    nbk = tops.NttBootstrapKey(inp["pbs_rows"], GLWE_1_1024_80,
+                               RadixDecomposition(count=3, radix_log=4))
+    rows = pm.local_shard(inp["pbs_cts"], meshes["batch"], "batch", 0)
+
+    def pbs():
+        return st.batch_sharded_pbs(
+            meshes["batch"], rows, inp["pbs_tp"], nbk, inp["pbs_ksk"],
+            LWE_512_80, GLWE_1_1024_80,
+            RadixDecomposition(count=3, radix_log=4),
+            RadixDecomposition(count=8, radix_log=6))
+
+    record("pbs", pbs)
+    out["pbs_ms"] = sorted(_barrier_ms(pbs, world)
+                           for _ in range(SHARD_REPS))[SHARD_REPS // 2]
+
+    for name, mesh_name, spec, tag, prog, operands in SHARD_PROGRAMS:
+        if mesh_name not in meshes:
+            continue
+        mesh = meshes[mesh_name]
+        c = get_context(params[tag], DEV)
+        key = "" if tag == "main" else f"{tag}_"
+        rlk = KswKey(inp[f"{key}rlk0"], inp[f"{key}rlk1"])
+        gks = (GaloisKeys({int(inp[f"{key}g"]): KswKey(inp[f"{key}gk0"],
+                                                        inp[f"{key}gk1"])})
+               if prog == "workload" else None)
+        run = lower_program_sharded(_lowered(prog, params[tag]), c, mesh,
+                                    ct_spec=spec)
+        names = mesh.mesh_dim_names
+        spec = spec or (names[0], None, names[1], None)
+        args = []
+        for v in operands:
+            x = inp[v]
+            for d, ax in enumerate(spec):
+                if ax is not None:
+                    x = pm.local_shard(x, mesh, ax, d)
+            args.append(x)
+        record(name, lambda: run(*args, rlk=rlk, gks=gks)[0])
+    return out
+
+
+def _assemble(blocks: list, mesh_shape: tuple, dims: tuple):
+    """The whole array from the ranks' blocks of a mesh of `mesh_shape`
+    (rank r at row-major mesh coordinates), mesh axis i sharding tensor
+    dim dims[i] (None: replicated, the first rank's block)."""
+    import torch
+    if len(mesh_shape) == 1:
+        return blocks[0] if dims[0] is None else torch.cat(blocks, dims[0])
+    inner = mesh_shape[1]
+    rows = [_assemble(blocks[i * inner:(i + 1) * inner], mesh_shape[1:],
+                      dims[1:]) for i in range(mesh_shape[0])]
+    return _assemble(rows, mesh_shape[:1], dims[:1])
+
+
+def _shard_layouts(world: int) -> dict:
+    """name -> (mesh shape, the tensor dim each mesh axis shards)."""
+    lay = {"neg": ((world,), (-1,)), "bfv": ((world,), (-1,)),
+           "extprod": ((world,), (-1,)), "pbs": ((world,), (0,)),
+           "batch_limb": ((world, 1), (0, -2)),
+           "dryrun": ((world, 1), (0, -2)),
+           "dryrun_half": ((world, 1), (0, -2))}
+    if world > 1:
+        lay |= {"limb": ((1, world), (0, -2)),
+                "batch_coeff": ((1, world), (0, -1))}
+    return lay
+
+
+def sharded_wants(ctx, inp: dict, s: dict, pbs_out) -> dict:
+    """The port's unsharded results on the card for every scenario of path
+    25, computed before the path's counts start."""
+    from sunscreen_tpu_torch.bfv import get_context, ops
+    from sunscreen_tpu_torch.bfv.keys import GaloisKeys, KswKey
+    from sunscreen_tpu_torch.compiler.lower import lower_program
+    from sunscreen_tpu_torch.tfhe import GLWE_1_1024_80, ops as tops
+
+    pm = ctx.plan_mul
+    params = _shard_params()
+    rlk = KswKey(inp["rlk0"], inp["rlk1"])
+    want = {"neg": pm.inv(pm.pointwise_mul(pm.fwd(inp["neg_a"]),
+                                           pm.fwd(inp["neg_b"]))),
+            "bfv": ops.multiply_relin(ctx, inp["ct"], inp["ct"], rlk),
+            "extprod": tops.external_product(inp["ggsw"], inp["glwe"],
+                                             GLWE_1_1024_80, s["pbs_radix"]),
+            "pbs": pbs_out}
+    for name, _, _, tag, prog, operands in SHARD_PROGRAMS:
+        c = get_context(params[tag], DEV)
+        key = "" if tag == "main" else f"{tag}_"
+        gk = (GaloisKeys({int(inp[f"{key}g"]): KswKey(inp[f"{key}gk0"],
+                                                       inp[f"{key}gk1"])})
+              if prog == "workload" else None)
+        want[name] = lower_program(_lowered(prog, params[tag]), c)(
+            *(inp[v] for v in operands),
+            rlk=KswKey(inp[f"{key}rlk0"], inp[f"{key}rlk1"]), gks=gk)[0]
+    return want
+
+
+def _shard_gates(label, results: list, world: int, want: dict, ctx,
+                 sk, pts_np, keep: dict) -> None:
+    """Each scenario's blocks, joined, against the unsharded port's result
+    bit for bit; the sharded product and both dry-run steps against their
+    decryptions."""
+    import torch
+    from sunscreen_tpu_torch.bfv import get_context, ops
+
+    t = ctx.t
+    for name, (shape, dims) in _shard_layouts(world).items():
+        got = _assemble([r["blocks"][name] for r in results], shape, dims)
+        w = want[name]
+        if name in ("neg", "bfv", "extprod"):
+            got = got.reshape(w.shape)
+        if not torch.equal(got, w):
+            raise SystemExit(f"{label} {name}: the sharded result differs "
+                             f"from the unsharded port's")
+        print(f"{label} {name}: == the unsharded port on the card, bit for "
+              f"bit; collectives {json.dumps(results[0]['stats'][name])}",
+              flush=True)
+        if name == "bfv":
+            dec = ops.decrypt(ctx, sk, got).cpu().numpy()
+            if not np.array_equal(dec, _negacyclic_square(pts_np[0], t)):
+                raise SystemExit(f"{label}: sharded product decrypt gate "
+                                 f"FAILED")
+        if name.startswith("dryrun"):
+            c = ctx if name == "dryrun" else get_context(
+                _shard_params()["half"], DEV)
+            key = sk if name == "dryrun" else keep["half_sk"]
+            p = pts_np[:SHARD_BATCH] if name == "dryrun" else keep["half_pts"]
+            dec = ops.decrypt(c, key, got).cpu().numpy()
+            for r in range(SHARD_BATCH):
+                if not np.array_equal(dec[r], (_negacyclic_square(p[r], c.t)
+                                               + p[r]) % c.t):
+                    raise SystemExit(f"{label} {name}: decrypt gate FAILED "
+                                     f"at row {r}")
+    print(f"{label}: the sharded product decrypts to the numpy square; the "
+          f"dry run's step decrypts to p p + p at N={N} and N={N // 2}",
+          flush=True)
+    full = results[0]["stats"]
+    ratio = (sum(full["dryrun"]["bytes"].values())
+             / max(sum(full["dryrun_half"]["bytes"].values()), 1))
+    print(f"{label} linearity check: collective bytes of the dry run's step "
+          f"at N={N} / N={N // 2} = {ratio:.2f} (linear model predicts "
+          f"2.00)", flush=True)
+
+
+def sharded_rank(rank: int, world: int, workdir: str) -> int:
+    """One rank of path 25b: joins the gloo group through a FileStore in
+    `workdir`, loads the parent's kernels and inputs, runs every scenario
+    on cuda:0 and writes its blocks, collectives, times and launches."""
+    import torch
+    import torch.distributed as dist
+    from sunscreen_tpu_torch import _build
+
+    torch.cuda.set_device(0)
+    _build.build_all()                  # the parent's build: no nvcc
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
+        rank=rank, world_size=world)
+    try:
+        inp = torch.load(os.path.join(workdir, "inputs.pt"),
+                         map_location=DEV)
+        _build.reset_launches()
+        out = sharded_run(inp, world)
+        out["launches"] = dict(_build.LAUNCHES)
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(inp: dict, world: int) -> list:
+    """Path 25b's ranks, each `chip_smoke.py --sharded-rank` on the one
+    card, on inputs this process wrote; every rank is stopped if one
+    fails or the time runs out. Returns their results."""
+    import shutil
+    import tempfile
+
+    import torch
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        torch.save({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                    for k, v in inp.items()},
+                   os.path.join(workdir, "inputs.pt"))
+        procs = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.log"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--sharded-rank", str(r), str(world), workdir],
+                    stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if (time.monotonic() > deadline or any(
+                    p.returncode for p in procs if p.poll() is not None)):
+                break
+            time.sleep(0.1)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if any(p.returncode for p in procs):
+            for r, p in enumerate(procs):
+                with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                    print(f"--- rank {r} (rc {p.returncode}) ---\n"
+                          f"{f.read()[-6000:]}", file=sys.stderr)
+            raise SystemExit(f"path 25b: ranks failed (rc "
+                             f"{[p.returncode for p in procs]})")
+        return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                           map_location=DEV) for r in range(world)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def sharded_path(ctx, inputs: dict, gks, s: dict, pbs_out, smi: str):
+    """Paths 25 and 25b, the counterpart of `__graft_entry__.py:51`
+    `dryrun_multichip` on the one card: at world size 1 under NCCL in
+    this process (a FileStore in a temporary directory), then at world
+    size 2 under gloo, two processes on cuda:0, each scenario against
+    the unsharded port bit for bit. Returns both paths' (launches,
+    launches of one sharded multiply_relin)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from sunscreen_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    inp, keep = sharded_inputs(ctx, inputs, gks, s)
+    want = sharded_wants(ctx, inp, s, pbs_out)
+    torch.cuda.synchronize()
+    print(f"path 25 set-up: {time.perf_counter() - t0:.1f} s (inputs and "
+          f"the unsharded results)", flush=True)
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl" if DEV == "cuda" else "gloo",
+            store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+            world_size=1)
+        try:
+            _build.reset_launches()
+            res = sharded_run(inp, 1)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            _shard_report("sharded", [res], 1, want, ctx, inputs, keep, smi)
+            _path_counts("sharded", launches, SHARD_NEEDED, SHARD_ABSENT)
+            paths["sharded"] = (launches, res["per_op"])
+            _shard_profiles(ctx, inp)
+        finally:
+            dist.destroy_process_group()
+        print(f"path 25 (world size 1, nccl): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    results = _spawn_ranks(inp, SHARD_WORLD)
+    launches = {k: sum(r["launches"][k] for r in results)
+                for k in _build.LAUNCHES}
+    _shard_report("sharded_ws2", results, SHARD_WORLD, want, ctx, inputs,
+                  keep, smi)
+    _path_counts("sharded_ws2", launches, SHARD_NEEDED, SHARD_ABSENT)
+    paths["sharded_ws2"] = (launches, results[0]["per_op"])
+    print(f"path 25b (world size {SHARD_WORLD}, gloo on one card): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+def _shard_report(label, results, world, want, ctx, inputs, keep, smi):
+    _shard_gates(label, results, world, want, ctx, inputs["sk"],
+                 inputs["pts_np"], keep)
+    r0 = results[0]
+    n_pbs = sum(r["blocks"]["pbs"].shape[0] for r in results)
+    per = {k: r0["per_op"][k] for k in ("inv", "convert", "scale",
+                                        "mod_down")}
+    print(f"{label}: sharded multiply_relin at N={N}, world size {world}: "
+          f"{r0['mul_ms']:.3f} ms (median of {SHARD_REPS}, one ciphertext); "
+          f"launches of the key and one product (B3 inv, B6 convert, B9 "
+          f"scale, B8 mod_down): {json.dumps(per)}; batch_sharded_pbs: "
+          f"{n_pbs} PBS in {r0['pbs_ms']:.1f} ms (median of {SHARD_REPS}), "
+          f"{n_pbs / r0['pbs_ms'] * 1e3:.1f} PBS/s on {smi}", flush=True)
+
+
+def _shard_profiles(ctx, inp: dict) -> None:
+    """Device time and busy share at world size 1 of one distributed
+    negacyclic product (three transforms and a pointwise product: the
+    device ops of a transform), one sharded multiply_relin and one batch
+    x limb program run."""
+    from sunscreen_tpu_torch.bfv.keys import GaloisKeys, KswKey
+    from sunscreen_tpu_torch.compiler.lower import lower_program_sharded
+    from sunscreen_tpu_torch.parallel import dntt
+    from sunscreen_tpu_torch.parallel import mesh as pm
+    from sunscreen_tpu_torch.parallel import sharded_bfv as sb
+
+    coeff = pm.make_mesh((1,), ("coeff",), DEV)
+    bl = pm.make_mesh((1, 1), ("batch", "limb"), DEV)
+    plan = dntt.DistributedNttPlan(N, ctx.mul_base.moduli, DEV)
+    mul = dntt.make_distributed_negacyclic_mul(plan, coeff)
+    a, b = (inp[v].reshape(-1, plan.n1, plan.n2) for v in ("neg_a", "neg_b"))
+    prof = profile_breakdown("sharded_negacyclic_mul", lambda: mul(a, b))
+    print(f"sharded_negacyclic_mul: {prof.get('ops', 0):.0f} device ops a "
+          f"product of three distributed transforms and one pointwise "
+          f"product (two device ops) at N={N}, {ctx.mul_base.k} limbs",
+          flush=True)
+    srlk = sb.sharded_relin_key(ctx, KswKey(inp["rlk0"], inp["rlk1"]), coeff)
+    ct4 = sb.to_sharded_layout(inp["ct"], ctx)
+    profile_breakdown("sharded_multiply_relin", lambda: (
+        sb.sharded_multiply_relin(ctx, coeff, ct4, ct4, srlk)))
+    run = lower_program_sharded(_lowered("workload", ctx.params), ctx, bl)
+    rlk = KswKey(inp["rlk0"], inp["rlk1"])
+    gks = GaloisKeys({int(inp["g"]): KswKey(inp["gk0"], inp["gk1"])})
+    profile_breakdown("sharded_program", lambda: run(
+        inp["a"], inp["b"], rlk=rlk, gks=gks))
+
+
+def shard_col_cases(ctx, gen) -> list[tuple]:
+    """B6, B9 and B8 at the shapes `sharded_multiply_relin` gives them at
+    path 25b's world size, N / 2 columns a rank: (name, where, kernel,
+    plain twin, args, bytes, 32-bit multiplies). B6 twice: the base
+    extension Q -> Q u B with the source limbs copied ahead, and the
+    centered conversion B -> Q."""
+    from sunscreen_tpu_torch.math import prns
+
+    cols, k = N // SHARD_WORLD, ctx.k
+    ext = prns.fused_converter(ctx.conv_q_to_aux)
+    back = prns.fused_converter(ctx.conv_aux_to_q)
+    scaler = prns.fused_scaler(ctx.scale_mul_to_aux)
+    mdo = prns.fused_mod_down(ctx.mod_down)
+    x_ext = _max_digits(_uniform(gen, (4, ext.ks, cols), ctx.q_base.q),
+                        ctx.q_base)
+    x_back = _max_digits(_uniform(gen, (3, back.ks, cols), ctx.aux_base.q),
+                         ctx.aux_base)
+    x_sc = _max_digits(_uniform(gen, (3, scaler.ks, cols), ctx.mul_base.q),
+                       ctx.mul_base)
+    both = _uniform(gen, (2, ctx.key_base.k, cols), ctx.key_base.q)
+    n_back = 3 * cols
+    return [
+        ("convert", "at_shard", *_convert_case(ext, x_ext)),
+        ("convert", "at_shard_aux_to_q",
+         lambda v: back(v, centered=True),
+         lambda v: back.call_plain(v, centered=True), (x_back,),
+         n_back * (back.ks + back.kd) * WORD,
+         n_back * (10 * back.ks + 2 * back.ks * back.kd + 2 * back.kd)),
+        ("scale", "at_shard", scaler, scaler.call_plain, (x_sc,),
+         *_scale_counts(scaler, 3 * cols)),
+        ("mod_down", "at_shard",
+         lambda b: mdo(b[..., :k, :], b[..., k, :]),
+         lambda b: mdo.call_plain(b[..., :k, :], b[..., k, :]), (both,),
+         2 * cols * (2 * k + 1) * WORD, 2 * cols * 2 * k)]
+
+
+def check_shard_cols(ctx, gen, table: list[dict]) -> None:
+    """B6, B9 and B8 held against their twins, bit for bit, and timed at
+    the sharded multiply's N / 2 columns; each row gets the numbers under
+    its `where` key."""
+    rows = {row["name"]: row for row in table}
+    for name, where, kern, plain, args, nbytes, muls in shard_col_cases(
+            ctx, gen):
+        shape = list(args[0].shape)
+        _held(f"{name}@{shape}", kern, plain, args)
+        rows[name][where] = {"shape": shape, **_timing(
+            f"{name} at {shape}", kern, plain, args, nbytes, muls)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3358,6 +3926,7 @@ def main() -> int:
           f"limbs", flush=True)
     gen = torch.Generator(device=DEV).manual_seed(0)
     table = check_kernels(ctx, gen)
+    check_shard_cols(ctx, gen, table)
     check_wide(gen)
     transform_checks(gen)
     msm_row = check_msm()
@@ -3453,6 +4022,10 @@ def main() -> int:
     paths["pbs_multi"] = multi_path(s, smi)
     # --- path 24: TFHE's SDLP on an LWE encryption under path 7's key ----
     paths["lwe_sdlp"] = lwe_path("lwe_sdlp", s, smi)
+    # --- paths 25 and 25b: multi-GPU (parallel/, lower_program_sharded)
+    # at world size 1 under NCCL, then 2 under gloo on the one card, on
+    # path 1's, 2's and 7's keys ------------------------------------------
+    paths.update(sharded_path(ctx, inputs, gks, s, out, smi))
     del s, out
 
     # --- path 9: the pallas_vpu NTT plan (B16, B17) ----------------------
@@ -3634,6 +4207,9 @@ def compare(against: str, phase: str | None = None) -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--sharded-rank":
+        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
     if len(sys.argv) == 3 and sys.argv[1] == "--against":
         sys.exit(compare(sys.argv[2]))
     if (len(sys.argv) == 5 and sys.argv[1] == "--against"

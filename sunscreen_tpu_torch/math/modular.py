@@ -78,6 +78,17 @@ def neg_mod(a, q):
     return torch.where(a == 0, a, q - a)
 
 
+def sum_mod(x, dim: int, q):
+    """Sum of residues in [0, q) along `dim`, mod q, by pairwise modular
+    adds (no int64 sum of 62-bit residues can overflow)."""
+    x = torch.movedim(x, dim, 0)
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:1])])
+        x = add_mod(x[0::2], x[1::2], q)
+    return x[0]
+
+
 def reduce_2q(x, q):
     """A lazy value in [0, 2q) to [0, q)."""
     return torch.where(x >= q, x - q, x)

@@ -39,7 +39,7 @@ import torch
 
 from sunscreen_tpu_torch import resolve_device
 from sunscreen_tpu_torch.math import sampling
-from sunscreen_tpu_torch.math.modular import add_mod, s64, srl
+from sunscreen_tpu_torch.math.modular import s64, srl, sum_mod
 from sunscreen_tpu_torch.tfhe import torus
 from sunscreen_tpu_torch.tfhe.params import TORUS_BITS, GlweDef, LweDef, \
     RadixDecomposition
@@ -299,17 +299,6 @@ def encrypt_ggsw(msg, sk, params: GlweDef, radix: RadixDecomposition,
     return _ggsw_units(msg_poly, params, radix, zeros)
 
 
-def _sum_mod(x, dim: int, q):
-    """Sum of residues in [0, q) along `dim`, mod q, by pairwise modular
-    adds (no int64 sum of 62-bit residues can overflow)."""
-    x = torch.movedim(x, dim, 0)
-    while x.shape[0] > 1:
-        if x.shape[0] % 2:
-            x = torch.cat([x, torch.zeros_like(x[:1])])
-        x = add_mod(x[0::2], x[1::2], q)
-    return x[0]
-
-
 def _poly_dot(digits, rows):
     """sum_t digits[..., t, :] rows[..., t, :, :] (negacyclic, exact mod
     2^64) for small signed digit polynomials [..., T, N] and torus
@@ -319,7 +308,7 @@ def _poly_dot(digits, rows):
     plan = get_torus_plan(digits.shape[-1], device=digits.device)
     d_hat = plan.fwd(plan.signed_to_rns(digits)).unsqueeze(-3)
     r_hat = plan.fwd(plan.torus_to_rns(rows))         # [..., T, C, kp, N]
-    acc = _sum_mod(plan.pointwise(d_hat, r_hat), -4, plan.base.q)
+    acc = sum_mod(plan.pointwise(d_hat, r_hat), -4, plan.base.q)
     return plan.to_torus(plan.plan.inv(acc))
 
 
