@@ -9,7 +9,7 @@ ptxas' registers, stack and spills of the kernels in ntt.cu, tensor3.cu,
 inv_ks.cu, ks_full.cu, inv_tensor3.cu, pntt.cu, rns.cu and msm.cu with each
 one's threads and shared memory a block, and the IMAD-class and total SASS
 instructions of rns_convert, rns_scale and scale_convert), holds each of the
-twenty-two kernel entry points bit for bit against its plain
+twenty-six kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
 `BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
 `ks_full_limbs`; the "pallas_vpu" plan's multiply and encryption shapes
@@ -24,18 +24,21 @@ B1 at the 16-digit step's [1024, 4, 1024] and B5 and B15 on its digits
 [64, 16, 4, 1024],
 B4, B5, B6, B7, B9, B12 and B13 at `default_u32(16384)`'s shapes at batch 64,
 B6, B7, B9, B10, B16 and B17 at the "pallas_vpu" multiply's shapes at
-`default_u32(32768)` (59 limbs in the product base), all timed with their
-bounds; B14 and B15 also timed beside the two kernels each replaces,
-B2 + B5 and, at both TFHE steps, B1 + B5, on the same inputs), holds B1-B5,
-B12-B15 at every N from 256 to 16384 and B16 from 128 to 32768
-(`transform_checks`: edge residues, raw words up to 2^32 - 1, a 30-bit
-and three small moduli), holds M1 (the Pippenger MSM over ristretto255,
-csrc/msm.cu) against its plain version and the host C++ MSM by ristretto
+`default_u32(32768)` (59 limbs in the product base) and at path 26's
+`insecure_u32(65536, limbs=3)` (8 limbs; B16 as its two passes, each an
+entry point of its own, and whole), B16 also at N = 131072, all timed
+with their bounds; B14 and B15 also timed beside the two kernels each
+replaces, B2 + B5 and, at both TFHE steps, B1 + B5, on the same
+inputs), holds B1-B5, B12-B15 at every N from 256 to 16384 and B16 from
+128 to 2^21, its two passes also alone from 65536 (`transform_checks`:
+edge residues, raw words up to 2^32 - 1, a 30-bit and three small
+moduli), holds M1 (the Pippenger MSM over ristretto255, csrc/msm.cu)
+against its plain version and the host C++ MSM by ristretto
 encoding at n = 2049, 4096 and 65536, a second launch against the first
 one's raw bytes, and times the three, each of M1's three kernels and the
 chain floor, the join's own time (`check_msm`; after path 23 again at the
 SDLP's l and at the largest MSM paths 22-23 launched, `msm_case`),
-then drives thirty-one paths, each with the launch counts set to 0 just
+then drives thirty-two paths, each with the launch counts set to 0 just
 before it and read just after:
 
 1. keygen, encryption and batched ct×ct `multiply_relin` at N=8192,
@@ -120,12 +123,17 @@ before it and read just after:
     batch x limb mesh; 25b. the same at world size 2 under gloo, two
     processes on cuda:0 (`--sharded-rank`, on this process's build and
     inputs), with a limb-sharded run at `insecure_u32(8192, limbs=6,
-    limb_bits=28)` and a batch x coefficient run.
+    limb_bits=28)` and a batch x coefficient run;
+26. (run after path 15b) path 9 at `insecure_u32(65536,
+    plain_modulus=786433, limbs=3)`, parameters with no security level
+    (the reference's presets stop at 32768): B16 in two passes a
+    transform (`pntt_fwd_rows`, `pntt_fwd_cols`, `pntt_inv_cols`,
+    `pntt_inv_rows`), the one-pass B16 absent, B6, B10, B7 and B17.
 
 Paths 1-3, 7 and 16-18 pass a decrypt (18: CMUX) gate and a card-vs-CPU
 bit-exact check on one ciphertext; paths 4-6 and 10 must give path 1's
 output, 3b path 3's, 8 path 7's, 15b path 15's and 18b path 18's, bit
-for bit; paths 9 and 15 pass a slot-wise gate on every row and a
+for bit; paths 9, 15 and 26 pass a slot-wise gate on every row and a
 card-vs-CPU multiply; path 11 a slot-wise gate on every output; paths
 13 and 14 the decrypt gate, a card-vs-CPU check and the rotation or
 golden gates; path 19 a decrypt gate per op and a card-vs-CPU check per
@@ -144,7 +152,7 @@ equals the unsharded port's on the card bit for bit, the sharded product
 decrypts to the numpy square and the dry run's step to p p + p (also at
 N/2, the linearity check of the collective bytes), and B6, B9 and B8 are
 held against their twins at the sharded multiply's N/2 columns.
-Paths 1-10, 12-15b, 16-18, 20-25b are then timed, and all but 21b,
+Paths 1-10, 12-15b, 16-18, 20-26 are then timed, and all but 21b,
 22b, 24 and 25b profiled; a profile window, bounded on the
 device clock by two marker spins, whose kernel events differ from the
 launch counts is taken again, and the run fails if three retries differ
@@ -182,6 +190,8 @@ BATCH = 64
 ITERS, REPS = 20, 5          # timed ops: median of REPS x ITERS batches
 WIDE_N, WIDE_BATCH = 16384, 2   # kernel checks at the widest bases
 VPU_N = 32768                   # path 15: the largest u32 parameter set
+BIG_N = 65536                   # path 26: B16 in two passes a transform
+BIG_T = 786433                  # 6 * 2^17 + 1, a batching prime at BIG_N
 GATES = ("SUNSCREEN_TPU_FUSED_RNS", "SUNSCREEN_TPU_FUSE_INV",
          "SUNSCREEN_TPU_FUSE_FT3", "SUNSCREEN_TPU_FUSE_T3",
          "SUNSCREEN_TPU_FUSE_TFULL", "SUNSCREEN_TPU_FUSE_SC",
@@ -460,19 +470,82 @@ def inv_tensor3_muls(n: int) -> int:
 SRC_PNTT = "sunscreen_tpu_torch/csrc/pntt.cu"
 
 
-def pntt_checks(plan, gen, rows: int) -> list[tuple]:
-    """B16 forward and inverse on [rows, k, N] of a pallas_vpu plan, with
-    their bounds: (name, kernel, plain twin, args, source, replaces,
-    bytes, 32-bit multiplies)."""
+def pntt_checks(plan, gen, rows: int, inv_rows: int | None = None
+                ) -> list[tuple]:
+    """B16 forward on [rows, k, N] and inverse on [inv_rows (default
+    rows), k, N] of a pallas_vpu plan, with their bounds (one pass's:
+    each word read and written once, also where B16 runs in two): (name,
+    kernel, plain twin, args, source, replaces, bytes, 32-bit
+    multiplies)."""
     n, k = plan.n, plan.k
     ntt_muls = 3 * (n // 2) * plan.logn
     x = _max_residues(_uniform(gen, (rows, k, n), plan.q), plan.q)
-    nbytes = 2 * rows * k * n * WORD
+    y = x if inv_rows is None else _max_residues(
+        _uniform(gen, (inv_rows, k, n), plan.q), plan.q)
     return [("pntt_fwd", plan.fwd, plan.fwd_plain, (x,), SRC_PNTT,
-             "sunscreen_tpu/math/pntt.py:395", nbytes, rows * k * ntt_muls),
-            ("pntt_inv", plan.inv, plan.inv_plain, (x,), SRC_PNTT,
-             "sunscreen_tpu/math/pntt.py:395", nbytes,
-             rows * k * (ntt_muls + 3 * n))]
+             "sunscreen_tpu/math/pntt.py:395", 2 * x.numel() * WORD,
+             x.numel() // n * ntt_muls),
+            ("pntt_inv", plan.inv, plan.inv_plain, (y,), SRC_PNTT,
+             "sunscreen_tpu/math/pntt.py:395", 2 * y.numel() * WORD,
+             y.numel() // n * (ntt_muls + 3 * n))]
+
+
+PASS_WORD = 4                # B16's intermediate: u32 residues
+
+
+def pass_cases(plan, x, y) -> list[tuple]:
+    """B16's two passes (N > 32768) on their own, forward on x and inverse
+    on y ([rows, k, N]), each second pass's input made by the twin of the
+    pass before it: (name, kernel, plain twin, args, source, replaces,
+    bytes (int64 on one side, u32 on the other), 32-bit multiplies (3 a
+    butterfly, the row passes on log2 R bits, the column passes on 7, 3 a
+    word for the 1/N))."""
+    a, b = plan.fwd_rows_plain(x), plan.inv_cols_plain(y)
+    bf, bi = x.numel() // 2 * 3, y.numel() // 2 * 3   # butterflies' muls
+    repl = "sunscreen_tpu/math/pntt.py:395"
+    return [("pntt_fwd_rows", plan.fwd_rows, plan.fwd_rows_plain, (x,),
+             SRC_PNTT, repl, x.numel() * (WORD + PASS_WORD),
+             bf * plan.log_r),
+            ("pntt_fwd_cols", plan.fwd_cols, plan.fwd_cols_plain, (a,),
+             SRC_PNTT, repl, x.numel() * (WORD + PASS_WORD),
+             bf * plan.log_c),
+            ("pntt_inv_cols", plan.inv_cols, plan.inv_cols_plain, (y,),
+             SRC_PNTT, repl, y.numel() * (WORD + PASS_WORD),
+             bi * plan.log_c),
+            ("pntt_inv_rows", plan.inv_rows, plan.inv_rows_plain, (b,),
+             SRC_PNTT, repl, y.numel() * (WORD + PASS_WORD),
+             bi * plan.log_r + 3 * y.numel())]
+
+
+def big_params():
+    """Path 26's parameters: 3 limbs of 28 bits at N = 65536, insecure
+    (the reference's presets stop at 32768), t = 786433."""
+    from sunscreen_tpu_torch.bfv import BfvParams
+    return BfvParams.insecure_u32(BIG_N, plain_modulus=BIG_T, limbs=3)
+
+
+def big_pass_cases(gen, batch: int) -> list[tuple]:
+    """B16's passes at path 26's multiply: forward on [4 batch, 8, 65536],
+    inverse on [3 batch, 8, 65536]."""
+    from sunscreen_tpu_torch.bfv import get_context
+
+    plan = get_context(big_params(), DEV, "pallas_vpu").plan_mul
+    x, y = (_max_residues(_uniform(gen, (rows, plan.k, plan.n), plan.q),
+                          plan.q) for rows in (4 * batch, 3 * batch))
+    return pass_cases(plan, x, y)
+
+
+def wide_transform_cases(gen, batch: int) -> list[tuple]:
+    """B16 (two passes) at N = 131072 on [2 batch, 8, N], the words of
+    path 26's forward transform, under eight 30-bit limbs."""
+    from sunscreen_tpu_torch.math import ntt, primes
+
+    n = 2 * BIG_N
+    plan = ntt.get_plan(n, tuple(primes.gen_ntt_primes(30, 8, n)), DEV,
+                        "pallas_vpu")
+    return [(name, kern, plain, args, nbytes, muls) for
+            name, kern, plain, args, _, _, nbytes, muls in
+            pntt_checks(plan, gen, 2 * batch)]
 
 
 def vpu_kernel_cases(params, gen, batch: int) -> list[tuple]:
@@ -866,21 +939,24 @@ def wide_cases(gen, batch: int) -> list[tuple]:
               tensor3_cases(pm, gen, batch))]
 
 
-def vpu_wide_cases(gen, batch: int) -> list[tuple]:
+def vpu_wide_cases(gen, batch: int, params=None) -> list[tuple]:
     """Path 15's kernels at its shapes (`default_u32(32768)` under
-    "pallas_vpu", `batch` ciphertexts): the extension [batch, 4, 29, N]
-    -> [batch, 4, 59, N], B16 on [4 batch, 59, N] (1024 threads of 32
-    coefficients and 128 KB a polynomial), B10 on the halves of
-    [batch, 4, 59, N], the 59-limb tensor base [batch, 3, 59, N] ->
-    [batch, 3, 29, N] (B7, B9 into the 30 limbs of B), and B17 on the
+    "pallas_vpu", `batch` ciphertexts), or path 26's (`params`, B16 in two
+    passes, its inverse on the product's 3 batch rows): the extension
+    [batch, 4, 29, N] -> [batch, 4, 59, N], B16 on [4 batch, 59, N] (1024
+    threads of 32 coefficients and 128 KB a polynomial), B10 on the
+    halves of [batch, 4, 59, N], the 59-limb tensor base [batch, 3, 59, N]
+    -> [batch, 3, 29, N] (B7, B9 into the 30 limbs of B), and B17 on the
     plaintext against both components, [batch, 2, 29, N] by
     [batch, 1, 29, N], with `a * b % q` as its library call (name,
     kernel, plain twin, args, bytes, 32-bit multiplies[, library])."""
     from sunscreen_tpu_torch.bfv import BfvParams, get_context
     from sunscreen_tpu_torch.math import ntt, prns
 
-    ctx = get_context(BfvParams.default_u32(VPU_N), DEV, "pallas_vpu")
-    n, qb, mb = VPU_N, ctx.q_base, ctx.mul_base
+    big = params is not None
+    ctx = get_context(params if big else BfvParams.default_u32(VPU_N), DEV,
+                      "pallas_vpu")
+    n, qb, mb = ctx.n, ctx.q_base, ctx.mul_base
     conv = prns.fused_converter(ctx.conv_q_to_aux)
     sc = ctx.fused_op("scale_convert")
     scaler = prns.fused_scaler(ctx.scale_mul_to_aux)
@@ -895,7 +971,8 @@ def vpu_wide_cases(gen, batch: int) -> list[tuple]:
     return [("convert", *_convert_case(conv, x_cv)),
             *((name, kern, plain, args, nbytes, muls) for
               name, kern, plain, args, _, _, nbytes, muls in
-              pntt_checks(ctx.plan_mul, gen, 4 * batch)),
+              pntt_checks(ctx.plan_mul, gen, 4 * batch,
+                          3 * batch if big else None)),
             ("tensor3", t3, t3.call_plain, (ab[:, :2], ab[:, 2:]),
              (2 + 2 + 3) * batch * mb.k * n * WORD, 8 * batch * mb.k * n),
             ("scale_convert", sc, sc.call_plain, (x_sc,),
@@ -929,7 +1006,8 @@ def check_kernels(ctx, gen) -> list[dict]:
     also against the pair of kernels each replaces, on the same inputs,
     bit for bit and timed; B1 and B3 also at the PBS step's shape, B5
     there too, B4-B7, B9, B12 and B13 at path 3's shapes, and B6, B7, B9,
-    B10, B16 and B17 at path 15's."""
+    B10, B16 and B17 at path 15's and path 26's (B16's two passes there
+    rows of their own), B16 also at N = 131072."""
     rows = []
     from sunscreen_tpu_torch.bfv import BfvParams
 
@@ -938,6 +1016,7 @@ def check_kernels(ctx, gen) -> list[dict]:
          *library) in (kernel_cases(ctx, gen, BATCH)
                        + [pbs_kernel_case(gen, BATCH)]
                        + vpu_kernel_cases(ctx.params, gen, BATCH)
+                       + big_pass_cases(gen, BATCH)
                        + u64_kernel_cases(BfvParams.default(N), gen)):
         err = _held(name, kern, plain, args)
         rows.append({
@@ -959,7 +1038,10 @@ def check_kernels(ctx, gen) -> list[dict]:
     for where, cases in (("at_pbs_step", pbs_transform_cases),
                          ("at_pbs_step_16", fine_pbs_cases),
                          (f"at_{WIDE_N}", wide_cases),
-                         (f"at_{VPU_N}", vpu_wide_cases)):
+                         (f"at_{VPU_N}", vpu_wide_cases),
+                         (f"at_{BIG_N}", functools.partial(
+                             vpu_wide_cases, params=big_params())),
+                         (f"at_{2 * BIG_N}", wide_transform_cases)):
         for name, kern, plain, args, nbytes, muls, *library in cases(
                 gen, BATCH):
             shape = list(args[0].shape)
@@ -1008,10 +1090,12 @@ def transform_checks(gen, rows: int = 3) -> None:
     fwd, fwd_broadcast, inv, inv_ks, inv_tensor3 (operands the halves
     of one stack, read through their row strides), fwd_tensor3 and
     fwd_tensor3_full at every N from 256 to 16384, pntt_fwd and pntt_inv
-    (the [t', s'] exchange) from 128 to 32768 (radix-8 groups at 256,
+    (the [t', s'] exchange) from 128 to 2^21 (radix-8 groups at 256,
     radix-16 above, radix-32 and one exchange buffer at 32768, 2 to 4
     groups, several polynomials per block below 8192, a block's spare
-    slots when rows * k is not a multiple of them; inv_ks in both of its
+    slots when rows * k is not a multiple of them; two passes from 65536,
+    each also held alone, a row pass of 16 columns a block down to one at
+    2^20; inv_ks in both of its
     block shapes, with 16 digits and every key word of k0 at q - 1),
     ks_full and ks_full_limbs at every N (6 digits, both block shapes);
     under one limb at the largest 30-bit NTT prime (the
@@ -1024,18 +1108,23 @@ def transform_checks(gen, rows: int = 3) -> None:
     import torch
     from sunscreen_tpu_torch.math import pmntt, pntt, primes
 
-    for logn in range(7, 16):
+    for logn in range(7, 22):
         n = 1 << logn
         for k, bits in ((1, 30), (3, max(17, 17 + logn - 8))):
             plan = pntt.PallasNttPlan(
                 n, tuple(primes.gen_ntt_primes(bits, k, n)), DEV)
             x = _uniform(gen, (rows, k, n), plan.q)
             x[..., 0] = plan.q[:, 0] - 1
+            x[..., 1] = 0
             x[..., 2] = (1 << 62) + 12345   # the loads' 64-bit reduction
             x[0] = plan.q - 1
             for name, kern, plain in (("pntt_fwd", plan.fwd, plan.fwd_plain),
                                       ("pntt_inv", plan.inv, plan.inv_plain)):
                 _held(f"{name}@[{rows},{k},{n}] {bits}b", kern, plain, (x,))
+            if n > pntt.ONE_PASS_MAX_N:     # and each of the two passes
+                for name, kern, plain, args, *_ in pass_cases(plan, x, x):
+                    _held(f"{name}@[{rows},{k},{n}] {bits}b", kern, plain,
+                          args)
     for logn in range(8, 15):
         n = 1 << logn
         for k, bits in ((1, 30), (3, 17 + logn - 8)):
@@ -1126,6 +1215,21 @@ PTXAS_SOURCES = {"ntt": _ntt_block, "tensor3": _tensor3_block,
                  "rns": lambda *_: (256, 0)}
 
 
+def _rows_block(logn):
+    """B16's row pass <LOGN>: a transform of R = N / 128 a column, two
+    buffers of R words a column."""
+    threads, cols = transform_shape(1 << (logn - 7))
+    return threads, 2 * cols * (1 << (logn - 7)) * 4
+
+
+# Kernels of a source whose block is not the source's rule: B16's passes
+# (the column passes: 256 threads, static shared memory only).
+PTXAS_KERNELS = {"pntt_fwd_rows_kernel": _rows_block,
+                 "pntt_inv_rows_kernel": _rows_block,
+                 "pntt_fwd_cols_kernel": lambda _: (256, 0),
+                 "pntt_inv_cols_kernel": lambda _: (256, 0)}
+
+
 def _demangle(symbol: str) -> tuple[str, list[int]]:
     """(function name, integer and bool template arguments) of a mangled
     kernel symbol: "_Z13inv_ks_kernelILi13ELi1EEv..." -> ("inv_ks_kernel",
@@ -1159,7 +1263,7 @@ def print_ptxas() -> None:
                           line)
             if m and kernel and spill:
                 name, args = kernel
-                threads, dyn = block(*args)
+                threads, dyn = PTXAS_KERNELS.get(name, block)(*args)
                 print(f"ptxas {name}<{', '.join(map(str, args))}>: "
                       f"{m.group(1)} registers, {spill[0]} B stack, "
                       f"{spill[1]}/{spill[2]} B spill stores/loads; "
@@ -1224,6 +1328,10 @@ KERNEL_KEYS = {
     "inv_tensor3_kernel": ("inv_tensor3",),
     "ks_full_kernel": ("ks_full", "ks_full_limbs"),
     "pntt_fwd_kernel": ("pntt_fwd",), "pntt_inv_kernel": ("pntt_inv",),
+    "pntt_fwd_rows_kernel": ("pntt_fwd_rows",),
+    "pntt_fwd_cols_kernel": ("pntt_fwd_cols",),
+    "pntt_inv_cols_kernel": ("pntt_inv_cols",),
+    "pntt_inv_rows_kernel": ("pntt_inv_rows",),
     "pntt_pmul_kernel": ("pntt_pmul",),
     "u64_shoup_kernel": ("shoup_mul_mod",),
     "u64_mul_mod_kernel": ("mul_mod",),
@@ -2069,8 +2177,14 @@ def _slot_gate(label, enc, sk, ctx, ct, want) -> None:
             raise SystemExit(f"{label}: slot gate FAILED at batch row {r}")
 
 
+B16_ONE_PASS = ("pntt_fwd", "pntt_inv")
+B16_PASSES = ("pntt_fwd_rows", "pntt_fwd_cols", "pntt_inv_cols",
+              "pntt_inv_rows")
+
+
 def vpu_path(params, smi: str):
-    """Paths 9 (N = 8192) and 15 (N = 32768), under
+    """Paths 9 (N = 8192), 15 (N = 32768) and 26 (N = 65536, insecure
+    parameters: B16 in two passes, its one-pass kernels absent), under
     SUNSCREEN_TPU_NTT=pallas_vpu (with FUSE_FT3=0, the one setting under
     which the reference's plan multiplies): keygen, BatchEncoder encode,
     encryption of BATCH slot vectors twice, the 3-component `multiply`
@@ -2082,6 +2196,7 @@ def vpu_path(params, smi: str):
     import torch
     from sunscreen_tpu_torch import _build
     from sunscreen_tpu_torch.bfv import BatchEncoder, get_context, keys, ops
+    from sunscreen_tpu_torch.math import pntt
 
     t, n = params.plain_modulus, params.poly_degree
     label, at = ("vpu", "") if n == N else (f"vpu@{n}", f"@{n}")
@@ -2089,9 +2204,14 @@ def vpu_path(params, smi: str):
         ctx = get_context(params, DEV)
         if ctx.mode != "pallas_vpu":
             raise SystemExit(f"vpu path got NTT mode {ctx.mode}")
+        two = n > pntt.ONE_PASS_MAX_N
         print(f"{label}: N={n} k={ctx.k}, B16 at log2 N = "
-              f"{ctx.plan_mul.logn} on {ctx.mul_base.k} limbs, B7 from "
-              f"{ctx.fused_op('scale_convert').ks} limbs", flush=True)
+              f"{ctx.plan_mul.logn} on {ctx.mul_base.k} limbs"
+              + (" in two passes" if two else "") + ", B7 from "
+              f"{ctx.fused_op('scale_convert').ks} limbs"
+              + ("; INSECURE parameters (security_level 0: no preset of "
+                 "the reference reaches this N)"
+                 if not params.security_level else ""), flush=True)
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         gen = torch.Generator(device=DEV).manual_seed(9)
@@ -2146,11 +2266,13 @@ def vpu_path(params, smi: str):
               f"{REPS} x {ITERS}) on {smi}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
+        b16, not_b16 = ((B16_PASSES, B16_ONE_PASS) if two else
+                        (B16_ONE_PASS, B16_PASSES))
         _path_counts(label, launches,
-                     ("pntt_fwd", "pntt_inv", "pntt_pmul", "convert",
-                      "tensor3", "scale_convert"),
+                     b16 + ("pntt_pmul", "convert", "tensor3",
+                            "scale_convert"),
                      U32_PLAN + ("fwd_tensor3_full", "inv_tensor3", "mod_down")
-                     + MEGAKERNELS)
+                     + MEGAKERNELS + not_b16)
         print(f"launches per {label} multiply: {json.dumps(per_op)}; per "
               f"multiply_plain: {json.dumps(per_mp)}", flush=True)
         profile_breakdown(f"{label} multiply", mul_step)
@@ -4052,6 +4174,9 @@ def main() -> int:
     # then B6, in place of B7) -----------------------------------------------
     paths[f"vpu_sc@{VPU_N}"] = vpu_sc_path(f"vpu_sc@{VPU_N}", vpu15, smi)
     del vpu15
+    # --- path 26: path 9 at insecure_u32(65536, limbs=3) (B16 in two
+    # passes a transform) ----------------------------------------------------
+    paths[f"vpu@{BIG_N}"], _ = vpu_path(big_params(), smi)
 
     # --- paths 17-19: the rest of TFHE on the fine keys (16 digits a
     # blind-rotation step): the bivariate PBS, circuit bootstrapping (18b:

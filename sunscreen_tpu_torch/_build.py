@@ -14,8 +14,9 @@ Keys name the entry points: "fwd", "fwd_broadcast", "inv" (B1-B3),
 "fwd_tensor3" (B4), "inv_ks" (B5), "convert" (B6), "scale_convert" (B7),
 "mod_down" (B8), "scale" (B9), "tensor3" (B10), "ks_inner" (B11),
 "inv_tensor3" (B12), "fwd_tensor3_full" (B13), "ks_full" (B14),
-"ks_full_limbs" (B15), "pntt_fwd" and "pntt_inv" (B16), "pntt_pmul"
-(B17), "shoup_mul_mod" and "mul_mod" (B18), "pointwise_mul_mod" (B19),
+"ks_full_limbs" (B15), "pntt_fwd" and "pntt_inv" (B16 in one pass, N
+<= 32768), "pntt_fwd_rows", "pntt_fwd_cols", "pntt_inv_cols" and
+"pntt_inv_rows" (B16's two passes a transform above), "pntt_pmul" (B17), "shoup_mul_mod" and "mul_mod" (B18), "pointwise_mul_mod" (B19),
 and "msm" (M1, `zk/cuda_curve.py`: one count a call of its three kernels).
 """
 
@@ -47,6 +48,8 @@ SIGNATURES = {
                   "ks_inner": "pppppiiiip"},
     "ks_full": {"ks_full": "ppppppiiiiip"},
     "pntt": {"pntt_fwd": "ppppiiip", "pntt_inv": "ppppiiip",
+             "pntt_fwd_rows": "ppppiiip", "pntt_fwd_cols": "ppppiiip",
+             "pntt_inv_cols": "ppppiiip", "pntt_inv_rows": "ppppiiip",
              "pntt_pmul": "pppp" + "i" * 15 + "p"},
     "u64mod": {"u64_shoup_mul_mod": "ppppppiiup",
                "u64_mul_mod": "pppppiiuuup",
@@ -58,7 +61,8 @@ LAUNCHES = dict.fromkeys(
     ("fwd", "fwd_broadcast", "inv", "fwd_tensor3", "inv_ks",
      "convert", "scale_convert", "mod_down",
      "scale", "tensor3", "ks_inner", "inv_tensor3", "fwd_tensor3_full",
-     "ks_full", "ks_full_limbs", "pntt_fwd", "pntt_inv", "pntt_pmul",
+     "ks_full", "ks_full_limbs", "pntt_fwd", "pntt_inv", "pntt_fwd_rows",
+     "pntt_fwd_cols", "pntt_inv_cols", "pntt_inv_rows", "pntt_pmul",
      "shoup_mul_mod", "mul_mod", "pointwise_mul_mod", "msm"), 0)
 
 

@@ -48,6 +48,20 @@ def _split_moduli(poly_degree: int, security: int, cap: int
     return tuple(sorted(qs)), special
 
 
+# SEAL's BFVDefault 128-bit modulus chains (published constants of
+# seal::util::global_variables), so that users can run on SEAL's exact
+# chains, and the single-prime chains at N = 1024 of each security tier.
+SEAL_BFV_DEFAULT_128 = {
+    1024: (0x7e00001,),
+    2048: (0x3fffffff000001,),
+    4096: (0xffffee001, 0xffffc4001, 0x1ffffe0001),
+    8192: (0x7fffffd8001, 0x7fffffc8001, 0xfffffffc001,
+           0xffffff6c001, 0xfffffebc001),
+}
+SEAL_BFV_DEFAULT_1024 = {128: (0x7e00001,), 192: (520193,),
+                         256: (12289,)}
+
+
 def default_moduli(poly_degree: int, security: int = 128
                    ) -> tuple[tuple[int, ...], int]:
     """(ciphertext moduli, special keyswitch prime) of at most 56 bits

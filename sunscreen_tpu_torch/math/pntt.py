@@ -14,8 +14,12 @@ The plain twins (`fwd_plain`, `inv_plain`, `pointwise_mul_plain`) repeat
 the reference's stages on int64; they are the CPU path and the kernels'
 oracle. On a CUDA tensor `fwd` and `inv` launch B16 and `pointwise_mul`
 launches B17 (`csrc/pntt.cu`), counted in `_build.LAUNCHES` as
-"pntt_fwd", "pntt_inv" and "pntt_pmul". There is no fallback from one to
-the other.
+"pntt_fwd", "pntt_inv" and "pntt_pmul". Above ONE_PASS_MAX_N a transform
+is B16's two passes, each a kernel of its own through a u32 scratch
+tensor: `fwd_rows` then `fwd_cols`, `inv_cols` then `inv_rows`, counted
+under those names with a "pntt_" prefix; each pass has its plain twin, the
+half of the reference's stages it computes. There is no fallback from a
+kernel to its twin.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from sunscreen_tpu_torch.math.pmntt import (LANES, _bitrev, kernel_tables,
 from sunscreen_tpu_torch.math.prns import _check, _is_cpu
 
 MIN_N = 128
-KERNEL_MAX_N = 32768        # B16 holds one poly in a block's shared memory
+ONE_PASS_MAX_N = 32768      # B16 in one pass: a poly in a block's shared memory
+KERNEL_MAX_N = 1 << 21      # two passes: a column of R = N / 128 rows in a block
 LEAD_DIMS = 4               # leading dims B17 reads through strides
 
 
@@ -62,7 +67,7 @@ class PallasNttPlan:
     def __init__(self, n: int, moduli: tuple[int, ...], device):
         assert n & (n - 1) == 0 and n >= MIN_N, n
         if torch.device(device).type == "cuda" and n > KERNEL_MAX_N:
-            raise Unsupported(f"the B16 kernel holds N <= {KERNEL_MAX_N}, "
+            raise Unsupported(f"the B16 kernels hold N <= {KERNEL_MAX_N}, "
                               f"got {n}")
         assert max(q.bit_length() for q in moduli) <= 30
         assert min(q.bit_length() for q in moduli) >= 17
@@ -118,18 +123,19 @@ class PallasNttPlan:
         _, _, tw, consts = kernel_tables(n, self.moduli)
         self.twp = dev(twiddle_pairs(tw))
         self.consts = dev(consts)
+        self.ninv = self.consts[:, 2:3]                       # [k, 1]
         p = np.arange(n)
         self.slot_j = rev_r[p % r] + r * rev_c[p // r]        # J(p)
 
     # -- plain PyTorch twins (any device) -----------------------------------
 
-    def fwd_plain(self, x):
-        """[..., k, N] coefficients (any value in [0, 2^63)) -> [t', s']
-        domain: the reference's `_fwd_body` stage for stage."""
+    def _rows_fwd(self, x):
+        """x mod q, then the negacyclic row DIT over r (psi_R = psi^C):
+        int64 [..., k, R, C], rows in bit-reversed order."""
         lead, k, r, c = x.shape[:-2], self.k, self.R, self.C
-        q3, q4 = self.q.view(k, 1, 1), self.q.view(k, 1, 1, 1)
+        q4 = self.q.view(k, 1, 1, 1)
         a = (x % self.q).reshape(*lead, k, r, c)
-        for s in range(self.log_r):                 # negacyclic rows, DIT
+        for s in range(self.log_r):
             mm, t = 1 << s, r >> (s + 1)
             av = a.reshape(*lead, k, mm, 2, t, c)
             u = av[..., 0, :, :]
@@ -137,8 +143,15 @@ class PallasNttPlan:
                 k, mm, 1, 1) % q4
             a = torch.stack((m.add_mod(u, v, q4), m.sub_mod(u, v, q4)),
                             -3).reshape(*lead, k, r, c)
+        return a
+
+    def _cols_fwd(self, a):
+        """[..., k, R, C] after the rows -> the [t', s'] domain: the mid
+        twiddle, the transpose and the cyclic column DIF."""
+        lead, k, r, c = a.shape[:-3], self.k, self.R, self.C
+        q3, q4 = self.q.view(k, 1, 1), self.q.view(k, 1, 1, 1)
         a = (a * self.mid % q3).transpose(-1, -2)   # [..., k, C, R]
-        for s in range(self.log_c):                 # cyclic columns, DIF
+        for s in range(self.log_c):
             nb, h = 1 << s, c >> (s + 1)
             av = a.reshape(*lead, k, nb, 2, h, r)
             u, v = av[..., 0, :, :], av[..., 1, :, :]
@@ -148,11 +161,11 @@ class PallasNttPlan:
                             -3).reshape(*lead, k, c, r)
         return a.reshape(*lead, k, self.n)
 
-    def inv_plain(self, x):
-        """[t', s'] domain -> [..., k, N] natural coefficients: the
-        reference's `_inv_body` (1/N in the inverse mid twiddle)."""
+    def _cols_inv(self, x):
+        """[t', s'] domain -> [..., k, R, C]: the cyclic column inverse
+        and the transpose, before the inverse mid twiddle."""
         lead, k, r, c = x.shape[:-2], self.k, self.R, self.C
-        q3, q4 = self.q.view(k, 1, 1), self.q.view(k, 1, 1, 1)
+        q4 = self.q.view(k, 1, 1, 1)
         a = (x % self.q).reshape(*lead, k, c, r)
         for s in reversed(range(self.log_c)):
             nb, h = 1 << s, c >> (s + 1)
@@ -162,7 +175,13 @@ class PallasNttPlan:
                 k, 1, h, 1) % q4
             a = torch.stack((m.add_mod(u, v, q4), m.sub_mod(u, v, q4)),
                             -3).reshape(*lead, k, c, r)
-        a = a.transpose(-1, -2) * self.imid % q3    # [..., k, R, C]
+        return a.transpose(-1, -2)
+
+    def _rows_inv(self, a):
+        """[..., k, R, C] -> natural coefficients [..., k, N]: the inverse
+        row transforms."""
+        lead, k, r, c = a.shape[:-3], self.k, self.R, self.C
+        q4 = self.q.view(k, 1, 1, 1)
         for s in reversed(range(self.log_r)):
             mm, t = 1 << s, r >> (s + 1)
             av = a.reshape(*lead, k, mm, 2, t, c)
@@ -173,15 +192,52 @@ class PallasNttPlan:
                             -3).reshape(*lead, k, r, c)
         return a.reshape(*lead, k, self.n)
 
+    def fwd_plain(self, x):
+        """[..., k, N] coefficients (any value in [0, 2^63)) -> [t', s']
+        domain: the reference's `_fwd_body` stage for stage."""
+        return self._cols_fwd(self._rows_fwd(x))
+
+    def inv_plain(self, x):
+        """[t', s'] domain -> [..., k, N] natural coefficients: the
+        reference's `_inv_body` (1/N in the inverse mid twiddle)."""
+        return self._rows_inv(self._cols_inv(x)
+                              * self.imid % self.q.view(self.k, 1, 1))
+
+    def fwd_rows_plain(self, x):
+        """B16's first forward pass: the rows of `fwd_plain`, as int32
+        [..., k, N] in [R, C] order."""
+        return self._rows_fwd(x).reshape(x.shape).to(torch.int32)
+
+    def fwd_cols_plain(self, a):
+        """B16's second forward pass: int32 [..., k, N] from
+        `fwd_rows_plain` -> the [t', s'] domain."""
+        return self._cols_fwd(a.long().reshape(
+            *a.shape[:-1], self.R, self.C))
+
+    def inv_cols_plain(self, x):
+        """B16's first inverse pass: the columns of `inv_plain` and its
+        inverse mid twiddle without the 1/N, as int32 [..., k, N] in
+        [R, C] order."""
+        q3 = self.q.view(self.k, 1, 1)
+        a = self._cols_inv(x) * self.imid % q3 * self.n % q3
+        return a.reshape(x.shape).to(torch.int32)
+
+    def inv_rows_plain(self, a):
+        """B16's second inverse pass: int32 [..., k, N] from
+        `inv_cols_plain` -> natural coefficients, 1/N folded in."""
+        out = self._rows_inv(a.long().reshape(*a.shape[:-1], self.R, self.C))
+        return out * self.ninv % self.q
+
     def pointwise_mul_plain(self, a, b):
         return a * b % self.q
 
     # -- kernel entry points -------------------------------------------------
 
-    def _transform(self, x, fn: str):
-        rows = _check(x, self.device, (self.k, self.n))
+    def _transform(self, x, fn: str, out_dtype=torch.int64,
+                   in_dtype=torch.int64):
+        rows = _check(x, self.device, (self.k, self.n), in_dtype)
         x = x.contiguous()
-        out = torch.empty_like(x)
+        out = torch.empty(x.shape, dtype=out_dtype, device=self.device)
         if rows:
             _build.launch("pntt", fn, x, out, self.twp, self.consts, rows,
                           self.k, self.logn)
@@ -190,13 +246,41 @@ class PallasNttPlan:
 
     def fwd(self, x):
         """[..., k, N] coefficients -> [t', s'] NTT domain (B16)."""
-        return self.fwd_plain(x) if _is_cpu(x) else \
-            self._transform(x, "pntt_fwd")
+        if _is_cpu(x):
+            return self.fwd_plain(x)
+        if self.n <= ONE_PASS_MAX_N:
+            return self._transform(x, "pntt_fwd")
+        return self.fwd_cols(self.fwd_rows(x))
 
     def inv(self, x):
         """[t', s'] NTT domain -> [..., k, N] coefficients (B16)."""
-        return self.inv_plain(x) if _is_cpu(x) else \
-            self._transform(x, "pntt_inv")
+        if _is_cpu(x):
+            return self.inv_plain(x)
+        if self.n <= ONE_PASS_MAX_N:
+            return self._transform(x, "pntt_inv")
+        return self.inv_rows(self.inv_cols(x))
+
+    # B16's passes above ONE_PASS_MAX_N (on CUDA, N <= ONE_PASS_MAX_N
+    # raises): the intermediate is a new int32 tensor.
+    def fwd_rows(self, x):
+        """int64 [..., k, N] coefficients -> `fwd_rows_plain`'s int32."""
+        return self.fwd_rows_plain(x) if _is_cpu(x) else \
+            self._transform(x, "pntt_fwd_rows", out_dtype=torch.int32)
+
+    def fwd_cols(self, a):
+        """int32 `fwd_rows` output -> the [t', s'] domain, int64."""
+        return self.fwd_cols_plain(a) if _is_cpu(a) else \
+            self._transform(a, "pntt_fwd_cols", in_dtype=torch.int32)
+
+    def inv_cols(self, x):
+        """int64 [t', s'] domain -> `inv_cols_plain`'s int32."""
+        return self.inv_cols_plain(x) if _is_cpu(x) else \
+            self._transform(x, "pntt_inv_cols", out_dtype=torch.int32)
+
+    def inv_rows(self, a):
+        """int32 `inv_cols` output -> coefficients, int64."""
+        return self.inv_rows_plain(a) if _is_cpu(a) else \
+            self._transform(a, "pntt_inv_rows", in_dtype=torch.int32)
 
     def pointwise_mul(self, a, b):
         """Exact (a * b) mod q per limb on NTT-domain stacks [..., k, N]
@@ -216,9 +300,10 @@ class PallasNttPlan:
             a, b = a.contiguous(), b.contiguous()
             lead = _merge_lead(shape[:-2], a.stride()[:-2], b.stride()[:-2])
         lead = [[1, 0, 0]] * (LEAD_DIMS - len(lead)) + lead
-        if max(abs(v) for d in lead for v in d) >= 1 << 31:
+        if max(self.k * self.n, *(abs(v) for d in lead for v in d)) \
+                >= 1 << 31:
             raise ValueError(f"pointwise_mul: shape {tuple(shape)} needs "
-                             f"strides past 32 bits")
+                             f"offsets past 32 bits")
         out = torch.empty(shape, dtype=torch.int64, device=self.device)
         rows = out.numel() // (self.k * self.n)
         if rows:

@@ -64,10 +64,10 @@ def _is_cpu(x) -> bool:
     return False
 
 
-def _check(x, device, tail) -> int:
+def _check(x, device, tail, dtype=torch.int64) -> int:
     """Validates a kernel input; returns its row count."""
-    if x.device != device or x.dtype != torch.int64:
-        raise ValueError(f"expected int64 on {device}, got {x.dtype} on "
+    if x.device != device or x.dtype != dtype:
+        raise ValueError(f"expected {dtype} on {device}, got {x.dtype} on "
                          f"{x.device}")
     if tuple(x.shape[x.dim() - len(tail):]) != tuple(tail):
         raise ValueError(f"expected trailing shape {tuple(tail)}, got "

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from sunscreen_tpu.bfv import BfvParams as RefParams
+from sunscreen_tpu.bfv import params as ref_params
 from sunscreen_tpu.bfv.params import coefficient_modulus_create as ref_create
 from sunscreen_tpu.bfv import get_context as ref_context
 from sunscreen_tpu.bfv import keys as rkeys
@@ -28,6 +29,7 @@ from sunscreen_tpu.math import primes as rprimes
 from sunscreen_tpu_torch import _build
 from sunscreen_tpu_torch.bfv import (BatchEncoder, BfvParams, get_context,
                                      keys, ops)
+from sunscreen_tpu_torch.bfv import params as port_params
 from sunscreen_tpu_torch.bfv.params import coefficient_modulus_create
 from sunscreen_tpu_torch.math import mntt, ntt, rns
 from sunscreen_tpu_torch.math.pmntt import _bitrev
@@ -181,6 +183,20 @@ def test_default_params_match_reference():
     for n, bits in ((8192, [50, 30, 30, 50, 50]), (4096, [54, 54, 54, 56]),
                     (16384, [36, 60, 36, 30])):
         assert coefficient_modulus_create(n, bits) == ref_create(n, bits)
+
+
+def test_seal_presets_match_reference():
+    """SEAL's BFVDefault chains (`SEAL_BFV_DEFAULT_128`, and
+    `SEAL_BFV_DEFAULT_1024` by security tier) equal the reference's,
+    and each prime is 1 mod 2N for its N."""
+    assert (port_params.SEAL_BFV_DEFAULT_128
+            == ref_params.SEAL_BFV_DEFAULT_128)
+    assert (port_params.SEAL_BFV_DEFAULT_1024
+            == ref_params.SEAL_BFV_DEFAULT_1024)
+    for n, chain in port_params.SEAL_BFV_DEFAULT_128.items():
+        assert all(q % (2 * n) == 1 for q in chain), n
+    assert all(q % 2048 == 1 for chain in
+               port_params.SEAL_BFV_DEFAULT_1024.values() for q in chain)
 
 
 def test_golden_multiply_relin(golden, port):

@@ -68,7 +68,7 @@ def test_plan_above_16384_matches_reference():
     inv and negacyclic_mul on one row of two 28-bit limbs, bit for bit.
     "pallas" stays a named raise there, as the reference asserts
     (pmntt.py:782), and so does "pallas_vpu" on CUDA above the largest N
-    the B16 kernel holds."""
+    the B16 kernels hold (2^21, in two passes)."""
     n = 32768
     mods = tuple(rprimes.gen_ntt_primes(28, 2, n))
     ref = rpntt.PallasNttPlan(n, mods)
@@ -88,6 +88,34 @@ def test_plan_above_16384_matches_reference():
     with pytest.raises(Unsupported, match="B16"):
         pntt.PallasNttPlan(big, tuple(rprimes.gen_ntt_primes(28, 1, big)),
                            "cuda")
+
+
+def test_plan_at_65536_matches_reference():
+    """At N = 65536, where B16 runs as two kernels a transform on CUDA
+    (R = 512 rows), the port's CPU plan computes as the reference's
+    PallasNttPlan does: fwd, inv and negacyclic_mul on one row of one
+    28-bit limb, bit for bit; the passes' twins, which the CPU wrappers
+    of the two passes take, compose to fwd and inv."""
+    n = 65536
+    mods = tuple(rprimes.gen_ntt_primes(28, 1, n))
+    ref = rpntt.PallasNttPlan(n, mods)
+    port = pntt.PallasNttPlan(n, mods, "cpu")
+    assert (port.R, port.C) == (ref.R, ref.C) == (512, 128)
+    rng = np.random.default_rng(n)
+    x, y = (_residues(rng, mods, (1,), n) for _ in range(2))
+    _build.reset_launches()
+    fwd = port.fwd(_t(x))
+    np.testing.assert_array_equal(fwd.numpy(),
+                                  np.asarray(ref.fwd(jnp.asarray(x))))
+    inv = port.inv(_t(x))
+    np.testing.assert_array_equal(inv.numpy(),
+                                  np.asarray(ref.inv(jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        port.negacyclic_mul(_t(x), _t(y)).numpy(),
+        np.asarray(ref.negacyclic_mul(jnp.asarray(x), jnp.asarray(y))))
+    assert torch.equal(port.fwd_cols(port.fwd_rows(_t(x))), fwd)
+    assert torch.equal(port.inv_rows(port.inv_cols(_t(x))), inv)
+    assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
 def test_kernel_order_matches_twin():
