@@ -37,6 +37,11 @@ u32 dtype: both routes are "pointwise", plain PyTorch on every device
 over the context's u64 plan ("unrolled", "compact" or "matmul"). The
 same routes serve a u32 context under one of those modes, whose plans
 have no fused methods.
+
+Each evaluator op runs in a span of its name (`bfv.multiply`,
+`bfv.keyswitch`, `bfv.permute` for the Galois permutation, ...;
+`observability.span`), which costs a flag test while span recording is
+off.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import os
 import numpy as np
 import torch
 
+from sunscreen_tpu_torch import observability as obs
 from sunscreen_tpu_torch.bfv.context import BfvContext, get_context
 from sunscreen_tpu_torch.bfv.keys import (GaloisKeys, KswKey, PublicKey,
                                           SecretKey)
@@ -215,19 +221,22 @@ def _pad_components(ct, n_comp):
 
 
 def add(ctx: BfvContext, a, b):
-    n_comp = max(a.shape[-3], b.shape[-3])
-    return m.add_mod(_pad_components(a, n_comp), _pad_components(b, n_comp),
-                     _q(ctx))
+    with obs.span("bfv.add"):
+        n_comp = max(a.shape[-3], b.shape[-3])
+        return m.add_mod(_pad_components(a, n_comp),
+                         _pad_components(b, n_comp), _q(ctx))
 
 
 def sub(ctx: BfvContext, a, b):
-    n_comp = max(a.shape[-3], b.shape[-3])
-    return m.sub_mod(_pad_components(a, n_comp), _pad_components(b, n_comp),
-                     _q(ctx))
+    with obs.span("bfv.sub"):
+        n_comp = max(a.shape[-3], b.shape[-3])
+        return m.sub_mod(_pad_components(a, n_comp),
+                         _pad_components(b, n_comp), _q(ctx))
 
 
 def negate(ctx: BfvContext, a):
-    return m.neg_mod(a, _q(ctx))
+    with obs.span("bfv.negate"):
+        return m.neg_mod(a, _q(ctx))
 
 
 def _plain_c0(ctx: BfvContext, ct, pt, op):
@@ -237,21 +246,25 @@ def _plain_c0(ctx: BfvContext, ct, pt, op):
 
 
 def add_plain(ctx: BfvContext, ct, pt):
-    return _plain_c0(ctx, ct, pt, m.add_mod)
+    with obs.span("bfv.add_plain"):
+        return _plain_c0(ctx, ct, pt, m.add_mod)
 
 
 def sub_plain(ctx: BfvContext, ct, pt):
-    return _plain_c0(ctx, ct, pt, m.sub_mod)
+    with obs.span("bfv.sub_plain"):
+        return _plain_c0(ctx, ct, pt, m.sub_mod)
 
 
 def multiply_plain(ctx: BfvContext, ct, pt):
     """ct * pt, the plaintext lifted verbatim (t < min q_i) and multiplied
     in the NTT domain (SEAL: `Evaluator::multiply_plain`)."""
-    pt = pt.to(device=ctx.device, dtype=torch.int64)
-    pt_hat = ctx.plan_q.fwd(pt.unsqueeze(-2).expand(*pt.shape[:-1], ctx.k,
-                                                    ctx.n))
-    out = ctx.plan_q.pointwise_mul(ctx.plan_q.fwd(ct), pt_hat.unsqueeze(-3))
-    return ctx.plan_q.inv(out)
+    with obs.span("bfv.multiply_plain"):
+        pt = pt.to(device=ctx.device, dtype=torch.int64)
+        pt_hat = ctx.plan_q.fwd(pt.unsqueeze(-2).expand(*pt.shape[:-1],
+                                                        ctx.k, ctx.n))
+        out = ctx.plan_q.pointwise_mul(ctx.plan_q.fwd(ct),
+                                       pt_hat.unsqueeze(-3))
+        return ctx.plan_q.inv(out)
 
 
 def _env_on(name: str, default: str = "1") -> bool:
@@ -380,32 +393,35 @@ def multiply(ctx: BfvContext, a, b):
     Q -> Q∪B (B6 on CUDA), the tensor product along `multiply_route`,
     then exact scale-and-round back to Q along `scale_convert_route`.
     Output has n_a + n_b - 1 components."""
-    na, nb = a.shape[-3], b.shape[-3]
-    route = multiply_route(ctx.n, na, nb, a.device.type, ctx.mode, ctx.word)
-    plan = ctx.plan_mul
-    ext = ctx.conv_q_to_aux.extend(torch.cat([a, b], dim=-3), centered=True)
-    if route == "pointwise":
-        return _scale_convert(ctx, _tensor_pointwise(ctx, plan.fwd(ext), na,
-                                                     nb))
-    if route == "fwd_tensor3":
-        return _scale_convert(ctx, plan.inv(plan.fwd_tensor3(ext)))
-    if route == "fwd_tensor3_full":
-        return _scale_convert(ctx, plan.fwd_tensor3(ext, full=True))
-    both = plan.fwd(ext)
-    a_hat, b_hat = both[..., :na, :, :], both[..., na:, :, :]
-    if route == "inv_tensor3":
-        tensor = plan.inv_tensor3(a_hat, b_hat)
-    elif route == "tensor3":
-        tensor = plan.inv(ctx.fused_op("tensor3")(a_hat, b_hat))
-    else:
-        outs = []
-        for j in range(na + nb - 1):
-            terms = [plan.pointwise_mul(a_hat[..., ia, :, :],
-                                        b_hat[..., j - ia, :, :])
-                     for ia in range(na) if 0 <= j - ia < nb]
-            outs.append(sum(terms) % plan.q)
-        tensor = plan.inv(torch.stack(outs, dim=-3))
-    return _scale_convert(ctx, tensor)
+    with obs.span("bfv.multiply"):
+        na, nb = a.shape[-3], b.shape[-3]
+        route = multiply_route(ctx.n, na, nb, a.device.type, ctx.mode,
+                               ctx.word)
+        plan = ctx.plan_mul
+        ext = ctx.conv_q_to_aux.extend(torch.cat([a, b], dim=-3),
+                                       centered=True)
+        if route == "pointwise":
+            return _scale_convert(ctx, _tensor_pointwise(ctx, plan.fwd(ext),
+                                                         na, nb))
+        if route == "fwd_tensor3":
+            return _scale_convert(ctx, plan.inv(plan.fwd_tensor3(ext)))
+        if route == "fwd_tensor3_full":
+            return _scale_convert(ctx, plan.fwd_tensor3(ext, full=True))
+        both = plan.fwd(ext)
+        a_hat, b_hat = both[..., :na, :, :], both[..., na:, :, :]
+        if route == "inv_tensor3":
+            tensor = plan.inv_tensor3(a_hat, b_hat)
+        elif route == "tensor3":
+            tensor = plan.inv(ctx.fused_op("tensor3")(a_hat, b_hat))
+        else:
+            outs = []
+            for j in range(na + nb - 1):
+                terms = [plan.pointwise_mul(a_hat[..., ia, :, :],
+                                            b_hat[..., j - ia, :, :])
+                         for ia in range(na) if 0 <= j - ia < nb]
+                outs.append(sum(terms) % plan.q)
+            tensor = plan.inv(torch.stack(outs, dim=-3))
+        return _scale_convert(ctx, tensor)
 
 
 def _tensor_pointwise(ctx: BfvContext, both, na: int, nb: int):
@@ -449,38 +465,41 @@ def keyswitch(ctx: BfvContext, d, ksw: KswKey):
     "ks_full" route one kernel does all of it from the raw digits. The
     mod-down reads the Q limbs and the special limb of that output in
     place."""
-    route = keyswitch_route(d.device.type, ctx.mode, ctx.word)
-    if route == "pointwise":
-        both = _keyswitch_pointwise(ctx, d, ksw)
+    with obs.span("bfv.keyswitch"):
+        route = keyswitch_route(d.device.type, ctx.mode, ctx.word)
+        if route == "pointwise":
+            both = _keyswitch_pointwise(ctx, d, ksw)
+            u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
+            return u[..., 0, :, :], u[..., 1, :, :]
+        if route == "ks_full":
+            both = ctx.plan_key.ks_full(d, ksw.k0, ksw.k1)
+            u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
+            return u[..., 0, :, :], u[..., 1, :, :]
+        d_hat = ctx.plan_key.fwd_broadcast(d)      # [..., k(digit), k+1, N]
+        if route == "inv_ks":
+            both = ctx.plan_key.inv_ks(d_hat, ksw.k0, ksw.k1)
+        else:
+            both = ctx.plan_key.inv(ctx.fused_op("ks_inner")(d_hat, ksw.k0,
+                                                             ksw.k1))
         u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
         return u[..., 0, :, :], u[..., 1, :, :]
-    if route == "ks_full":
-        both = ctx.plan_key.ks_full(d, ksw.k0, ksw.k1)
-        u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
-        return u[..., 0, :, :], u[..., 1, :, :]
-    d_hat = ctx.plan_key.fwd_broadcast(d)      # [..., k(digit), k+1, N]
-    if route == "inv_ks":
-        both = ctx.plan_key.inv_ks(d_hat, ksw.k0, ksw.k1)
-    else:
-        both = ctx.plan_key.inv(ctx.fused_op("ks_inner")(d_hat, ksw.k0,
-                                                         ksw.k1))
-    u = ctx.mod_down.apply(both[..., :ctx.k, :], both[..., ctx.k, :])
-    return u[..., 0, :, :], u[..., 1, :, :]
 
 
 def relinearize(ctx: BfvContext, ct, rlk: KswKey):
     """3-component -> 2-component."""
-    if ct.shape[-3] != 3:
-        raise InvalidArgument(
-            f"relinearize expects a 3-component ct, got {ct.shape[-3]}")
-    u0, u1 = keyswitch(ctx, ct[..., 2, :, :], rlk)
-    q = _q(ctx)
-    return torch.stack([m.add_mod(ct[..., 0, :, :], u0, q),
-                        m.add_mod(ct[..., 1, :, :], u1, q)], dim=-3)
+    with obs.span("bfv.relinearize"):
+        if ct.shape[-3] != 3:
+            raise InvalidArgument(
+                f"relinearize expects a 3-component ct, got {ct.shape[-3]}")
+        u0, u1 = keyswitch(ctx, ct[..., 2, :, :], rlk)
+        q = _q(ctx)
+        return torch.stack([m.add_mod(ct[..., 0, :, :], u0, q),
+                            m.add_mod(ct[..., 1, :, :], u1, q)], dim=-3)
 
 
 def multiply_relin(ctx: BfvContext, a, b, rlk: KswKey):
-    return relinearize(ctx, multiply(ctx, a, b), rlk)
+    with obs.span("bfv.multiply_relin"):
+        return relinearize(ctx, multiply(ctx, a, b), rlk)
 
 
 def square(ctx: BfvContext, a):
@@ -493,48 +512,52 @@ def square(ctx: BfvContext, a):
 
 def _permute(ctx: BfvContext, poly, g: int):
     """a(x) -> a(x^g) on [..., k, N] coefficient-domain residues."""
-    idx, neg = ctx.galois_table(g)
-    gathered = poly[..., idx]
-    return torch.where(neg, m.neg_mod(gathered, _q(ctx)), gathered)
+    with obs.span("bfv.permute"):
+        idx, neg = ctx.galois_table(g)
+        gathered = poly[..., idx]
+        return torch.where(neg, m.neg_mod(gathered, _q(ctx)), gathered)
 
 
 def apply_galois(ctx: BfvContext, ct, g: int, gks: GaloisKeys):
     """a(x) -> a(x^g) on a 2-component ct, then keyswitch back to s
     (SEAL: `Evaluator::apply_galois`)."""
-    if ct.shape[-3] != 2:
-        raise InvalidArgument(
-            f"apply_galois expects a 2-component ct, got {ct.shape[-3]}")
-    c0p = _permute(ctx, ct[..., 0, :, :], g)
-    c1p = _permute(ctx, ct[..., 1, :, :], g)
-    u0, u1 = keyswitch(ctx, c1p, gks[g])
-    return torch.stack([m.add_mod(c0p, u0, _q(ctx)), u1], dim=-3)
+    with obs.span("bfv.apply_galois"):
+        if ct.shape[-3] != 2:
+            raise InvalidArgument(
+                f"apply_galois expects a 2-component ct, got {ct.shape[-3]}")
+        c0p = _permute(ctx, ct[..., 0, :, :], g)
+        c1p = _permute(ctx, ct[..., 1, :, :], g)
+        u0, u1 = keyswitch(ctx, c1p, gks[g])
+        return torch.stack([m.add_mod(c0p, u0, _q(ctx)), u1], dim=-3)
 
 
 def rotate_rows(ctx: BfvContext, ct, steps: int, gks: GaloisKeys):
     """Cyclically rotate each batching row by `steps` (SEAL:
     `Evaluator::rotate_rows`). Without a key for the exact element, the
     rotation is composed from the power-of-two keys, lowest bit first."""
-    steps %= ctx.n // 2
-    if steps == 0:
-        return ct
-    g = ctx.rotate_rows_element(steps)
-    if g in gks:
-        return apply_galois(ctx, ct, g, gks)
-    out, bit = ct, 1
-    while steps:
-        if steps & 1:
-            gb = ctx.rotate_rows_element(bit)
-            if gb not in gks:
-                raise KeyError(f"missing galois key for rotation {bit}")
-            out = apply_galois(ctx, out, gb, gks)
-        steps >>= 1
-        bit <<= 1
-    return out
+    with obs.span("bfv.rotate_rows"):
+        steps %= ctx.n // 2
+        if steps == 0:
+            return ct
+        g = ctx.rotate_rows_element(steps)
+        if g in gks:
+            return apply_galois(ctx, ct, g, gks)
+        out, bit = ct, 1
+        while steps:
+            if steps & 1:
+                gb = ctx.rotate_rows_element(bit)
+                if gb not in gks:
+                    raise KeyError(f"missing galois key for rotation {bit}")
+                out = apply_galois(ctx, out, gb, gks)
+            steps >>= 1
+            bit <<= 1
+        return out
 
 
 def rotate_columns(ctx: BfvContext, ct, gks: GaloisKeys):
     """Swap the two batching rows (SEAL: `Evaluator::rotate_columns`)."""
-    return apply_galois(ctx, ct, ctx.rotate_columns_element, gks)
+    with obs.span("bfv.rotate_columns"):
+        return apply_galois(ctx, ct, ctx.rotate_columns_element, gks)
 
 
 # --------------------------------------------------------------------------

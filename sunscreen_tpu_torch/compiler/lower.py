@@ -8,7 +8,9 @@ their plain twins on a CPU one. The literal plaintexts are uploaded to
 the context's device once, when the program is lowered. The evaluation
 keys are arguments of every call, never bound into the callable, so one
 lowered program serves any key set (the reference's round-4 bug kept the
-first caller's keys, `runtime/runtime.py:207-252`).
+first caller's keys, `runtime/runtime.py:207-252`). Each node runs in a
+`lower.<op>` span (`observability.span`), inside the runtime's
+`runtime.run`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sunscreen_tpu_torch import observability as obs
 from sunscreen_tpu_torch.bfv import ops as bops
 from sunscreen_tpu_torch.compiler.ir import Op
 from sunscreen_tpu_torch.math import modular as m
@@ -36,45 +39,47 @@ def lower_program(compiled, ctx):
     """
     prog = compiled.prog
     literals = _literals(compiled, ctx)
+    names = ["lower." + node.op.value for node in prog.nodes]
 
     def run(*args, rlk=None, gks=None):
         vals: list = [None] * len(prog.nodes)
         for i, node in enumerate(prog.nodes):
-            op = node.op
-            src = node.operands
-            if op in (Op.INPUT_CIPHERTEXT, Op.INPUT_PLAINTEXT):
-                vals[i] = args[node.data]
-            elif op == Op.LITERAL:
-                vals[i] = literals[node.data]
-            elif op == Op.ADD:
-                vals[i] = bops.add(ctx, vals[src[0]], vals[src[1]])
-            elif op == Op.SUB:
-                vals[i] = bops.sub(ctx, vals[src[0]], vals[src[1]])
-            elif op == Op.ADD_PLAIN:
-                vals[i] = bops.add_plain(ctx, vals[src[0]], vals[src[1]])
-            elif op == Op.SUB_PLAIN:
-                vals[i] = bops.sub_plain(ctx, vals[src[0]], vals[src[1]])
-            elif op == Op.MULTIPLY:
-                vals[i] = bops.multiply(ctx, vals[src[0]], vals[src[1]])
-            elif op == Op.MULTIPLY_PLAIN:
-                vals[i] = bops.multiply_plain(ctx, vals[src[0]],
-                                              vals[src[1]])
-            elif op == Op.NEGATE:
-                vals[i] = bops.negate(ctx, vals[src[0]])
-            elif op == Op.RELINEARIZE:
-                vals[i] = bops.relinearize(ctx, vals[src[0]], rlk)
-            elif op == Op.SHIFT_LEFT:
-                vals[i] = bops.rotate_rows(ctx, vals[src[0]], node.data,
-                                           gks)
-            elif op == Op.SHIFT_RIGHT:
-                vals[i] = bops.rotate_rows(ctx, vals[src[0]], -node.data,
-                                           gks)
-            elif op == Op.SWAP_ROWS:
-                vals[i] = bops.rotate_columns(ctx, vals[src[0]], gks)
-            elif op == Op.OUTPUT_CIPHERTEXT:
-                vals[i] = vals[src[0]]
-            else:
-                raise ValueError(op)
+            with obs.span(names[i]):
+                op = node.op
+                src = node.operands
+                if op in (Op.INPUT_CIPHERTEXT, Op.INPUT_PLAINTEXT):
+                    vals[i] = args[node.data]
+                elif op == Op.LITERAL:
+                    vals[i] = literals[node.data]
+                elif op == Op.ADD:
+                    vals[i] = bops.add(ctx, vals[src[0]], vals[src[1]])
+                elif op == Op.SUB:
+                    vals[i] = bops.sub(ctx, vals[src[0]], vals[src[1]])
+                elif op == Op.ADD_PLAIN:
+                    vals[i] = bops.add_plain(ctx, vals[src[0]], vals[src[1]])
+                elif op == Op.SUB_PLAIN:
+                    vals[i] = bops.sub_plain(ctx, vals[src[0]], vals[src[1]])
+                elif op == Op.MULTIPLY:
+                    vals[i] = bops.multiply(ctx, vals[src[0]], vals[src[1]])
+                elif op == Op.MULTIPLY_PLAIN:
+                    vals[i] = bops.multiply_plain(ctx, vals[src[0]],
+                                                  vals[src[1]])
+                elif op == Op.NEGATE:
+                    vals[i] = bops.negate(ctx, vals[src[0]])
+                elif op == Op.RELINEARIZE:
+                    vals[i] = bops.relinearize(ctx, vals[src[0]], rlk)
+                elif op == Op.SHIFT_LEFT:
+                    vals[i] = bops.rotate_rows(ctx, vals[src[0]], node.data,
+                                               gks)
+                elif op == Op.SHIFT_RIGHT:
+                    vals[i] = bops.rotate_rows(ctx, vals[src[0]], -node.data,
+                                               gks)
+                elif op == Op.SWAP_ROWS:
+                    vals[i] = bops.rotate_columns(ctx, vals[src[0]], gks)
+                elif op == Op.OUTPUT_CIPHERTEXT:
+                    vals[i] = vals[src[0]]
+                else:
+                    raise ValueError(op)
         return [vals[o] for o in prog.outputs]
 
     return run

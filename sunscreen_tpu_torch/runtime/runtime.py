@@ -215,62 +215,63 @@ class FheRuntime:
         """Checks the arguments against the signature, then runs the
         lowered program under `public_key`'s evaluation keys (reference:
         `runtime.rs:310-416`)."""
-        obs.metrics.incr("runtime.programs_run")
-        obs.metrics.incr(f"runtime.run.{prog.name}")
-        if len(args) != len(prog.signature.arg_types):
-            raise RuntimeError_(
-                f"program {prog.name!r} expects "
-                f"{len(prog.signature.arg_types)} args, got {len(args)}")
-        flat = []
-        for a, (tname, is_cipher) in zip(args, prog.signature.arg_types):
-            if tname.startswith("[") and tname.endswith("]"):
-                # fixed-size array input "[Cipher<T>; n]": a list of n
-                # ciphertexts (reference: sunscreen/tests/array.rs)
-                inner_t, count = tname[1:-1].rsplit("; ", 1)
-                if not isinstance(a, (list, tuple)) \
-                        or len(a) != int(count):
-                    raise RuntimeError_(
-                        f"argument expects a list of {count} values "
-                        f"({tname})")
-                for el in a:
-                    if not isinstance(el, Ciphertext):
+        with obs.span("runtime.run"):
+            obs.metrics.incr("runtime.programs_run")
+            obs.metrics.incr(f"runtime.run.{prog.name}")
+            if len(args) != len(prog.signature.arg_types):
+                raise RuntimeError_(
+                    f"program {prog.name!r} expects "
+                    f"{len(prog.signature.arg_types)} args, got {len(args)}")
+            flat = []
+            for a, (tname, is_cipher) in zip(args, prog.signature.arg_types):
+                if tname.startswith("[") and tname.endswith("]"):
+                    # fixed-size array input "[Cipher<T>; n]": a list of n
+                    # ciphertexts (reference: sunscreen/tests/array.rs)
+                    inner_t, count = tname[1:-1].rsplit("; ", 1)
+                    if not isinstance(a, (list, tuple)) \
+                            or len(a) != int(count):
                         raise RuntimeError_(
-                            f"array elements must be Ciphertext "
-                            f"({inner_t})")
-                    flat.extend(el.cts)
-                continue
-            if is_cipher:
-                if not isinstance(a, Ciphertext):
-                    raise RuntimeError_(f"expected Ciphertext, got "
-                                        f"{type(a).__name__}")
-                inner = tname[len("Cipher<"):-1] \
-                    if tname.startswith("Cipher<") else tname
-                if a.type_name != inner:
-                    raise RuntimeError_(
-                        f"argument type mismatch: expected {tname}, got "
-                        f"{a.type_name}")
-                flat.extend(a.cts)
-            else:
-                flat.extend(self._encode(
-                    resolve_type(tname),
-                    a.value if isinstance(a, BfvType) else a))
-        rlk = public_key.relin_key
-        gks = public_key.galois_keys
-        if prog.requires_relin_keys and rlk is None:
-            raise RuntimeError_(
-                f"program {prog.name!r} requires relin keys")
-        if prog.requires_galois_keys and gks is None:
-            raise RuntimeError_(
-                f"program {prog.name!r} requires galois keys")
-        outs = self._get_lowered(prog)(*flat, rlk=rlk, gks=gks)
-        results = []
-        i = 0
-        for (tname, _), n_ct in zip(prog.signature.ret_types,
-                                    prog.signature.num_ciphertexts):
-            results.append(Ciphertext(tname, outs[i:i + n_ct],
-                                      self.params))
-            i += n_ct
-        return results
+                            f"argument expects a list of {count} values "
+                            f"({tname})")
+                    for el in a:
+                        if not isinstance(el, Ciphertext):
+                            raise RuntimeError_(
+                                f"array elements must be Ciphertext "
+                                f"({inner_t})")
+                        flat.extend(el.cts)
+                    continue
+                if is_cipher:
+                    if not isinstance(a, Ciphertext):
+                        raise RuntimeError_(f"expected Ciphertext, got "
+                                            f"{type(a).__name__}")
+                    inner = tname[len("Cipher<"):-1] \
+                        if tname.startswith("Cipher<") else tname
+                    if a.type_name != inner:
+                        raise RuntimeError_(
+                            f"argument type mismatch: expected {tname}, got "
+                            f"{a.type_name}")
+                    flat.extend(a.cts)
+                else:
+                    flat.extend(self._encode(
+                        resolve_type(tname),
+                        a.value if isinstance(a, BfvType) else a))
+            rlk = public_key.relin_key
+            gks = public_key.galois_keys
+            if prog.requires_relin_keys and rlk is None:
+                raise RuntimeError_(
+                    f"program {prog.name!r} requires relin keys")
+            if prog.requires_galois_keys and gks is None:
+                raise RuntimeError_(
+                    f"program {prog.name!r} requires galois keys")
+            outs = self._get_lowered(prog)(*flat, rlk=rlk, gks=gks)
+            results = []
+            i = 0
+            for (tname, _), n_ct in zip(prog.signature.ret_types,
+                                        prog.signature.num_ciphertexts):
+                results.append(Ciphertext(tname, outs[i:i + n_ct],
+                                          self.params))
+                i += n_ct
+            return results
 
 
 class ZkpRuntime:

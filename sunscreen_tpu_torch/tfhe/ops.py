@@ -37,6 +37,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from sunscreen_tpu_torch import observability as obs
 from sunscreen_tpu_torch import resolve_device
 from sunscreen_tpu_torch.math import sampling
 from sunscreen_tpu_torch.math.modular import s64, srl, sum_mod
@@ -418,18 +419,23 @@ def _blind_rotate_ntt(test_poly, lwe_ct, bsk: NttBootstrapKey,
                                         "0") != "0"
     q = plan.base.q
     for i in range(a.shape[-1]):
-        rotated = negacyclic_monomial_mul(acc, a_t[..., i], n)
-        d_rns = plan.signed_to_rns(_gadget_digits(rotated - acc, radix))
-        ks = bsk.rows[i]                                # [k+1, kdig, kp, N]
-        if ksfull:
-            upd = plan.ks_full(d_rns, ks[0], ks[1])
-        elif kk == 1:
-            upd = plan.contract_inv(plan.fwd(d_rns), ks[0], ks[1])
-        else:
-            # each product < q^2 < 2^60 is reduced before the digit sum
-            d_hat = plan.fwd(d_rns).unsqueeze(-4)       # [..., 1, kdig, kp, N]
-            upd = plan.plan.inv((d_hat * ks % q).sum(-3) % q)
-        acc = acc + plan.to_torus(upd)                  # wrapping add: CMUX
+        with obs.span("tfhe.br.step"):
+            with obs.span("tfhe.br.decompose"):
+                rotated = negacyclic_monomial_mul(acc, a_t[..., i], n)
+                d_rns = plan.signed_to_rns(_gadget_digits(rotated - acc,
+                                                          radix))
+            ks = bsk.rows[i]                            # [k+1, kdig, kp, N]
+            with obs.span("tfhe.br.kernels"):
+                if ksfull:
+                    upd = plan.ks_full(d_rns, ks[0], ks[1])
+                elif kk == 1:
+                    upd = plan.contract_inv(plan.fwd(d_rns), ks[0], ks[1])
+                else:
+                    # each product < q^2 < 2^60 is reduced before the sum
+                    d_hat = plan.fwd(d_rns).unsqueeze(-4)
+                    upd = plan.plan.inv((d_hat * ks % q).sum(-3) % q)
+            with obs.span("tfhe.br.accumulate"):
+                acc = acc + plan.to_torus(upd)          # wrapping add: CMUX
     return acc
 
 
@@ -438,20 +444,26 @@ def blind_rotate(test_poly, lwe_ct, bsk, glwe: GlweDef,
     """acc = X^{-b~} v; for each i: acc = CMUX(bsk_i, acc, X^{a~_i} acc).
     Returns GLWE [..., k+1, N] whose phase is v X^{-phase~}. Takes a raw
     torus GGSW stack (the exact 2-prime CRT path per CMUX) or an
-    NttBootstrapKey (the kernel path); both give the same bits."""
-    if isinstance(bsk, NttBootstrapKey):
-        return _blind_rotate_ntt(test_poly, lwe_ct, bsk, glwe, radix, log_v)
-    n = glwe.poly_degree
-    a, b = lwe_ct[..., :-1], lwe_ct[..., -1]
-    b_t = _mod_switch_2n(b, n, log_v)
-    a_t = _mod_switch_2n(a, n, log_v)
-    acc = trivial_glwe(negacyclic_monomial_mul(
-        torch.as_tensor(test_poly, dtype=torch.int64, device=lwe_ct.device),
-        2 * n - b_t, n), glwe)
-    for i in range(a.shape[-1]):
-        rotated = negacyclic_monomial_mul(acc, a_t[..., i], n)
-        acc = cmux(bsk[i], acc, rotated, glwe, radix)
-    return acc
+    NttBootstrapKey (the kernel path); both give the same bits. Runs in a
+    `tfhe.blind_rotate` span, each step in a `tfhe.br.step` span; the
+    kernel path splits each step into `tfhe.br.decompose`,
+    `tfhe.br.kernels` and `tfhe.br.accumulate`."""
+    with obs.span("tfhe.blind_rotate"):
+        if isinstance(bsk, NttBootstrapKey):
+            return _blind_rotate_ntt(test_poly, lwe_ct, bsk, glwe, radix,
+                                     log_v)
+        n = glwe.poly_degree
+        a, b = lwe_ct[..., :-1], lwe_ct[..., -1]
+        b_t = _mod_switch_2n(b, n, log_v)
+        a_t = _mod_switch_2n(a, n, log_v)
+        acc = trivial_glwe(negacyclic_monomial_mul(
+            torch.as_tensor(test_poly, dtype=torch.int64,
+                            device=lwe_ct.device), 2 * n - b_t, n), glwe)
+        for i in range(a.shape[-1]):
+            with obs.span("tfhe.br.step"):
+                rotated = negacyclic_monomial_mul(acc, a_t[..., i], n)
+                acc = cmux(bsk[i], acc, rotated, glwe, radix)
+        return acc
 
 
 def sample_extract(glwe_ct, params: GlweDef, coeff: int = 0):
@@ -460,11 +472,12 @@ def sample_extract(glwe_ct, params: GlweDef, coeff: int = 0):
     kk, n = params.size, params.poly_degree
     h = int(coeff)
     assert 0 <= h < n
-    masks = glwe_ct[..., :kk, :]
-    rev = torch.flip(torch.roll(masks, -(h + 1), dims=-1), dims=(-1,))
-    a = torch.cat([rev[..., :h + 1], -rev[..., h + 1:]], dim=-1)
-    a = a.reshape(*a.shape[:-2], kk * n)
-    return torch.cat([a, glwe_ct[..., kk, h:h + 1]], dim=-1)
+    with obs.span("tfhe.sample_extract"):
+        masks = glwe_ct[..., :kk, :]
+        rev = torch.flip(torch.roll(masks, -(h + 1), dims=-1), dims=(-1,))
+        a = torch.cat([rev[..., :h + 1], -rev[..., h + 1:]], dim=-1)
+        a = a.reshape(*a.shape[:-2], kk * n)
+        return torch.cat([a, glwe_ct[..., kk, h:h + 1]], dim=-1)
 
 
 def flatten_glwe_sk(glwe_sk):
@@ -521,14 +534,16 @@ def keyswitch_lwe_to_lwe(ct, ksk, to_params: LweDef,
     exact float64 matmuls over 16-bit limbs (`_exact_dot`): CUDA has
     no int64 matmul, and the broadcast product would hold
     batch n_in l (n_out+1) words."""
-    a, b = ct[..., :-1], ct[..., -1]
-    n_in, w = a.shape[-1], ksk.shape[-1]
-    digits = torus.signed_decompose(a, radix.radix_log, radix.count)
-    d = torch.movedim(digits, 0, -1).reshape(-1, n_in * radix.count)
-    acc = _exact_dot(d, ksk.reshape(n_in * radix.count, w), radix.radix_log)
-    out = (-acc).reshape(*a.shape[:-1], w)
-    out[..., -1] += b
-    return out
+    with obs.span("tfhe.keyswitch"):
+        a, b = ct[..., :-1], ct[..., -1]
+        n_in, w = a.shape[-1], ksk.shape[-1]
+        digits = torus.signed_decompose(a, radix.radix_log, radix.count)
+        d = torch.movedim(digits, 0, -1).reshape(-1, n_in * radix.count)
+        acc = _exact_dot(d, ksk.reshape(n_in * radix.count, w),
+                         radix.radix_log)
+        out = (-acc).reshape(*a.shape[:-1], w)
+        out[..., -1] += b
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -563,9 +578,10 @@ def programmable_bootstrap_univariate(
         lwe_ct, test_poly, bsk, ksk, lwe: LweDef, glwe: GlweDef,
         pbs_radix: RadixDecomposition, ks_radix: RadixDecomposition):
     """LWE -> blind rotate -> sample extract -> keyswitch -> LWE."""
-    rotated = blind_rotate(test_poly, lwe_ct, bsk, glwe, pbs_radix)
-    extracted = sample_extract(rotated, glwe)
-    return keyswitch_lwe_to_lwe(extracted, ksk, lwe, ks_radix)
+    with obs.span("tfhe.pbs"):
+        rotated = blind_rotate(test_poly, lwe_ct, bsk, glwe, pbs_radix)
+        extracted = sample_extract(rotated, glwe)
+        return keyswitch_lwe_to_lwe(extracted, ksk, lwe, ks_radix)
 
 
 def test_polynomial_multi(fns, plaintext_bits: int, glwe: GlweDef,

@@ -446,8 +446,9 @@ def test_measured_model_near_reference():
 def test_decrypt_noise_and_metrics(ref, tmp_path):
     """decrypt_many equals decrypt per ciphertext; a spent budget raises
     TooMuchNoise from both; run and measure_noise_budget feed the
-    reference's counters and gauge, `trace` its own, and the profiler
-    writes a Chrome trace; without a card the default device raises."""
+    reference's counters and gauge, `trace` records a span around the
+    program's, and the profiler writes a Chrome trace; without a card
+    the default device raises."""
     pub, priv = ref["port_keys"]
     rt = Runtime.new_fhe(P64, device="cpu")
     prog = (Compiler("cpu").with_params(P64)
@@ -458,7 +459,7 @@ def test_decrypt_noise_and_metrics(ref, tmp_path):
     obs.start_profiler(str(tmp_path))
     with obs.trace("run"):
         outs = rt.run(prog, args, pub)
-    obs.stop_profiler()
+    spans = obs.stop_profiler()
     assert (tmp_path / "trace.json").stat().st_size > 0
     outs += rt.run(prog, args[::-1], pub)
     assert rt.decrypt_many(outs, priv) == [rt.decrypt(o, priv)
@@ -466,7 +467,9 @@ def test_decrypt_noise_and_metrics(ref, tmp_path):
     snap = obs.metrics.snapshot()["counters"]
     assert snap["runtime.programs_run"] == 2
     assert snap["runtime.run.two_outputs"] == 2
-    assert snap["trace.run.count"] == 1
+    runs = [i for i, s in enumerate(spans) if s.name == "run"]
+    assert len(runs) == 1 and spans[runs[0]].parent == -1
+    assert [s.name for s in spans if s.parent == runs[0]] == ["runtime.run"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no GPU"):
             Runtime.new_fhe(P64)
