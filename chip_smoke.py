@@ -6,15 +6,16 @@
 
 Builds the port's CUDA kernels from `sunscreen_tpu_torch/csrc` (printing
 ptxas' registers, stack and spills of the kernels in ntt.cu, tensor3.cu,
-inv_ks.cu, ks_full.cu, inv_tensor3.cu, pntt.cu, rns.cu and msm.cu with each
-one's threads and shared memory a block, and the IMAD-class and total SASS
-instructions of rns_convert, rns_scale and scale_convert), holds each of the
-twenty-six kernel entry points bit for bit against its plain
+inv_ks.cu, ks_full.cu, inv_tensor3.cu, pntt.cu, rns.cu, br_glue.cu and msm.cu
+with each one's threads and shared memory a block, and the IMAD-class and
+total SASS instructions of rns_convert, rns_scale and scale_convert), holds
+each of the twenty-seven kernel entry points bit for bit against its plain
 PyTorch twin at the shapes of the main path (N=8192,
 `BfvParams.default_u32`, batch 64; the TFHE blind-rotation step for
-`ks_full_limbs`; the "pallas_vpu" plan's multiply and encryption shapes
-for B16 and B17; [512, 8192] u64 words under a 54-bit limb of
-`BfvParams.default(8192)` for B18 and B19) and again at the
+`ks_full_limbs`; the benchmark's PBS step [2048, 2, 1024] at radix (3, 4)
+for `br_glue`, and again at N = 2048, radix (8, 4); the "pallas_vpu"
+plan's multiply and encryption shapes for B16 and B17; [512, 8192] u64
+words under a 54-bit limb of `BfvParams.default(8192)` for B18 and B19) and again at the
 `default_u32(16384)` shapes (batch 2; B16 also at N=128 and on the
 encoder's (t,) plan, B17 with broadcast operands; B18 and B19 under the
 moduli of tests/test_pallas_mod.py and a 61-bit prime, edge values and
@@ -56,8 +57,10 @@ before it and read just after:
    keyswitch megakernel B14);
 7. TFHE: keygen at LWE_512_80 -> GLWE_1_1024_80, the NTT-domain bootstrap
    key, and the univariate programmable bootstrap of 64 ciphertexts
-   (512 blind-rotation steps of B1 + B5, sample extraction, keyswitch);
-8. path 7's PBS under `SUNSCREEN_TPU_TFHE_KSFULL=1` (B15 per step);
+   (512 blind-rotation steps of B1 + B5 and `br_glue`, 513 launches of
+   it a bootstrap batch, sample extraction, keyswitch);
+8. path 7's PBS under `SUNSCREEN_TPU_TFHE_KSFULL=1` (B15 and `br_glue`
+   per step);
 9. `SUNSCREEN_TPU_NTT=pallas_vpu` with `SUNSCREEN_TPU_FUSE_FT3=0` (the
    only setting under which the reference's plan multiplies), batch 64:
    keygen, BatchEncoder, encryption, the 3-component `multiply` and
@@ -304,8 +307,9 @@ def _held(name, kern, plain, args) -> int:
     got = kern(*args)
     torch.cuda.synchronize()
     want = plain(*args)
-    if isinstance(got, tuple):          # B19's (hi, lo) halves
-        got, want = torch.stack(got), torch.stack(want)
+    if isinstance(got, tuple):   # B19's (hi, lo); br_glue's (acc, digits)
+        got, want = (torch.cat([t.flatten() for t in x])
+                     for x in (got, want))
     err = int((got - want).abs().max().item())
     exact = torch.equal(got, want)
     print(f"check {name}: shape {tuple(got.shape)} bit-exact={exact} "
@@ -632,6 +636,44 @@ def pbs_kernel_case(gen, batch: int, kdig: int = 6) -> tuple:
             (d, k0, k1), SRC_KS_FULL, "sunscreen_tpu/math/pmntt.py:620",
             (batch * kdig * k + 2 * kdig * k + batch * 2 * k) * n * WORD,
             ks_full_muls(batch, kdig, k, n))
+
+
+SRC_BR_GLUE = "sunscreen_tpu_torch/csrc/br_glue.cu"
+PBS_BENCH_BATCH = 2048       # the benchmark's PBS cell
+
+
+def glue_case(gen, batch: int, n: int = 1024, count: int = 3) -> tuple:
+    """br_glue at a blind-rotation step of GLWE size 1, radix (count, 4):
+    the add of the update [batch, 2, 4, N] (residues, q - 1 planted) into
+    the accumulator [batch, 2, N] (uniform words), then the next step's
+    digit residues [batch, 2 count, 4, N] under uniform exponents with 0,
+    1, N and 2N - 1 first. (name, kernel, plain twin, args, source,
+    replaced kernel, bytes, 32-bit multiplies: per coefficient 4 for each
+    64-bit product, five a prime (x inv, its reduction's two, y g,
+    y theta) and alpha C.)"""
+    import torch
+    from sunscreen_tpu_torch.tfhe import poly
+
+    plan = poly.get_torus_plan_u32(n, device=DEV)
+    k, q = plan.base.k, plan.base.q
+    acc = torch.randint(-(1 << 63), (1 << 63) - 1, (batch, 2, n),
+                        generator=gen, device=DEV, dtype=torch.int64)
+    upd = _max_residues(_uniform(gen, (batch, 2, k, n), q), q)
+    e = torch.randint(0, 2 * n, (batch,), generator=gen, device=DEV)
+    e[:4] = torch.tensor([0, 1, n, 2 * n - 1], device=DEV)
+    coeffs = batch * 2 * n
+    return ("br_glue", plan.br_glue, plan.br_glue_plain,
+            (acc, upd, e, 4, count), SRC_BR_GLUE,
+            "none: the reference's step glue is plain XLA",
+            (2 * coeffs + coeffs * k + coeffs * count * k) * WORD + 8 * batch,
+            coeffs * 4 * (5 * k + 1))
+
+
+def glue_wide_cases(gen, _batch: int) -> list[tuple]:
+    """br_glue at N = 2048, radix (8, 4) (16 digits a step), batch 1024
+    (name, kernel, plain twin, args, bytes, 32-bit multiplies)."""
+    c = glue_case(gen, PBS_BENCH_BATCH // 2, 2048, 8)
+    return [c[:4] + c[6:]]
 
 
 def ks_full_extremes(plan, gen, batch: int) -> None:
@@ -1015,6 +1057,7 @@ def check_kernels(ctx, gen) -> list[dict]:
     for (name, kern, plain, args, src, repl, nbytes, muls,
          *library) in (kernel_cases(ctx, gen, BATCH)
                        + [pbs_kernel_case(gen, BATCH)]
+                       + [glue_case(gen, PBS_BENCH_BATCH)]
                        + vpu_kernel_cases(ctx.params, gen, BATCH)
                        + big_pass_cases(gen, BATCH)
                        + u64_kernel_cases(BfvParams.default(N), gen)):
@@ -1037,6 +1080,7 @@ def check_kernels(ctx, gen) -> list[dict]:
     at = {}
     for where, cases in (("at_pbs_step", pbs_transform_cases),
                          ("at_pbs_step_16", fine_pbs_cases),
+                         ("at_2048_radix_8_4", glue_wide_cases),
                          (f"at_{WIDE_N}", wide_cases),
                          (f"at_{VPU_N}", vpu_wide_cases),
                          (f"at_{BIG_N}", functools.partial(
@@ -1206,13 +1250,15 @@ def _inv_ks_block(logn, split):
 
 
 # ks_full.cu (<LOGN, PER_LIMB, SPLIT>) takes inv_ks.cu's two shapes,
-# pntt.cu's B17 (no template) 256 threads and no shared memory.
+# pntt.cu's B17 (no template) 256 threads and no shared memory, br_glue.cu
+# 256 threads and a polynomial of u64 words.
 PTXAS_SOURCES = {"ntt": _ntt_block, "tensor3": _tensor3_block,
                  "inv_tensor3": _tensor3_block,
                  "pntt": lambda *a: _ntt_block(*a) if a else (256, 0),
                  "inv_ks": _inv_ks_block,
                  "ks_full": lambda logn, _, split: _inv_ks_block(logn, split),
-                 "rns": lambda *_: (256, 0)}
+                 "rns": lambda *_: (256, 0),
+                 "br_glue": lambda logn: (256, 8 << logn)}
 
 
 def _rows_block(logn):
@@ -1337,7 +1383,7 @@ KERNEL_KEYS = {
     "u64_mul_mod_kernel": ("mul_mod",),
     "pointwise_mul_mod_kernel": ("pointwise_mul_mod",),
     "msm_digit_kernel": ("msm",), "msm_sort_kernel": ("msm",),
-    "msm_bucket_kernel": ("msm",)}
+    "msm_bucket_kernel": ("msm",), "br_glue_kernel": ("br_glue",)}
 PROFILE_RETRIES = 5
 MARK_CYCLES = 200_000        # a 0.1 ms spin marks each end of a profile window
 WARMUP_SPINS, WARMUP_STEPS = 4, 2   # traced ahead of the window, not counted
@@ -1763,6 +1809,12 @@ def pbs_path(label, smi: str, needed, absent, s=None, want=None):
               flush=True)
     launches, per_pbs = _tfhe_timing(
         label, smi, "PBS/s", lambda c: _pbs(s, c), s["cts"], needed, absent)
+    glue = per_pbs["br_glue"]
+    print(f"{label}: br_glue {glue} launches a bootstrap batch "
+          f"(n_lwe + 1 = {s['lwe'].dim + 1})", flush=True)
+    if glue != s["lwe"].dim + 1:
+        raise SystemExit(f"{label}: {glue} br_glue launches a bootstrap "
+                         f"batch, not {s['lwe'].dim + 1}")
     return s, out, launches, per_pbs
 
 
@@ -1810,7 +1862,7 @@ def _tfhe_timing(label, smi: str, unit: str, op, cts, needed, absent):
     return launches, per_op
 
 
-PBS_NEEDED = ("fwd", "inv_ks")
+PBS_NEEDED = ("fwd", "inv_ks", "br_glue")
 PBS_ABSENT = ("ks_full", "ks_full_limbs", "fwd_broadcast", "inv", "ks_inner")
 KSFULL_ABSENT = ("fwd", "inv_ks", "ks_full", "fwd_broadcast", "inv")
 # tests/test_tfhe.py's three functions of one multifunctional table
@@ -2024,7 +2076,8 @@ def cbs_ksfull_path(f: dict, cts, want):
         raise SystemExit(f"{label}: GGSWs differ from path 18's")
     print(f"{label}: {BATCH} circuit-bootstrapped GGSWs == path 18's, bit "
           f"for bit", flush=True)
-    _path_counts(label, launches, ("ks_full_limbs",), KSFULL_ABSENT)
+    _path_counts(label, launches, ("ks_full_limbs", "br_glue"),
+                 KSFULL_ABSENT)
     return launches, launches
 
 
@@ -4137,8 +4190,8 @@ def main() -> int:
     paths["pbs"] = (launches, per_pbs)
     with _gates({"SUNSCREEN_TPU_TFHE_KSFULL": "1"}):
         *_, launches, per_pbs = pbs_path(
-            "pbs_ksfull", smi, ("ks_full_limbs",), KSFULL_ABSENT, s=s,
-            want=out)
+            "pbs_ksfull", smi, ("ks_full_limbs", "br_glue"), KSFULL_ABSENT,
+            s=s, want=out)
     paths["pbs_ksfull"] = (launches, per_pbs)
     # --- path 16: the multifunctional PBS on path 7's keys --------------
     paths["pbs_multi"] = multi_path(s, smi)

@@ -17,7 +17,9 @@ Keys name the entry points: "fwd", "fwd_broadcast", "inv" (B1-B3),
 "ks_full_limbs" (B15), "pntt_fwd" and "pntt_inv" (B16 in one pass, N
 <= 32768), "pntt_fwd_rows", "pntt_fwd_cols", "pntt_inv_cols" and
 "pntt_inv_rows" (B16's two passes a transform above), "pntt_pmul" (B17), "shoup_mul_mod" and "mul_mod" (B18), "pointwise_mul_mod" (B19),
-and "msm" (M1, `zk/cuda_curve.py`: one count a call of its three kernels).
+"msm" (M1, `zk/cuda_curve.py`: one count a call of its three kernels) and
+"br_glue" (`tfhe/poly.py`: the blind-rotation step's glue, which replaces
+no TPU kernel; n_lwe + 1 launches a blind rotation).
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ SIGNATURES = {
                "u64_mul_mod": "pppppiiuuup",
                "pointwise_mul_mod": "ppppppluuup"},
     "msm": {"msm": "p" * 10 + "iiii" + "p"},
+    "br_glue": {"br_glue": "pppppp" + "iiiiii" + "p"},
 }
 
 LAUNCHES = dict.fromkeys(
@@ -63,7 +66,7 @@ LAUNCHES = dict.fromkeys(
      "scale", "tensor3", "ks_inner", "inv_tensor3", "fwd_tensor3_full",
      "ks_full", "ks_full_limbs", "pntt_fwd", "pntt_inv", "pntt_fwd_rows",
      "pntt_fwd_cols", "pntt_inv_cols", "pntt_inv_rows", "pntt_pmul",
-     "shoup_mul_mod", "mul_mod", "pointwise_mul_mod", "msm"), 0)
+     "shoup_mul_mod", "mul_mod", "pointwise_mul_mod", "msm", "br_glue"), 0)
 
 
 def reset_launches() -> None:

@@ -24,15 +24,17 @@ every other op runs where its inputs lie.
 
 On the card a blind-rotation step with an NTT-domain bootstrap key runs
 B1 (`ntt_fwd`) then B5 (`inv_ks`), or, under
-`SUNSCREEN_TPU_TFHE_KSFULL=1` at GLWE size 1, B15 (`ks_full`) alone; the
-rest of the step is plain PyTorch, as are the keyswitches and the
-62-bit plan's products (the reference's are plain XLA too).
+`SUNSCREEN_TPU_TFHE_KSFULL=1` at GLWE size 1, B15 (`ks_full`) alone,
+then the glue kernel `br_glue` (`csrc/br_glue.cu`: the step's add and the
+next step's rotated digit residues in one pass); the keyswitches and the
+62-bit plan's products are plain PyTorch (the reference's, and its step
+glue, are plain XLA).
 """
 
 from __future__ import annotations
 
 import os
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -315,8 +317,7 @@ def _poly_dot(digits, rows):
 
 def _gadget_digits(polys, radix: RadixDecomposition):
     """polys [..., K, N] -> gadget digits [..., K l, N], index i l + j."""
-    digits = torus.signed_decompose(polys, radix.radix_log, radix.count)
-    return torch.movedim(digits, 0, -2).flatten(-3, -2)
+    return torus.gadget_digits(polys, radix.radix_log, radix.count)
 
 
 def external_product(ggsw, glwe, params: GlweDef,
@@ -405,8 +406,10 @@ def _blind_rotate_ntt(test_poly, lwe_ct, bsk: NttBootstrapKey,
     acc += ToTorus(InvNtt(sum_dig Ntt(decomp(X^a_i acc - acc)) bsk_i)),
     through B1 then B5 at GLWE size 1, B15 alone under
     SUNSCREEN_TPU_TFHE_KSFULL=1 (read once per call, GLWE size 1 only),
-    or B1, a plain contraction and B3 at larger GLWE sizes. Bit-identical
-    to the raw-key path: both are exact integer pipelines."""
+    or B1, a plain contraction and B3 at larger GLWE sizes; the glue
+    around them (ToTorus, the add, the next step's rotation, digits and
+    residues) is one `br_glue` a step, plus one ahead of the first.
+    Bit-identical to the raw-key path: both are exact integer pipelines."""
     n, kk = glwe.poly_degree, glwe.size
     a, b = lwe_ct[..., :-1], lwe_ct[..., -1]
     plan = get_torus_plan_u32(n, device=lwe_ct.device)
@@ -414,16 +417,25 @@ def _blind_rotate_ntt(test_poly, lwe_ct, bsk: NttBootstrapKey,
     a_t = _mod_switch_2n(a, n, log_v)
     acc = trivial_glwe(negacyclic_monomial_mul(
         torch.as_tensor(test_poly, dtype=torch.int64, device=lwe_ct.device),
-        2 * n - b_t, n), glwe)
+        2 * n - b_t, n), glwe).contiguous()
+    steps = a_t.shape[-1]
+    if steps == 0:
+        return acc
+    # one exponent a GLWE ciphertext (left-aligned with acc's leading axes,
+    # as negacyclic_monomial_mul takes it), each step's a contiguous row
+    lead = acc.shape[:-2]
+    pad = (1,) * (len(lead) - a_t.dim() + 1)
+    exps = a_t.reshape(*a_t.shape[:-1], *pad, steps).expand(*lead, steps)
+    exps = exps.movedim(-1, 0).contiguous()
     ksfull = kk == 1 and os.environ.get("SUNSCREEN_TPU_TFHE_KSFULL",
                                         "0") != "0"
     q = plan.base.q
-    for i in range(a.shape[-1]):
+    glue = partial(plan.br_glue, radix_log=radix.radix_log,
+                   count=radix.count)
+    with obs.span("tfhe.br.glue"):
+        _, d_rns = glue(acc, None, exps[0])
+    for i in range(steps):
         with obs.span("tfhe.br.step"):
-            with obs.span("tfhe.br.decompose"):
-                rotated = negacyclic_monomial_mul(acc, a_t[..., i], n)
-                d_rns = plan.signed_to_rns(_gadget_digits(rotated - acc,
-                                                          radix))
             ks = bsk.rows[i]                            # [k+1, kdig, kp, N]
             with obs.span("tfhe.br.kernels"):
                 if ksfull:
@@ -434,8 +446,9 @@ def _blind_rotate_ntt(test_poly, lwe_ct, bsk: NttBootstrapKey,
                     # each product < q^2 < 2^60 is reduced before the sum
                     d_hat = plan.fwd(d_rns).unsqueeze(-4)
                     upd = plan.plan.inv((d_hat * ks % q).sum(-3) % q)
-            with obs.span("tfhe.br.accumulate"):
-                acc = acc + plan.to_torus(upd)          # wrapping add: CMUX
+            with obs.span("tfhe.br.glue"):
+                acc, d_rns = glue(acc, upd,
+                                  exps[i + 1] if i + 1 < steps else None)
     return acc
 
 
@@ -446,8 +459,10 @@ def blind_rotate(test_poly, lwe_ct, bsk, glwe: GlweDef,
     torus GGSW stack (the exact 2-prime CRT path per CMUX) or an
     NttBootstrapKey (the kernel path); both give the same bits. Runs in a
     `tfhe.blind_rotate` span, each step in a `tfhe.br.step` span; the
-    kernel path splits each step into `tfhe.br.decompose`,
-    `tfhe.br.kernels` and `tfhe.br.accumulate`."""
+    kernel path opens a `tfhe.br.glue` span (the first step's digits)
+    before its steps and splits each into `tfhe.br.kernels` (B1 + B5, B15
+    or the contraction) and `tfhe.br.glue` (the `br_glue` kernel: the
+    add, then the next step's digits)."""
     with obs.span("tfhe.blind_rotate"):
         if isinstance(bsk, NttBootstrapKey):
             return _blind_rotate_ntt(test_poly, lwe_ct, bsk, glwe, radix,

@@ -11,7 +11,10 @@ reconstruction back to Z / 2^64:
 * `TorusNttPlanU32`: four 30-bit primes on the u32 plan, whose forward
   transform (B1), digit contraction fused into the inverse (B5) and
   keyswitch megakernel (B15) are CUDA kernels on the card. The NTT-domain
-  bootstrap key lives in its domain.
+  bootstrap key lives in its domain. Its `br_glue` is the rest of a
+  blind-rotation step, one kernel on the card (`csrc/br_glue.cu`): the
+  step's update back to the torus and the wrapping add, then the next
+  step's rotated gadget digits as residues.
 
 Plans are cached per (N, k, device).
 """
@@ -22,11 +25,16 @@ from functools import lru_cache
 
 import torch
 
-from sunscreen_tpu_torch import resolve_device
+from sunscreen_tpu_torch import _build, resolve_device
 from sunscreen_tpu_torch.math import modular as m
 from sunscreen_tpu_torch.math import ntt, primes, rns
 from sunscreen_tpu_torch.math.modular import s64, srl
 from sunscreen_tpu_torch.math.sampling import signed_to_rns
+from sunscreen_tpu_torch.tfhe import torus
+
+# br_glue's kernel: N as B1's; a digit below the 30-bit primes
+GLUE_MIN_N, GLUE_MAX_N = 256, 16384
+GLUE_MAX_RADIX_LOG = 29
 
 
 class TorusNttPlan:
@@ -96,6 +104,14 @@ class TorusNttPlanU32:
         self.c_mod = s64(self.base.product)
         self.g60 = rns._col([((1 << 60) + q - 1) // q for q in mods],
                             self.device)
+        # br_glue's table, a row of 8 per prime: q, floor(2^64 / q),
+        # (C/q)^-1 mod q, g, C/q mod 2^64, C mod 2^64
+        self.glue_tab = torch.tensor(
+            [[q, (1 << 64) // q, inv, ((1 << 60) + q - 1) // q, s64(punc),
+              self.c_mod, 0, 0]
+             for q, inv, punc in zip(mods, self.base.inv_punctured,
+                                     self.base.punctured)],
+            dtype=torch.int64, device=self.device)
 
     def torus_to_rns(self, t):
         """u64 torus [..., N] -> [..., k, N] residues."""
@@ -129,6 +145,75 @@ class TorusNttPlanU32:
         alpha = srl((y * self.g60).sum(-2) + (1 << 59), 60)
         total = (y * self.theta).sum(-2)          # wraps mod 2^64
         return total - alpha * self.c_mod
+
+    def br_glue_plain(self, acc, upd, e, radix_log: int, count: int):
+        """`br_glue` in plain PyTorch (its twin on the CPU and the kernel's
+        oracle on the card)."""
+        if upd is not None:
+            acc = acc + self.to_torus(upd)          # wrapping add: CMUX
+        if e is None:
+            return acc, None
+        rotated = negacyclic_monomial_mul(acc, e, self.n)
+        return acc, self.signed_to_rns(
+            torus.gadget_digits(rotated - acc, radix_log, count))
+
+    def br_glue(self, acc, upd, e, radix_log: int, count: int):
+        """The glue of a blind-rotation step around its kernels, for the
+        GLWE accumulator acc [..., C, N]: with upd [..., C, k, N] (the
+        step's product in residues, B5's output), acc + to_torus(upd);
+        then, with e [...] (one exponent in [0, 2N) a ciphertext), the
+        residues [..., C l, k, N] of the `count` gadget digits of
+        X^e acc - acc (index c l + j), which the next step's B1 or B15
+        reads. upd None skips the add (a rotation's first step), e None the
+        digits (after its last). Returns (acc, digits or None). On a CUDA
+        tensor one launch of `csrc/br_glue.cu`; on a CPU tensor the plain
+        twin; never one for the other."""
+        if upd is None and e is None:
+            raise ValueError("br_glue needs upd, e or both")
+        if acc.dim() < 2:
+            raise ValueError(f"br_glue: acc [..., C, N], got "
+                             f"{tuple(acc.shape)}")
+        lead, comps = tuple(acc.shape[:-2]), acc.shape[-2]
+        k, n = self.base.k, self.n
+        for name, x, shape in (("acc", acc, lead + (comps, n)),
+                               ("upd", upd, lead + (comps, k, n)),
+                               ("e", e, lead)):
+            if x is None:
+                continue
+            if x.dtype != torch.int64 or x.device != self.device:
+                raise ValueError(f"br_glue: {name} must be int64 on "
+                                 f"{self.device}, got {x.dtype} on "
+                                 f"{x.device}")
+            if tuple(x.shape) != shape:
+                raise ValueError(f"br_glue: {name} has shape "
+                                 f"{tuple(x.shape)}, expected {shape}")
+        if e is not None and not (
+                1 <= radix_log <= GLUE_MAX_RADIX_LOG and count >= 1
+                and count * radix_log <= 64):
+            raise ValueError(f"br_glue: no {count} digits of {radix_log} "
+                             f"bits (1 <= radix_log <= "
+                             f"{GLUE_MAX_RADIX_LOG}, count radix_log <= 64)")
+        if acc.device.type == "cpu":
+            return self.br_glue_plain(acc, upd, e, radix_log, count)
+        if acc.device.type != "cuda":
+            raise ValueError(f"br_glue: unsupported device {acc.device}")
+        if not GLUE_MIN_N <= n <= GLUE_MAX_N:
+            raise ValueError(f"br_glue kernel holds {GLUE_MIN_N} <= N <= "
+                             f"{GLUE_MAX_N}, got {n}")
+        if not all(x is None or x.is_contiguous() for x in (acc, upd, e)):
+            raise ValueError("br_glue: operands must be contiguous")
+        rows = 1
+        for d in lead:
+            rows *= d
+        acc_out = None if upd is None else torch.empty_like(acc)
+        digits = None if e is None else torch.empty(
+            *lead, comps * count, k, n, dtype=torch.int64, device=acc.device)
+        if rows and comps:
+            _build.launch("br_glue", "br_glue", acc, upd, e, acc_out, digits,
+                          self.glue_tab, rows, comps, k, count, radix_log,
+                          n.bit_length() - 1)
+            _build.LAUNCHES["br_glue"] += 1
+        return (acc if acc_out is None else acc_out), digits
 
 
 @lru_cache(maxsize=8)

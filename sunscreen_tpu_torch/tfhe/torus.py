@@ -57,6 +57,13 @@ def signed_decompose(t, radix_log: int, count: int):
     return torch.stack(digits)
 
 
+def gadget_digits(polys, radix_log: int, count: int):
+    """polys [..., K, N] -> gadget digits [..., K count, N], index
+    i count + j."""
+    digits = signed_decompose(polys, radix_log, count)
+    return torch.movedim(digits, 0, -2).flatten(-3, -2)
+
+
 def recompose(digits, radix_log: int):
     """Inverse of signed_decompose (up to the dropped low bits)."""
     acc = torch.zeros(digits.shape[1:], dtype=torch.int64,

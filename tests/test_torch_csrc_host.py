@@ -8,7 +8,7 @@ another), a std::barrier for `__syncthreads` and a sleeping one per
 aligned group of lanes for `__syncwarp` and `__match_any_sync` (made at
 first use), the block's dynamic shared memory as a byte array, static
 `__shared__` variables as function statics, and the intrinsics the
-kernels use (`__umulhi`, `__umul64hi`, `__brev`, `__ldg`, `__ldcg`,
+kernels use (`__umulhi`, `__umul64hi`, `__brev`, `__ldg`, `__ldcg`, `__stcs`,
 `__popc`, `__clz`, `__threadfence`, and `atomicAdd` and `atomicExch` on
 u32 words). The
 sources are compiled as they are, after two textual rewrites
@@ -131,6 +131,7 @@ inline unsigned __match_any_sync(unsigned mask, unsigned v) {
   return peers;
 }
 template <class T> inline T __ldcg(const T* p) { return *p; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
 inline void __threadfence() {
   std::atomic_thread_fence(std::memory_order_seq_cst);
 }

@@ -1,8 +1,8 @@
 """The span recorder of `sunscreen_tpu_torch.observability` and the spans
 the port opens: the runtime's `runtime.run`, the lowering's `lower.<op>`
 per IR node, the BFV ops' `bfv.<op>` and the TFHE bootstrap's
-`tfhe.pbs` ⊃ `tfhe.blind_rotate` ⊃ `tfhe.br.step` ⊃ decompose, kernels,
-accumulate. CPU only, tiny sizes; imports nothing of the JAX package."""
+`tfhe.pbs` ⊃ `tfhe.blind_rotate` ⊃ a first `tfhe.br.glue`, then each
+`tfhe.br.step` ⊃ kernels, glue. CPU only, tiny sizes; imports nothing of the JAX package."""
 
 import json
 import logging
@@ -236,10 +236,10 @@ def test_a_bootstrap_is_pbs_over_blind_rotation_over_its_steps():
     assert pbs == "tfhe.pbs"
     assert [p[0] for p in parts] == ["tfhe.blind_rotate",
                                      "tfhe.sample_extract", "tfhe.keyswitch"]
-    steps = parts[0][1]
+    first, *steps = parts[0][1]
+    assert first == ("tfhe.br.glue", [])
     assert len(steps) == lwe.dim
     for name, children in steps:
         assert name == "tfhe.br.step"
-        assert children == [("tfhe.br.decompose", []),
-                            ("tfhe.br.kernels", []),
-                            ("tfhe.br.accumulate", [])]
+        assert children == [("tfhe.br.kernels", []),
+                            ("tfhe.br.glue", [])]
